@@ -1,0 +1,130 @@
+"""Harmonic bonds and angles (torch counterpart of
+``chargeflux_tpu.bonded``): E = 0.5 k (r - r0)^2 + 0.5 k (theta - theta0)^2.
+
+Templated molecule blocks evaluate on [count, stride, 3] reshapes with
+static slices; remainder rows take one gather.  Periodic torsions and
+restraints are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .pairs import displacement
+from .topology import TemplateSet, detect_templates
+
+
+def _bond_e(p1, p2, k, r0, box, pbc):
+    d = displacement(p1, p2, box, pbc)
+    r = torch.sqrt(torch.sum(d * d, dim=-1))
+    return 0.5 * torch.sum(k * (r - r0) ** 2)
+
+
+def _angle_e(p1, p2, p3, k, theta0, box, pbc):
+    d21 = displacement(p2, p1, box, pbc)
+    d23 = displacement(p2, p3, box, pbc)
+    r21 = torch.sqrt(torch.sum(d21 * d21, dim=-1))
+    r23 = torch.sqrt(torch.sum(d23 * d23, dim=-1))
+    cost = torch.sum(d21 * d23, dim=-1) / (r21 * r23)
+    theta = torch.arccos(torch.clamp(cost, -1.0, 1.0))
+    return 0.5 * torch.sum(k * (theta - theta0) ** 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class BondedParams:
+    """Bonded-term parameters (companion to ChargeFluxSystem)."""
+
+    bond_idx: torch.Tensor      # [B, 2] int64
+    bond_k: torch.Tensor        # [B] kJ/mol/nm^2
+    bond_r0: torch.Tensor       # [B] nm
+    angle_idx: torch.Tensor     # [A, 3] int64 (vertex = column 1)
+    angle_k: torch.Tensor       # [A] kJ/mol/rad^2
+    angle_theta0: torch.Tensor  # [A] rad
+    box: torch.Tensor           # [3]
+    pbc: bool
+    template: Optional[TemplateSet] = None
+
+    @classmethod
+    def create(cls, bond_idx, bond_k, bond_r0, angle_idx, angle_k,
+               angle_theta0, box, pbc, n_atoms=None, dtype=torch.float32,
+               device="cpu") -> "BondedParams":
+        """Build with molecule-template detection: repeating index
+        structure is reordered molecule-major for the static-slice path."""
+        bond_idx = np.asarray(bond_idx, np.int64).reshape(-1, 2)
+        angle_idx = np.asarray(angle_idx, np.int64).reshape(-1, 3)
+        bond_k, bond_r0 = np.asarray(bond_k), np.asarray(bond_r0)
+        angle_k, angle_theta0 = np.asarray(angle_k), np.asarray(angle_theta0)
+        if n_atoms is None:
+            tops = [int(v.max()) + 1 for v in (bond_idx, angle_idx) if v.size]
+            n_atoms = max(tops) if tops else 0
+        det = detect_templates({"bonds": bond_idx, "angles": angle_idx},
+                               n_atoms=n_atoms) if n_atoms else None
+        template = None
+        if det is not None:
+            template, perms = det
+            bp, ap = perms["bonds"], perms["angles"]
+            bond_idx, bond_k, bond_r0 = bond_idx[bp], bond_k[bp], bond_r0[bp]
+            angle_idx, angle_k, angle_theta0 = (angle_idx[ap], angle_k[ap],
+                                                angle_theta0[ap])
+
+        def f(a):
+            return torch.as_tensor(np.array(a, np.float64),
+                                   device=device).to(dtype)
+
+        def i(a):
+            return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+        return cls(bond_idx=i(bond_idx), bond_k=f(bond_k), bond_r0=f(bond_r0),
+                   angle_idx=i(angle_idx), angle_k=f(angle_k),
+                   angle_theta0=f(angle_theta0), box=f(box), pbc=pbc,
+                   template=template)
+
+
+def bonded_energy(positions: torch.Tensor,
+                  bonded: BondedParams) -> torch.Tensor:
+    """Total harmonic bond + angle energy (kJ/mol)."""
+    box, pbc = bonded.box, bonded.pbc
+    e = torch.zeros((), dtype=positions.dtype, device=positions.device)
+    b0 = a0 = 0
+    if bonded.template is not None:
+        for tpl in bonded.template.templates:
+            off, s, c = tpl.offset, tpl.stride, tpl.count
+            pos_m = positions[off:off + c * s].reshape(c, s, 3)
+            p = [pos_m[:, l] for l in range(s)]
+            rows = tpl.local_rows("bonds")
+            if rows:
+                m = len(rows)
+                k = bonded.bond_k[b0:b0 + c * m].reshape(c, m)
+                r0 = bonded.bond_r0[b0:b0 + c * m].reshape(c, m)
+                b0 += c * m
+                for t, (l1, l2) in enumerate(rows):
+                    e = e + _bond_e(p[l1], p[l2], k[:, t], r0[:, t], box, pbc)
+            rows = tpl.local_rows("angles")
+            if rows:
+                m = len(rows)
+                k = bonded.angle_k[a0:a0 + c * m].reshape(c, m)
+                t0 = bonded.angle_theta0[a0:a0 + c * m].reshape(c, m)
+                a0 += c * m
+                for t, (l1, l2, l3) in enumerate(rows):
+                    e = e + _angle_e(p[l1], p[l2], p[l3], k[:, t], t0[:, t],
+                                     box, pbc)
+    n_b = bonded.bond_idx.shape[0] - b0
+    n_a = bonded.angle_idx.shape[0] - a0
+    if n_b + n_a > 0:
+        bi = bonded.bond_idx[b0:]
+        ai = bonded.angle_idx[a0:]
+        p_all = positions[torch.cat([bi.reshape(-1), ai.reshape(-1)])]
+        if n_b:
+            pb = p_all[:2 * n_b].reshape(n_b, 2, 3)
+            e = e + _bond_e(pb[:, 0], pb[:, 1], bonded.bond_k[b0:],
+                            bonded.bond_r0[b0:], box, pbc)
+        if n_a:
+            pa = p_all[2 * n_b:].reshape(n_a, 3, 3)
+            e = e + _angle_e(pa[:, 0], pa[:, 1], pa[:, 2],
+                             bonded.angle_k[a0:], bonded.angle_theta0[a0:],
+                             box, pbc)
+    return e

@@ -1,0 +1,245 @@
+"""Fixed-capacity cell list for the periodic direct-space sum (torch
+counterpart of ``chargeflux_tpu.cells``).
+
+* Binning (:func:`build_cell_list_full`) is a stable counting sort on the
+  cell id: within a cell, atoms sit in increasing atom id, which is the
+  slot layout of the JAX package's one-hot ranking, so the two agree slot
+  for slot whenever no cell overflows.  Overflow drops atoms past the
+  capacity and is counted (the energy path NaN-poisons on it).
+* :func:`blockify` gathers the atom table into cell-major blocks with
+  :class:`_GatherRows`, whose backward is the inverse-permutation gather
+  (deterministic, no scatter-add).
+* :func:`direct_energy_on_blocks` is an autograd function around the fused
+  walk (``ops/direct_walk.py``): the forward computes E, dE/dx and dE/dq in
+  one pass, the backward is a scale.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .ops.direct_walk import direct_walk, direct_walk_plain
+from .pairs import frac_coords
+
+# Half-shell shift set: (0,0,0) self + 13 lexicographically positive shifts.
+HALF_SHELL = [(0, 0, 0)] + [
+    (dx, dy, dz)
+    for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)
+    if (dx, dy, dz) > (0, 0, 0)
+]
+
+
+def wrap_offsets(positions: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
+    """Lattice translation [N, 3] that wraps each position into the box
+    (``positions - wrap_offsets`` lies in [0, L)); orthorhombic boxes."""
+    if box.ndim == 2:
+        raise NotImplementedError("triclinic boxes are not ported yet "
+                                  "(ROADMAP.md)")
+    return box * torch.floor(positions / box)
+
+
+def _cell_coords(grid):
+    gx, gy, gz = grid
+    ids = np.arange(gx * gy * gz)
+    return ids // (gy * gz), (ids // gz) % gy, ids % gz
+
+
+def neighbor_cell_table(grid) -> np.ndarray:
+    """Static [n_cells, 27] table of wrapped neighbor cell ids (full
+    shell, shifts in (dx, dy, dz) lexicographic order)."""
+    gx, gy, gz = grid
+    cx, cy, cz = _cell_coords(grid)
+    out = []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                out.append((((cx + dx) % gx) * gy + (cy + dy) % gy) * gz
+                           + (cz + dz) % gz)
+    return np.stack(out, axis=1).astype(np.int32)
+
+
+def full_shell_tables(grid):
+    """(nbr [C, 27] int32, image_offsets [C, 27, 3] int8): the
+    :func:`neighbor_cell_table` and, per entry, the periodic image offset
+    of the neighbor cell in box units — what the direct-walk kernel
+    reads."""
+    gx, gy, gz = grid
+    cx, cy, cz = _cell_coords(grid)
+    off = []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                off.append(np.stack([(cx + dx) // gx, (cy + dy) // gy,
+                                     (cz + dz) // gz], axis=-1))
+    return neighbor_cell_table(grid), np.stack(off, axis=1).astype(np.int8)
+
+
+def half_shell_tables(grid):
+    """(nbr_ids [C, 14] int32, image_offsets [C, 14, 3] int8) for the
+    half-shell traversal; shift 0 is the self cell."""
+    gx, gy, gz = grid
+    cx, cy, cz = _cell_coords(grid)
+    nbr, off = [], []
+    for (dx, dy, dz) in HALF_SHELL:
+        nx, ny, nz = cx + dx, cy + dy, cz + dz
+        nbr.append(((nx % gx) * gy + ny % gy) * gz + nz % gz)
+        off.append(np.stack([nx // gx, ny // gy, nz // gz], axis=-1))
+    return (np.stack(nbr, axis=1).astype(np.int32),
+            np.stack(off, axis=1).astype(np.int8))
+
+
+def rank_into_slots(cell: torch.Tensor, n_cells: int, capacity: int):
+    """Place atom i into a slot of cell ``cell[i]`` by a stable counting
+    sort (rank = number of lower-id atoms in the same cell).
+
+    Returns (slots [n_cells, capacity] int32 atom ids, sentinel N;
+    slot_of [N] int32 flat slot per atom, sentinel n_cells*capacity;
+    overflow int32 count of atoms dropped past the capacity).
+    """
+    n = cell.shape[0]
+    dev = cell.device
+    sentinel = n_cells * capacity
+    order = torch.sort(cell, stable=True).indices
+    sorted_cell = cell[order]
+    counts = torch.bincount(cell, minlength=n_cells)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - starts[sorted_cell]
+    ok = rank < capacity
+    slot = torch.where(ok, sorted_cell * capacity + rank, sentinel)
+    # dropped atoms all write the extra sentinel entry, which is cut off
+    slots = torch.full((sentinel + 1,), n, dtype=torch.int32, device=dev)
+    slots[slot] = order.to(torch.int32)
+    slot_of = torch.empty((n,), dtype=torch.int32, device=dev)
+    slot_of[order] = slot.to(torch.int32)
+    overflow = torch.sum(~ok).to(torch.int32)
+    return slots[:sentinel].reshape(n_cells, capacity), slot_of, overflow
+
+
+@torch.no_grad()
+def build_cell_list_full(positions: torch.Tensor, box: torch.Tensor, grid,
+                         capacity: int):
+    """Bin atoms into cells.  Returns (slots [n_cells, capacity] int32 with
+    sentinel N, inv_slot [N] int32 with sentinel n_cells*capacity, overflow
+    [scalar int32]).  Cell indices are computed with the JAX package's
+    float ops (fractional coordinate, wrap, scale, truncate, clip)."""
+    gx, gy, gz = grid
+    gvec = torch.tensor(grid, dtype=positions.dtype, device=positions.device)
+    frac = frac_coords(positions, box)
+    frac = frac - torch.floor(frac)
+    ci = (frac * gvec).to(torch.int32)
+    ci = torch.minimum(torch.clamp(ci, min=0),
+                       torch.tensor([gx - 1, gy - 1, gz - 1], dtype=torch.int32,
+                                    device=positions.device))
+    cell = ((ci[:, 0] * gy + ci[:, 1]) * gz + ci[:, 2]).long()
+    return rank_into_slots(cell, gx * gy * gz, capacity)
+
+
+def suggest_capacity(positions, box, grid, margin: float = 1.25,
+                     multiple: int = 8) -> int:
+    """Capacity from an actual configuration: max cell occupancy * margin,
+    rounded up to ``multiple`` (NumPy, host side)."""
+    positions = np.asarray(positions, dtype=np.float64)
+    box = np.asarray(box, dtype=np.float64)
+    grid = np.asarray(grid)
+    frac = positions @ np.linalg.inv(box) if box.ndim == 2 else positions / box
+    frac -= np.floor(frac)
+    ci = np.clip((frac * grid).astype(np.int64), 0, grid - 1)
+    cid = (ci[:, 0] * grid[1] + ci[:, 1]) * grid[2] + ci[:, 2]
+    peak = int(np.bincount(cid, minlength=int(np.prod(grid))).max())
+    cap = int(math.ceil(peak * margin))
+    return ((cap + multiple - 1) // multiple) * multiple
+
+
+class CellBlocks(NamedTuple):
+    """Cell-major block arrays, all [gx, gy, gz, cap] and contiguous:
+    wrapped coordinates, effective charges, half-sigma and 2 sqrt(eps)
+    LJ prefactors; empty slots hold zeros."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    q: torch.Tensor
+    hs: torch.Tensor
+    se: torch.Tensor
+
+
+class _GatherRows(torch.autograd.Function):
+    """Row gather ``table[flat]`` whose backward gathers the cotangent rows
+    by the inverse permutation ``inv`` (row -> output position, sentinel
+    >= len(flat)) instead of scatter-adding; valid because ``flat`` is a
+    permutation of the non-pad rows."""
+
+    @staticmethod
+    def forward(ctx, table, flat, inv):
+        ctx.save_for_backward(inv)
+        ctx.nrow = table.shape[0]
+        return table[flat]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (inv,) = ctx.saved_tensors
+        s = ct.shape[0]
+        ctp = torch.cat([ct, ct.new_zeros((1, ct.shape[1]))])
+        pad = torch.full((ctx.nrow - inv.shape[0],), s, dtype=inv.dtype,
+                         device=inv.device)
+        idx = torch.clamp(torch.cat([inv, pad]), max=s)
+        return ctp[idx], None, None
+
+
+def gather_rows(table, flat, inv):
+    """``table[flat]`` with the inverse-permutation backward."""
+    return _GatherRows.apply(table, flat, inv)
+
+
+def blockify(positions: torch.Tensor, q: torch.Tensor, system, slots,
+             inv_slot, wrap=None) -> CellBlocks:
+    """Gather the padded [N+1, 8] atom table (x y z q hs se 0 0) into cell
+    blocks.  With neighbor-state reuse, ``wrap`` is the offset frozen at
+    the rebuild, so coordinates stay continuous across the boundary."""
+    spec = system.spec
+    grid4 = tuple(spec.cell_grid) + (spec.cell_capacity,)
+    n = positions.shape[0]
+    dtype = positions.dtype
+    if wrap is None:
+        wrap = wrap_offsets(positions.detach(), system.box)
+    pos_w = positions - wrap
+    table = torch.cat(
+        [pos_w, q[:, None], 0.5 * system.sigma.to(dtype)[:, None],
+         2.0 * torch.sqrt(system.epsilon.to(dtype))[:, None],
+         positions.new_zeros((n, 2))], dim=1)
+    table = torch.cat([table, positions.new_zeros((1, 8))], dim=0)
+    g4 = gather_rows(table, slots.reshape(-1), inv_slot).reshape(grid4 + (8,))
+    return CellBlocks(*(g4[..., k].contiguous() for k in range(6)))
+
+
+class _DirectEnergy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, z, q, hs, se, ids, box, n_atoms, alpha, cutoff,
+                plain):
+        walk = direct_walk_plain if plain else direct_walk
+        e, g, dq = walk(x, y, z, q, hs, se, ids, box, n_atoms, alpha, cutoff)
+        ctx.save_for_backward(g, dq)
+        return e
+
+    @staticmethod
+    def backward(ctx, g_out):
+        g, dq = ctx.saved_tensors
+        return (g_out * g[0], g_out * g[1], g_out * g[2], g_out * dq,
+                None, None, None, None, None, None, None, None)
+
+
+def direct_energy_on_blocks(blocks: CellBlocks, ids: torch.Tensor, system,
+                            plain: bool = False) -> torch.Tensor:
+    """Direct-space erfc Coulomb + LJ over every in-cutoff pair of the
+    blocks (excluded pairs included; energy.py subtracts them).  The fused
+    walk gives dE/dx and dE/dq in the forward pass; LJ prefactors get no
+    gradient.  ``plain=True`` runs the plain walk on any device."""
+    spec = system.spec
+    ids = ids.to(torch.int32).contiguous()
+    return _DirectEnergy.apply(blocks.x, blocks.y, blocks.z, blocks.q,
+                               blocks.hs, blocks.se, ids, system.box,
+                               system.n_atoms, spec.alpha, spec.cutoff, plain)

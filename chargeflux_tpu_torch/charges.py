@@ -1,0 +1,160 @@
+"""Geometry-dependent effective charges q(x) (torch counterpart of
+``chargeflux_tpu.charges``).
+
+q(x) is a plain function of the positions; autograd through it gives the
+dE/dq . dq/dx chain-rule term of the forces.  Templated molecule blocks
+(topology.py) evaluate on [count, stride, 3] reshapes with static slices;
+only the remainder rows (a solute) go through one gather and one
+``index_add``, which on the card uses atomics and so is the one
+non-deterministic step — the templated 30k water box has no remainder.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .pairs import displacement
+from .system import ChargeFluxSystem
+
+
+def _norm(d):
+    return torch.sqrt(torch.sum(d * d, dim=-1))
+
+
+def _angle(p1, p2, p3, box, pbc):
+    """Law-of-cosines angle at p2 from three independent min-image deltas
+    (the reference's formula), acos clamped for NaN safety."""
+    d21 = displacement(p2, p1, box, pbc)
+    d23 = displacement(p2, p3, box, pbc)
+    d13 = displacement(p1, p3, box, pbc)
+    r21 = _norm(d21)
+    r23 = _norm(d23)
+    r13_2 = torch.sum(d13 * d13, dim=-1)
+    cost = (r23 * r23 + r21 * r21 - r13_2) / (2.0 * r21 * r23)
+    return torch.arccos(torch.clamp(cost, -1.0, 1.0))
+
+
+def _water_dq(p1, p2, p3, k1, k2, kub, b0, ub0, box, pbc):
+    """CFF 3-site water charge deltas (dq_O, dq_H1, dq_H2)."""
+    r12 = _norm(displacement(p1, p2, box, pbc))
+    r13 = _norm(displacement(p1, p3, box, pbc))
+    r23 = _norm(displacement(p2, p3, box, pbc))
+    dq2 = k1 * (r12 - b0) + k2 * (r13 - b0) + kub * (r23 - ub0)
+    dq3 = k1 * (r13 - b0) + k2 * (r12 - b0) + kub * (r23 - ub0)
+    return -dq2 - dq3, dq2, dq3
+
+
+def _template_dq_flat(positions, system: ChargeFluxSystem, tpl, starts):
+    """Charge deltas for one template block, flattened to [count*stride];
+    advances the per-kind row cursor ``starts`` in place."""
+    dtype = positions.dtype
+    box, pbc = system.box, system.spec.pbc
+    off, s, c = tpl.offset, tpl.stride, tpl.count
+    pos_m = positions[off:off + c * s].reshape(c, s, 3)
+    p = [pos_m[:, l] for l in range(s)]
+    slot_dq = [[] for _ in range(s)]
+
+    bond_rows = tpl.local_rows("bonds")
+    if bond_rows:
+        m = len(bond_rows)
+        b0_ = starts["bonds"]
+        starts["bonds"] += c * m
+        k = system.bond_k[b0_:b0_ + c * m].reshape(c, m)
+        b = system.bond_b[b0_:b0_ + c * m].reshape(c, m)
+        for t, (l1, l2) in enumerate(bond_rows):
+            r = _norm(displacement(p[l1], p[l2], box, pbc))
+            dq = k[:, t] * (r - b[:, t])
+            slot_dq[l1].append(dq)
+            slot_dq[l2].append(-dq)
+
+    angle_rows = tpl.local_rows("angles")
+    if angle_rows:
+        m = len(angle_rows)
+        a0_ = starts["angles"]
+        starts["angles"] += c * m
+        k = system.angle_k[a0_:a0_ + c * m].reshape(c, m)
+        t0 = system.angle_theta0[a0_:a0_ + c * m].reshape(c, m)
+        for t, (l1, l2, l3) in enumerate(angle_rows):
+            theta = _angle(p[l1], p[l2], p[l3], box, pbc)
+            dq = k[:, t] * (theta - t0[:, t])
+            slot_dq[l1].append(dq)
+            slot_dq[l3].append(dq)
+            slot_dq[l2].append(-2.0 * dq)
+
+    water_rows = tpl.local_rows("waters")
+    if water_rows:
+        m = len(water_rows)
+        w0_ = starts["waters"]
+        starts["waters"] += c * m
+        sl = slice(w0_, w0_ + c * m)
+        par = [getattr(system, f)[sl].reshape(c, m) for f in
+               ("water_k1", "water_k2", "water_kub", "water_b0", "water_ub0")]
+        for t, (lo, lh1, lh2) in enumerate(water_rows):
+            dqo, dq2, dq3 = _water_dq(p[lo], p[lh1], p[lh2],
+                                      *[a[:, t] for a in par], box, pbc)
+            slot_dq[lo].append(dqo)
+            slot_dq[lh1].append(dq2)
+            slot_dq[lh2].append(dq3)
+
+    zero = torch.zeros((c,), dtype=dtype, device=positions.device)
+    dq_slots = torch.stack(
+        [sum(sl[1:], sl[0]) if sl else zero for sl in slot_dq], dim=1)
+    return dq_slots.reshape(-1)
+
+
+def _scatter_flux(q, positions, system: ChargeFluxSystem,
+                  b0: int = 0, a0: int = 0, w0: int = 0):
+    """General charge update on term rows [b0:], [a0:], [w0:]: one
+    position gather and one ``index_add`` for all kinds."""
+    box, pbc = system.box, system.spec.pbc
+    bi = system.bond_idx[b0:]
+    ai = system.angle_idx[a0:]
+    wi = system.water_idx[w0:]
+    n_b, n_a, n_w = bi.shape[0], ai.shape[0], wi.shape[0]
+    if n_b + n_a + n_w == 0:
+        return q
+    idx_all = torch.cat([bi.reshape(-1), ai.reshape(-1), wi.reshape(-1)])
+    p_all = positions[idx_all]
+    dq_parts = []
+    if n_b:
+        pb = p_all[:2 * n_b].reshape(n_b, 2, 3)
+        r = _norm(displacement(pb[:, 0], pb[:, 1], box, pbc))
+        dq = system.bond_k[b0:] * (r - system.bond_b[b0:])
+        dq_parts.append(torch.stack([dq, -dq], dim=1).reshape(-1))
+    if n_a:
+        pa = p_all[2 * n_b:2 * n_b + 3 * n_a].reshape(n_a, 3, 3)
+        theta = _angle(pa[:, 0], pa[:, 1], pa[:, 2], box, pbc)
+        dq = system.angle_k[a0:] * (theta - system.angle_theta0[a0:])
+        dq_parts.append(torch.stack([dq, -2.0 * dq, dq], dim=1).reshape(-1))
+    if n_w:
+        pw = p_all[2 * n_b + 3 * n_a:].reshape(n_w, 3, 3)
+        dqo, dq2, dq3 = _water_dq(
+            pw[:, 0], pw[:, 1], pw[:, 2], system.water_k1[w0:],
+            system.water_k2[w0:], system.water_kub[w0:],
+            system.water_b0[w0:], system.water_ub0[w0:], box, pbc)
+        dq_parts.append(torch.stack([dqo, dq2, dq3], dim=1).reshape(-1))
+    return q.index_add(0, idx_all, torch.cat(dq_parts))
+
+
+def effective_charges(positions: torch.Tensor,
+                      system: ChargeFluxSystem) -> torch.Tensor:
+    """q_i = q0_i + the flux-bond/angle/water contributions [N]; every
+    term conserves the total charge."""
+    dtype = positions.dtype
+    q = system.q0.to(dtype)
+    ts = system.spec.flux_template
+    if ts is None:
+        return _scatter_flux(q, positions, system)
+    starts = {"bonds": 0, "angles": 0, "waters": 0}
+    pieces = []
+    cursor = 0
+    for tpl in ts.templates:
+        off, end = tpl.offset, tpl.offset + tpl.count * tpl.stride
+        dq = _template_dq_flat(positions, system, tpl, starts)
+        pieces.append(q[cursor:off])
+        pieces.append(q[off:end] + dq)
+        cursor = end
+    pieces.append(q[cursor:])
+    q = torch.cat(pieces)
+    return _scatter_flux(q, positions, system, b0=starts["bonds"],
+                         a0=starts["angles"], w0=starts["waters"])

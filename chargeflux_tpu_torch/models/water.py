@@ -1,0 +1,112 @@
+"""Flexible 3-site water boxes with charge flux (torch counterpart of
+``chargeflux_tpu.models.water``).
+
+:func:`water_box` draws from the same NumPy generator in the same order as
+the JAX package, so for equal arguments the positions are bit-identical.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..bonded import BondedParams
+from ..system import CoulForce
+
+# TIP3P-flavored parameters (charges e, lengths nm, energies kJ/mol).
+Q_O, Q_H = -0.834, 0.417
+SIG_O, EPS_O = 0.31507, 0.6364
+SIG_H, EPS_H = 0.1, 0.0
+R_OH = 0.09572
+ANGLE_HOH = 1.82421813  # 104.52 degrees in radians
+R_HH = 2 * R_OH * np.sin(ANGLE_HOH / 2)
+
+# Charge-flux couplings (e/nm and e/rad).
+K_BOND = 1.2
+K_ANGLE = 0.12
+K1_WATER, K2_WATER, KUB_WATER = 1.0, 0.4, -0.3
+
+WATER_MASSES = (15.999, 1.008, 1.008)
+
+# SPC/Fw-like flexible-water bonded constants (kJ/mol/nm^2, kJ/mol/rad^2).
+KB_OH = 443153.0
+KA_HOH = 317.6
+
+
+def _one_water(center, rng, perturb: float = 0.02):
+    """O/H1/H2 positions for one water with a random orientation and a
+    small geometry perturbation."""
+    m = rng.standard_normal((3, 3))
+    qmat, r = np.linalg.qr(m)
+    qmat *= np.sign(np.diag(r))
+    d1 = R_OH * (1.0 + perturb * rng.standard_normal())
+    d2 = R_OH * (1.0 + perturb * rng.standard_normal())
+    ang = ANGLE_HOH * (1.0 + perturb * rng.standard_normal())
+    h1 = np.array([d1, 0.0, 0.0])
+    h2 = np.array([d2 * np.cos(ang), d2 * np.sin(ang), 0.0])
+    o = np.zeros(3)
+    pts = np.stack([o, h1, h2]) @ qmat.T
+    return pts + center
+
+
+def _build(force: CoulForce, n_waters: int, flux: str):
+    for _ in range(n_waters):
+        o = force.addParticle(Q_O, SIG_O, EPS_O)
+        h1 = force.addParticle(Q_H, SIG_H, EPS_H)
+        h2 = force.addParticle(Q_H, SIG_H, EPS_H)
+        force.addException(o, h1)
+        force.addException(o, h2)
+        force.addException(h1, h2)
+        if flux == "bond_angle":
+            force.addFluxBond(o, h1, K_BOND, R_OH)
+            force.addFluxBond(o, h2, K_BOND, R_OH)
+            force.addFluxAngle(h1, o, h2, K_ANGLE, ANGLE_HOH)
+        elif flux == "water":
+            force.addFluxWater(o, h1, h2, K1_WATER, K2_WATER, KUB_WATER,
+                               R_OH, R_HH)
+        elif flux != "none":
+            raise ValueError(f"unknown flux mode {flux!r}")
+
+
+def water_bonded_params(n_waters: int, box=None, dtype=torch.float32,
+                        device="cpu") -> BondedParams:
+    """SPC/Fw-style harmonic bonds/angles holding each water together."""
+    base = 3 * np.arange(n_waters)[:, None]
+    bond_idx = np.concatenate([base + [0, 1], base + [0, 2]], axis=0)
+    angle_idx = base + [1, 0, 2]
+    n_b, n_a = 2 * n_waters, n_waters
+    pbc = box is not None
+    box_arr = np.asarray(box, dtype=np.float64) if pbc else np.zeros(3)
+    return BondedParams.create(
+        bond_idx=bond_idx, bond_k=np.full(n_b, KB_OH),
+        bond_r0=np.full(n_b, R_OH), angle_idx=angle_idx,
+        angle_k=np.full(n_a, KA_HOH), angle_theta0=np.full(n_a, ANGLE_HOH),
+        box=box_arr, pbc=pbc, n_atoms=3 * n_waters, dtype=dtype,
+        device=device)
+
+
+def water_box(n_side: int = 6, flux: str = "bond_angle", cutoff: float = 0.9,
+              ewald_tol: float = 1e-4, density_spacing: float = 0.3107,
+              seed: int = 0):
+    """Periodic n_side^3-water box at roughly liquid density.
+
+    Returns (force, positions [N, 3] float64 NumPy, masses [N], box [3]).
+    """
+    rng = np.random.default_rng(seed)
+    force = CoulForce()
+    force.setUsesPeriodicBoundaryConditions(True)
+    force.setCutoffDistance(cutoff)
+    force.setEwaldErrorTolerance(ewald_tol)
+    n_w = n_side ** 3
+    _build(force, n_w, flux)
+    box = np.full(3, n_side * density_spacing)
+    pos = []
+    for ix in range(n_side):
+        for iy in range(n_side):
+            for iz in range(n_side):
+                center = density_spacing * (np.array([ix, iy, iz]) + 0.5)
+                center += 0.01 * rng.standard_normal(3)
+                pos.append(_one_water(center, rng))
+    positions = np.concatenate(pos, axis=0)
+    masses = np.tile(np.array(WATER_MASSES), n_w)
+    return force, positions, masses, box

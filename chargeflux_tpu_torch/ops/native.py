@@ -1,0 +1,103 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``; nothing is
+compiled when a module is imported.  The first call to :func:`library`
+builds into ``chargeflux_tpu_torch/_build/`` (a file name keyed by the
+hash of the sources and flags, so an edited source rebuilds) and records
+the compiler's output, ``-Xptxas -v`` register and shared-memory counts
+included, in ``_build/build.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("pme_spread.cu", "direct_walk.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+
+
+def _nvcc() -> str:
+    # PyTorch's own lookup: $CUDA_HOME / $CUDA_PATH, nvcc on PATH, the
+    # toolkit's default install prefix
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").is_file():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built from source at first use")
+    return found
+
+
+def build() -> Path:
+    """Compile the kernels if the library for the current sources is not
+    built yet; returns its path."""
+    srcs = [CSRC_DIR / s for s in SOURCES]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.read_bytes())
+    out = BUILD_DIR / f"libcftorch_{h.hexdigest()[:16]}.so"
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.cf_spread_limits.argtypes = [ctypes.POINTER(i)] * 2
+        lib.cf_walk_limits.argtypes = [ctypes.POINTER(i)] * 2
+        lib.cf_spread_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.cf_spread_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
+        lib.cf_direct_walk.argtypes = ([p] * 11 + [i, f, f, i, i, i]
+                                       + [p] * 3 + [p])
+        for fn in (lib.cf_spread_limits, lib.cf_walk_limits,
+                   lib.cf_spread_fwd, lib.cf_spread_bwd, lib.cf_direct_walk):
+            fn.restype = i
+        _lib = lib
+    return _lib
+
+
+def limits(name: str) -> tuple:
+    """Compile-time bounds a kernel family was built with."""
+    a, b = ctypes.c_int(), ctypes.c_int()
+    getattr(library(), name)(ctypes.byref(a), ctypes.byref(b))
+    return a.value, b.value
+
+
+def check(err: int, what: str):
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream_ptr(t) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,74 @@
+"""Displacement geometry (torch counterpart of ``chargeflux_tpu.pairs``).
+
+Orthorhombic minimum image: ``delta - box * floor(delta / box + 0.5)``,
+OpenMM's reference convention.  A [3, 3] reduced lower-triangular lattice
+(triclinic) is wrapped by the sequential c-then-b-then-a subtraction.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def delta_periodic(pa: torch.Tensor, pb: torch.Tensor,
+                   box: torch.Tensor) -> torch.Tensor:
+    """Minimum-image displacement a -> b."""
+    d = pb - pa
+    if box.ndim == 2:
+        d = d - box[2] * torch.floor(d[..., 2:3] / box[2, 2] + 0.5)
+        d = d - box[1] * torch.floor(d[..., 1:2] / box[1, 1] + 0.5)
+        d = d - box[0] * torch.floor(d[..., 0:1] / box[0, 0] + 0.5)
+        return d
+    return d - box * torch.floor(d / box + 0.5)
+
+
+def displacement(pa, pb, box, pbc: bool):
+    """Displacement a -> b, minimum image when ``pbc``."""
+    if pbc:
+        return delta_periodic(pa, pb, box)
+    return pb - pa
+
+
+def box_volume(box: torch.Tensor) -> torch.Tensor:
+    """Edge product ([3]) or diagonal product of a reduced [3, 3] lattice."""
+    if box.ndim == 2:
+        return box[0, 0] * box[1, 1] * box[2, 2]
+    return box[0] * box[1] * box[2]
+
+
+def box_inverse(box: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of the reduced lower-triangular [3, 3] lattice."""
+    b00, b11, b22 = box[0, 0], box[1, 1], box[2, 2]
+    i00 = 1.0 / b00
+    i11 = 1.0 / b11
+    i22 = 1.0 / b22
+    i10 = -box[1, 0] * (i00 * i11)
+    i21 = -box[2, 1] * (i11 * i22)
+    i20 = (box[1, 0] * box[2, 1] - box[2, 0] * b11) * (i00 * i11 * i22)
+    z = torch.zeros_like(b00)
+    return torch.stack([torch.stack([i00, z, z]),
+                        torch.stack([i10, i11, z]),
+                        torch.stack([i20, i21, i22])])
+
+
+def frac_coords(x: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
+    """Fractional coordinates f with x = f @ box (x / box when
+    orthorhombic); the triclinic transform is expanded elementwise, as in
+    the JAX package."""
+    if box.ndim == 2:
+        inv = box_inverse(box)
+        f0 = x[..., 0] * inv[0, 0] + x[..., 1] * inv[1, 0] \
+            + x[..., 2] * inv[2, 0]
+        f1 = x[..., 1] * inv[1, 1] + x[..., 2] * inv[2, 1]
+        f2 = x[..., 2] * inv[2, 2]
+        return torch.stack([f0, f1, f2], dim=-1)
+    return x / box
+
+
+def plane_widths(box: torch.Tensor) -> torch.Tensor:
+    """Perpendicular widths as a [3] tensor (the box itself when
+    orthorhombic)."""
+    if box.ndim == 2:
+        inv = box_inverse(box)
+        return 1.0 / torch.sqrt(torch.sum(inv * inv, dim=0))
+    return box

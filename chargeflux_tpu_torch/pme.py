@@ -1,0 +1,275 @@
+"""Smooth particle-mesh Ewald reciprocal space on the cell blocks (torch
+counterpart of ``chargeflux_tpu.pme``).
+
+E_rec = sum_m D(m) |Q^(m)|^2 with Q the charge mesh spread by order-p
+cardinal B-splines and D the influence function.  The spread is the
+cell-column route of the JAX package's ``pme_cell_pallas_reciprocal_energy``:
+each cell's atoms touch only a static patch of the mesh, so per cell
+column the compact x/y weights and the order-p z taps go to
+``ops.pme_spread.spread_columns`` (the hand-written CUDA kernel on the
+card), two static folds wrap the padded x/y edges, and ``torch.fft.rfftn``
+(cuFFT) does the transform.  Forces come from autograd; the B-spline
+backward uses the analytic identity M_p' = M_{p-1}(t) - M_{p-1}(t-1).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .ops.pme_spread import fold_padded_axis, spread_columns
+from .pairs import box_volume
+from .units import ONE_4PI_EPS0
+
+# Order 8: the spline order never enters a contraction shape, so a higher
+# order is nearly free while the mesh shrinks at equal accuracy.
+DEFAULT_ORDER = 8
+
+
+def good_fft_size(n: int) -> int:
+    """Smallest size >= n whose factors are all 2, 3 or 5."""
+    while True:
+        m = n
+        for f in (2, 3, 5):
+            while m % f == 0:
+                m //= f
+        if m == 1:
+            return n
+        n += 1
+
+
+# Measured prefactors of the PME force-error law relF ~= C_p (alpha h)^p
+# (the JAX package's calibration, tools/calibrate_pme.py).
+_ERR_PREFACTOR = {4: 0.26, 6: 0.06, 8: 0.027}
+
+
+def pme_grid_size(box, alpha: float, tol: float,
+                  order: int = DEFAULT_ORDER) -> Tuple[int, int, int]:
+    """Per-axis mesh size for a target relative force error ``tol``."""
+    c = 2.0 * _ERR_PREFACTOR.get(order, 0.3)
+    h = (tol / c) ** (1.0 / order) / alpha
+    out = []
+    for L in np.asarray(box, dtype=np.float64):
+        n = max(int(math.ceil(float(L) / h)), 2 * order)
+        out.append(good_fft_size(n))
+    return tuple(out)
+
+
+def _bspline_raw(t: torch.Tensor, order: int, depth: int = 1):
+    """B-spline recursion M_n(t) = [t M_{n-1}(t) + (n - t) M_{n-1}(t-1)] /
+    (n - 1) on a stack whose level j holds M_n(t - j); returns the top
+    ``depth`` levels."""
+    level = [torch.clamp(1.0 - torch.abs(t - 1.0 - j), min=0.0)
+             for j in range(order - 2 + depth)]
+    for n in range(3, order + 1):
+        tj = [t - j for j in range(len(level) - 1)]
+        level = [(tj[j] * level[j] + (n - tj[j]) * level[j + 1]) / (n - 1)
+                 for j in range(len(level) - 1)]
+    return level[:depth]
+
+
+class _BSpline(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, order):
+        ctx.save_for_backward(t)
+        ctx.order = order
+        return _bspline_raw(t, order)[0]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (t,) = ctx.saved_tensors
+        lo = _bspline_raw(t, ctx.order - 1, depth=2)
+        return ct * (lo[0] - lo[1]), None
+
+
+def bspline(t: torch.Tensor, order: int) -> torch.Tensor:
+    """Cardinal B-spline M_p(t), support (0, p), with the analytic
+    derivative identity in its backward."""
+    return _BSpline.apply(t, order)
+
+
+def _bspline_dft_sq(grid_n: int, order: int) -> np.ndarray:
+    """|b(m)|^2 Euler factors, NumPy [G] (f64)."""
+    j = np.arange(order - 1)
+
+    def m_n(n, t):
+        if n == 2:
+            return max(0.0, 1.0 - abs(t - 1.0))
+        return (t * m_n(n - 1, t) + (n - t) * m_n(n - 1, t - 1.0)) / (n - 1)
+    nodes = np.array([m_n(order, float(k + 1)) for k in j])
+    m = np.arange(grid_n)
+    ph = np.exp(2j * np.pi * m[:, None] * j[None, :] / grid_n)
+    denom = ph @ nodes
+    return 1.0 / np.maximum(np.abs(denom) ** 2, 1e-300)
+
+
+@lru_cache(maxsize=16)
+def _influence_static(grid, order, dtype, device):
+    """Box-independent factors of the influence function: signed integer
+    frequencies, the origin mask and the B-spline/half-space weights."""
+    gx, gy, gz = grid
+
+    def ifreqs(n):
+        return np.fft.fftfreq(n, d=1.0 / n)
+
+    bx = _bspline_dft_sq(gx, order)[:, None, None]
+    by = _bspline_dft_sq(gy, order)[None, :, None]
+    bz = _bspline_dft_sq(gz, order)[: (gz // 2 + 1)][None, None, :]
+    wz = np.full(gz // 2 + 1, 2.0)
+    wz[0] = 1.0
+    if gz % 2 == 0:
+        wz[-1] = 1.0
+    origin = np.zeros((gx, gy, gz // 2 + 1), dtype=bool)
+    origin[0, 0, 0] = True
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), device=device).to(dt)
+
+    return (t(ifreqs(gx)), t(ifreqs(gy)), t(np.arange(gz // 2 + 1)),
+            t(origin, torch.bool), t(bx * by * bz * wz[None, None, :]))
+
+
+def influence_function(grid, box: torch.Tensor, alpha: float, order: int,
+                       dtype=torch.float64) -> torch.Tensor:
+    """Real rFFT-space influence function D [Gx, Gy, Gz//2+1] with
+    E_rec = sum(D |Q^|^2) (orthorhombic box; origin masked to zero)."""
+    if box.ndim == 2:
+        raise NotImplementedError("triclinic PME is not ported yet "
+                                  "(ROADMAP.md)")
+    fx, fy, fz, origin, static = _influence_static(
+        tuple(grid), order, dtype, box.device)
+    two_pi = 2.0 * math.pi
+    kx = (two_pi * fx / box[0])[:, None, None]
+    ky = (two_pi * fy / box[1])[None, :, None]
+    kz = (two_pi * fz / box[2])[None, None, :]
+    k2 = kx * kx + ky * ky + kz * kz
+    k2s = torch.where(origin, 1.0, k2)
+    kern = torch.where(origin, 0.0,
+                       torch.exp(-k2s * (0.25 / (alpha * alpha))) / k2s)
+    const = two_pi * ONE_4PI_EPS0 / box_volume(box)
+    return const * kern * static
+
+
+def _patch_origins(n_cells: int, grid_n: int, order: int,
+                   extra: int = 0) -> np.ndarray:
+    """Static mesh origin of each cell's spread patch (may be negative)."""
+    c = np.arange(n_cells)
+    return (np.floor(c * grid_n / n_cells)).astype(np.int64) - order - extra
+
+
+def _patch_width(n_cells: int, grid_n: int, order: int,
+                 extra: int = 0) -> int:
+    """Patch extent covering every support point of every atom in a cell:
+    one point of slack per side for binning rounding plus ``extra`` per
+    side for neighbor-reuse drift (spec.pme_slack)."""
+    return int(math.ceil(grid_n / n_cells)) + order + 2 + 2 * extra
+
+
+def _cell_patch_weights(coord, n_cells, grid_n, length, extra, cell_axis,
+                        order, dtype, transposed: bool = False):
+    """Per-cell compact B-spline patch weights; returns (weights, int
+    patch origins [n_cells], patch width).  ``transposed`` lands the tap
+    axis third ([ngx, ngy, W, ngz, cap]) — the column layout of the
+    spread — instead of last."""
+    u = coord * (grid_n / length)
+    org = _patch_origins(n_cells, grid_n, order, extra)
+    w = _patch_width(n_cells, grid_n, order, extra)
+    shape = [1, 1, 1, 1, 1]
+    shape[cell_axis] = n_cells
+    base = torch.as_tensor(org, device=coord.device).to(dtype).reshape(shape)
+    if transposed:
+        j = torch.arange(w, device=coord.device).to(dtype).reshape(
+            1, 1, w, 1, 1)
+        t = u[:, :, None, :, :] - (base + j)
+    else:
+        j = torch.arange(w, device=coord.device).to(dtype).reshape(
+            1, 1, 1, 1, w)
+        t = u[..., None] - (base + j)
+    return bspline(t, order), org, w
+
+
+def _block_spread_coords(blocks, box):
+    """Per-axis spread coordinates (coord, length), u = coord * G / length:
+    the Cartesian block coordinates against the edge lengths."""
+    if box.ndim == 2:
+        raise NotImplementedError("triclinic PME is not ported yet "
+                                  "(ROADMAP.md)")
+    return ((blocks.x, box[0]), (blocks.y, box[1]), (blocks.z, box[2]))
+
+
+def column_spread_inputs(blocks, ids, system):
+    """The arguments of ``spread_columns`` for the cell blocks: (qwlxt,
+    wlyt, wzt, zorg, offsets, pad_xy), laid out as the JAX package's
+    Pallas route lays them out."""
+    spec = system.spec
+    dtype = blocks.x.dtype
+    box = system.box
+    grid = spec.pme_grid
+    order = spec.pme_order
+    ngx, ngy, ngz = spec.cell_grid
+    cap = blocks.x.shape[-1]
+    gx, gy, gz = grid
+    n = system.n_atoms
+    qv = torch.where(ids < n, blocks.q, 0.0)
+
+    def compact_weights_t(coord, n_cells, grid_n, length, cell_axis):
+        # transposed layout + the kernel's placement-origin convention
+        wl, org, w = _cell_patch_weights(
+            coord, n_cells, grid_n, length, spec.pme_slack[cell_axis],
+            cell_axis, order, dtype, transposed=True)
+        return wl, org + order + spec.pme_slack[cell_axis], w
+
+    (cx_, lx), (cy_, ly), (cz_, lz) = _block_spread_coords(blocks, box)
+    wlxt, opx, wx = compact_weights_t(cx_, ngx, gx, lx, 0)
+    wlyt5, opy, wy = compact_weights_t(cy_, ngy, gy, ly, 1)
+
+    # compact z taps + int origins (the spread places tap k at
+    # (zorg + k) mod Gz)
+    uz = cz_ * (gz / lz)                          # [ngx, ngy, ngz, cap]
+    org_f = torch.floor(uz).detach() - (order - 1)
+    tzk = (uz - org_f)[:, :, None, :, :] - torch.arange(
+        order, device=uz.device).to(dtype).reshape(1, 1, order, 1, 1)
+    wzt5 = bspline(tzk, order)                    # [ngx, ngy, order, ngz, cap]
+    zorg = torch.remainder(org_f, gz).to(torch.int32)
+
+    n_col = ngx * ngy
+    rows = ngz * cap
+    wyp = -(-wy // 8) * 8          # Wy padded with zero weight rows
+    qwlxt = (qv[:, :, None] * wlxt).reshape(n_col, wx, rows)
+    wlyt = torch.nn.functional.pad(wlyt5.reshape(n_col, wy, rows),
+                                   (0, 0, 0, wyp - wy))
+    offsets = (tuple(int(opx[c // ngy]) for c in range(n_col)),
+               tuple(int(opy[c % ngy]) for c in range(n_col)))
+    pad_xy = (int(opx.max()) + wx, int(opy.max()) + wyp, gz)
+    return (qwlxt.contiguous(), wlyt.contiguous(),
+            wzt5.reshape(n_col, order, rows).contiguous(),
+            zorg.reshape(n_col, 1, rows).contiguous(), offsets, pad_xy)
+
+
+def mesh_energy(qpad, system) -> torch.Tensor:
+    """E_rec of a padded charge mesh: fold the x/y ghost edges, rFFT, and
+    contract |Q^|^2 with the influence function."""
+    spec = system.spec
+    gx, gy, _ = spec.pme_grid
+    order = spec.pme_order
+    qgrid = fold_padded_axis(
+        fold_padded_axis(qpad, gx, order + spec.pme_slack[0], 0),
+        gy, order + spec.pme_slack[1], 1)
+    qhat = torch.fft.rfftn(qgrid)
+    d = influence_function(spec.pme_grid, system.box, spec.alpha, order,
+                           qpad.dtype)
+    return torch.sum(d * (qhat.real * qhat.real + qhat.imag * qhat.imag))
+
+
+def pme_cell_column_reciprocal_energy(blocks, ids, system,
+                                      plain: bool = False) -> torch.Tensor:
+    """SPME reciprocal energy through the cell-column spread (counterpart
+    of the JAX package's ``pme_cell_pallas_reciprocal_energy``: same
+    weights, patch offsets, folds and influence function).  ``plain=True``
+    spreads with the plain version on any device."""
+    return mesh_energy(spread_columns(*column_spread_inputs(blocks, ids, system),
+                                      plain=plain), system)

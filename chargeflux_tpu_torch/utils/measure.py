@@ -1,0 +1,258 @@
+"""Step measurements of the 30k cell+PME NVE main path on one CUDA card.
+
+    python3 -m chargeflux_tpu_torch.utils.measure profile
+    python3 -m chargeflux_tpu_torch.utils.measure f64
+
+Both start from the main path's system (``water_box(n_side=22,
+flux="bond_angle", cutoff=0.72)``, 31,944 atoms, forced 8^3 cell grid,
+64^3 PME mesh at order 8) and the burn-in that ``chip_smoke.py`` runs
+(:func:`burn_in`).  Run from the root of a checkout; each prints the
+card's name and power limit first.
+
+``profile``: ms/step of the kernel path and of the plain path
+(``plain=True``) from CUDA events, samples in the order kernel, plain,
+plain, kernel, each two rebuild chunks from the same burned-in state; the
+ms of one neighbor rebuild (the plain-torch binning).  Then one
+``torch.profiler`` window over the kernel path: the device-busy time
+(union of the device events' intervals), the window's wall time on the
+host clock, and the idle share ``1 - busy / wall`` of that one window,
+once with CUDA activity only and once with CPU and CUDA activity.
+
+``f64``: 200 NVE steps of the f32 kernel path beside 200 of the plain f64
+path from one burned-in state: ms/step, net drift, max and RMS of
+``E - E0``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import subprocess
+import time
+
+import torch
+
+DT_PS = 5e-4              # 0.5 fs, as the JAX package's bench.py
+KB = 0.00831446261815324  # kJ/mol/K
+
+
+def build_system(force, box, cap, device, dtype=torch.float32,
+                 grid=(8, 8, 8)):
+    return force.create_system(box=box, dtype=dtype, direct_method="cell",
+                               cell_grid=grid, cell_capacity=cap,
+                               device=device)
+
+
+def main_path(device):
+    """(force, x, masses, box, bonded, system) of the 30k main path, f32,
+    capacity from ``suggest_capacity(margin=1.05)``."""
+    from ..cells import suggest_capacity
+    from ..models import water_bonded_params, water_box
+
+    force, pos, masses, box = water_box(n_side=22, flux="bond_angle",
+                                        cutoff=0.72)
+    cap = suggest_capacity(pos, box, (8, 8, 8), margin=1.05)
+    system = build_system(force, box, cap, device)
+    x = torch.tensor(pos, dtype=torch.float32, device=device)
+    m = torch.tensor(masses, dtype=torch.float32, device=device)
+    bonded = water_bonded_params(len(masses) // 3, box=box, device=device)
+    return force, x, m, box, bonded, system
+
+
+def burn_in(force, system0, x, masses, box, bonded, n_steps: int = 240):
+    """The JAX package's bench.py burn-in: NVE from rest on a capacity-1.35
+    twin in rebuild chunks, velocities rescaled to 300 K at each chunk
+    boundary; the capacity is re-provisioned from the relaxed occupancy.
+    Returns (system, state, rebuild_every, info) with ``state`` evaluated
+    on ``system``."""
+    from ..cells import suggest_capacity
+    from ..integrate import init_state_nb, make_nb_energy_fn, nve_trajectory_nb
+    from ..neighbors import suggest_rebuild_interval
+    from .diagnose import max_cell_occupancy
+
+    dev = x.device
+    n = x.shape[0]
+    grid = system0.spec.cell_grid
+    cap_burn = suggest_capacity(x.cpu().numpy(), box, grid, margin=1.35)
+    burn_sys = build_system(force, box, max(cap_burn,
+                                            system0.spec.cell_capacity), dev,
+                            grid=grid)
+    e_fn, init_nb = make_nb_energy_fn(burn_sys, bonded=bonded)
+    state = init_state_nb(x, torch.zeros_like(x), e_fn, init_nb)
+    re_burn = suggest_rebuild_interval(burn_sys, DT_PS, max_speed=24.0, cap=40)
+    occ = []
+    t0 = time.perf_counter()
+    for _ in range(max(1, math.ceil(n_steps / re_burn))):
+        state, es = nve_trajectory_nb(state, e_fn, init_nb, masses, DT_PS,
+                                      re_burn, re_burn)
+        if not torch.isfinite(es).all():
+            raise RuntimeError("burn-in chunk NaN-poisoned")
+        v = state.velocities.double()
+        t_cur = float(torch.sum(masses.double()[:, None] * v * v)) / (3 * n * KB)
+        state = type(state)(state.positions, (v * math.sqrt(
+            300.0 / max(t_cur, 1.0))).float(), state.forces, state.potential,
+            state.nb)
+        occ.append(max_cell_occupancy(state.positions, burn_sys))
+    burn_s = time.perf_counter() - t0
+    occ_eq = max(occ[len(occ) // 2:])
+    cap_eq = -(-int(math.ceil(occ_eq * 1.05)) // 8) * 8
+    system = system0
+    if cap_eq > system0.spec.cell_capacity:
+        system = build_system(force, box, cap_eq, dev, grid=grid)
+    vmax = float(state.velocities.norm(dim=-1).max())
+    rebuild_every = suggest_rebuild_interval(
+        system, DT_PS, max_speed=max(8.0, 1.2 * vmax), cap=40)
+    e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
+    state = init_state_nb(state.positions, state.velocities, e_fn, init_nb)
+    info = dict(chunk=re_burn, chunks=len(occ), seconds=burn_s,
+                occupancy=occ_eq, vmax=vmax)
+    return system, state, rebuild_every, info
+
+
+def union_length(intervals) -> float:
+    """Length of the union of (start, end) intervals, in their unit."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def _timed_run(state, e_fn, init_nb, masses, n_steps, rebuild_every):
+    from ..integrate import nve_trajectory_nb
+
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    _, es = nve_trajectory_nb(state, e_fn, init_nb, masses, DT_PS, n_steps,
+                              rebuild_every)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n_steps, es
+
+
+def profile(system, state, rebuild_every, masses, bonded):
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from ..integrate import make_nb_energy_fn, nve_trajectory_nb
+
+    n_steps = 2 * rebuild_every
+    fns = {p: make_nb_energy_fn(system, bonded=bonded, plain=p)
+           for p in (False, True)}
+    times = {False: [], True: []}
+    for plain in (False, True, True, False):
+        ms, es = _timed_run(state, *fns[plain], masses, n_steps,
+                            rebuild_every)
+        if not torch.isfinite(es).all():
+            raise RuntimeError("timed run NaN-poisoned")
+        times[plain].append(ms)
+    print(f"ms/step over {n_steps} steps (CUDA events, rebuild_every "
+          f"{rebuild_every}, incl. the final consistent-state evaluation): "
+          f"kernel path {['%.3f' % t for t in times[False]]} plain path "
+          f"{['%.3f' % t for t in times[True]]}", flush=True)
+
+    e_fn, init_nb = fns[False]
+    init_nb(state.positions)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(5):
+        init_nb(state.positions)
+    b.record()
+    torch.cuda.synchronize()
+    print(f"neighbor rebuild: {a.elapsed_time(b) / 5:.3f} ms (CUDA events, "
+          f"mean of 5)", flush=True)
+
+    for label, acts in (("CUDA only", [ProfilerActivity.CUDA]),
+                        ("CPU+CUDA", [ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])):
+        with torch_profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nve_trajectory_nb(state, e_fn, init_nb, masses, DT_PS, n_steps,
+                              rebuild_every)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_events = [e for e in prof.events()
+                      if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if not dev_events:
+            print(f"profiler window ({label}): no device events recorded",
+                  flush=True)
+            continue
+        busy = union_length([(e.time_range.start, e.time_range.end)
+                        for e in dev_events]) / 1e3
+        span = (max(e.time_range.end for e in dev_events)
+                - min(e.time_range.start for e in dev_events)) / 1e3
+        print(f"profiler window ({label}), kernel path, {n_steps} steps: "
+              f"wall {wall / n_steps:.3f} ms/step (host clock); device busy "
+              f"{busy / n_steps:.3f} ms/step (union of "
+              f"{len(dev_events) / n_steps:.0f} device events per step); "
+              f"idle share {1 - busy / wall:.3f} of the wall, "
+              f"{1 - busy / span:.3f} of the device span "
+              f"{span / n_steps:.3f} ms/step", flush=True)
+        per_kernel = {}
+        for e in dev_events:
+            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                                  + (e.time_range.end - e.time_range.start))
+        for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  {us / 1e3 / n_steps:8.4f} ms/step  {name[:100]}",
+                  flush=True)
+
+
+def f64_control(system, state, rebuild_every, masses, box):
+    from ..integrate import init_state_nb, kinetic_energy, make_nb_energy_fn
+    from ..models import water_bonded_params
+
+    n = state.positions.shape[0]
+    for label, dtype, plain in (("f32 kernel path", torch.float32, False),
+                                ("f64 plain path", torch.float64, True)):
+        sys_ = system.astype(dtype)
+        bonded = water_bonded_params(n // 3, box=box, dtype=dtype,
+                                     device=state.positions.device)
+        e_fn, init_nb = make_nb_energy_fn(sys_, bonded=bonded, plain=plain)
+        m = masses.to(dtype)
+        s0 = init_state_nb(state.positions.to(dtype),
+                           state.velocities.to(dtype), e_fn, init_nb)
+        e0 = float(s0.potential) + float(kinetic_energy(s0.velocities, m))
+        ms, es = _timed_run(s0, e_fn, init_nb, m, 200, rebuild_every)
+        d = es.double().cpu() - e0
+        print(f"{label}: 200 steps, {ms:.3f} ms/step (CUDA events); E0 "
+              f"{e0:.3f} kJ/mol; drift {float(d[-1]):.4f}; max |E - E0| "
+              f"{float(d.abs().max()):.4f}; rms(E - E0) "
+              f"{float(d.pow(2).mean().sqrt()):.4f}; finite "
+              f"{bool(torch.isfinite(d).all())}", flush=True)
+        if not torch.isfinite(d).all():
+            raise RuntimeError(f"{label}: non-finite energies")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("what", choices=("profile", "f64"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("measure: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    force, x, m, box, bonded, system0 = main_path(torch.device("cuda", 0))
+    system, state, rebuild_every, info = burn_in(force, system0, x, m, box,
+                                                 bonded)
+    print(f"burned in: capacity {system.spec.cell_capacity}, rebuild_every "
+          f"{rebuild_every}, vmax {info['vmax']:.2f} nm/ps", flush=True)
+    if args.what == "profile":
+        profile(system, state, rebuild_every, m, bonded)
+    else:
+        f64_control(system, state, rebuild_every, m, box)
+
+
+if __name__ == "__main__":
+    main()

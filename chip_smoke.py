@@ -1,0 +1,272 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (chargeflux_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a),
+nvcc and a CUDA build of PyTorch.  Phases, one line each, in order:
+
+1. CUDA present (else exit non-zero), the card's name and power limit;
+2. build the CUDA kernels from ``chargeflux_tpu_torch/csrc``;
+3. at the 30k main-path shapes (water_box(n_side=22), 8^3 cells, capacity
+   88, 64^3 PME mesh, order 8) each kernel against its plain-PyTorch
+   version on the card: max |diff| / max |plain|, bitwise equality of two
+   launches, and CUDA-event times over 20 warm reps;
+4. energy_and_forces at the start positions: kernel path against the
+   plain path in f32 and in f64 on the card;
+5. the main path: 240 burn-in steps on a capacity-1.35 twin (velocities
+   rescaled to 300 K per rebuild chunk), capacity re-provisioned from the
+   measured occupancy, then 200 NVE steps with neighbor reuse, with the
+   kernels' launch counts reset just before them;
+6. a JSON line with each kernel's numbers, then the last line
+   {"ok": true, "device": {...}}.
+
+Any failed check raises, and the script exits non-zero before the last
+line.  TF32 is off for matmuls and convolutions (f32 references stay full
+f32).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# (wrapper, source, the TPU kernel it replaces)
+KERNELS = {
+    "spread_fwd": ("chargeflux_tpu_torch/csrc/pme_spread.cu",
+                   "chargeflux_tpu/ops/pallas_pme.py:162"),
+    "spread_bwd": ("chargeflux_tpu_torch/csrc/pme_spread.cu",
+                   "chargeflux_tpu/ops/pallas_pme.py:183"),
+    "direct_walk": ("chargeflux_tpu_torch/csrc/direct_walk.cu",
+                    "chargeflux_tpu/cells.py:862"),
+}
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    import torch
+
+    for _ in range(warm):
+        fn()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def max_rel(a, b) -> float:
+    """max |a - b| / max |b| over matching tensors."""
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp_min(1e-300))
+
+
+def check_kernels(system, x, results):
+    """Phase 3: each kernel against its plain version at the real shapes."""
+    import torch
+
+    from chargeflux_tpu_torch import cells, pme
+    from chargeflux_tpu_torch.charges import effective_charges
+    from chargeflux_tpu_torch.neighbors import build_neighbor_state
+    from chargeflux_tpu_torch.ops import direct_walk as dw
+    from chargeflux_tpu_torch.ops import pme_spread as ps
+
+    with torch.no_grad():
+        q = effective_charges(x, system)
+        nb = build_neighbor_state(x, system)
+        if int(nb.overflow) != 0:
+            fail("binning overflow at the start positions")
+        b = cells.blockify(x, q, system, nb.slots, nb.inv_slot, wrap=nb.wrap)
+        ids = nb.slots.reshape(b.x.shape)
+        spec = system.spec
+        walk_args = (b.x, b.y, b.z, b.q, b.hs, b.se, ids, system.box,
+                     system.n_atoms, spec.alpha, spec.cutoff)
+        spread_in = pme.column_spread_inputs(b, ids, system)
+        qw, wy, wz, zo, offsets, pad_xy = spread_in
+    # the real mesh cotangent dE_rec/dQpad
+    qpad_ref = ps.spread_fwd_plain(*spread_in).requires_grad_(True)
+    (ct,) = torch.autograd.grad(pme.mesh_energy(qpad_ref, system), qpad_ref)
+    ct = ct.contiguous()
+
+    cases = {
+        "spread_fwd": (lambda: (ps.spread_fwd(*spread_in),),
+                       lambda: (ps.spread_fwd_plain(*spread_in),), 1e-6),
+        "spread_bwd": (lambda: ps.spread_bwd(qw, wy, wz, zo, offsets, ct),
+                       lambda: ps.spread_bwd_plain(qw, wy, wz, zo, offsets,
+                                                   ct), 2e-5),
+        "direct_walk": (lambda: dw.direct_walk(*walk_args),
+                        lambda: dw.direct_walk_plain(*walk_args), None),
+    }
+    for name, (kern, plain, tol) in cases.items():
+        with torch.no_grad():
+            out_k, out_k2, out_p = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(u, v) for u, v in zip(out_k, out_k2))
+            errs = [max_rel(u, v) for u, v in zip(out_k, out_p)]
+            abs_err = max(float((u.double() - v.double()).abs().max())
+                          for u, v in zip(out_k, out_p))
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain)
+        if name == "direct_walk":
+            ok = errs[0] <= 1e-5 and errs[1] <= 1e-4 and errs[2] <= 1e-4
+        else:
+            ok = max(errs) <= tol
+        print(f"phase 3 kernel {name}: rel_err={['%.3e' % e for e in errs]} "
+              f"max_abs_err={abs_err:.4e} bitwise_repeat={bitwise} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+        if not ok:
+            fail(f"{name} disagrees with its plain version: {errs}")
+        if not bitwise:
+            fail(f"{name}: two launches on the same inputs differ")
+        src, repl = KERNELS[name]
+        results[name] = {"name": name, "route": "cuda", "source": src,
+                         "replaces": repl, "max_abs_err": abs_err,
+                         "ms": ms, "plain_ms": plain_ms}
+
+
+def check_energy(system, x):
+    """Phase 4: kernel path vs plain path (f32) and plain f64."""
+    import torch
+
+    from chargeflux_tpu_torch.energy import energy_and_forces, energy_components
+
+    e_k, f_k = energy_and_forces(x, system)
+    e_p, f_p = energy_and_forces(x, system, plain=True)
+    e_64, f_64 = energy_and_forces(x.double(), system.astype(torch.float64),
+                                   plain=True)
+    with torch.no_grad():
+        scale = sum(abs(float(v)) for v in
+                    energy_components(x.double(), system.astype(torch.float64),
+                                      plain=True).values())
+
+    def rms_rel(f, ref):
+        return float(torch.sqrt(torch.mean((f.double() - ref.double()) ** 2))
+                     / torch.sqrt(torch.mean(ref.double() ** 2)))
+
+    d_p = abs(float(e_k) - float(e_p)) / scale
+    d_64 = abs(float(e_k) - float(e_64)) / scale
+    fr_p, fr_64 = rms_rel(f_k, f_p), rms_rel(f_k, f_64)
+    print(f"phase 4 energy_and_forces: E_kernel={float(e_k):.6f} "
+          f"E_plain={float(e_p):.6f} E_plain_f64={float(e_64):.6f} "
+          f"|dE|/sum|E_c|: vs plain {d_p:.3e} vs f64 {d_64:.3e}; "
+          f"force rms rel: vs plain {fr_p:.3e} vs f64 {fr_64:.3e}",
+          flush=True)
+    if not (torch.isfinite(f_k).all() and math.isfinite(float(e_k))):
+        fail("non-finite energy or forces at the start positions")
+    if d_p > 1e-5 or fr_p > 1e-4 or fr_64 > 1e-4 or d_64 > 1e-5:
+        fail("kernel path disagrees with the plain path")
+
+
+def run_md(force, system0, x, masses, box):
+    """Phase 5: burn-in, capacity re-provisioning, then 200 NVE steps."""
+    import torch
+
+    from chargeflux_tpu_torch import ops
+    from chargeflux_tpu_torch.integrate import (kinetic_energy,
+                                                make_nb_energy_fn,
+                                                nve_trajectory_nb)
+    from chargeflux_tpu_torch.models import water_bonded_params
+    from chargeflux_tpu_torch.utils.measure import DT_PS, burn_in
+
+    bonded = water_bonded_params(x.shape[0] // 3, box=box, device=x.device)
+    system, s1, rebuild_every, info = burn_in(force, system0, x, masses, box,
+                                              bonded)
+    e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
+    print(f"phase 5 burn-in: {info['chunk']}-step chunks, {info['chunks']} "
+          f"chunks in {info['seconds']:.1f} s; relaxed peak occupancy "
+          f"{info['occupancy']} -> capacity {system.spec.cell_capacity}; "
+          f"vmax {info['vmax']:.2f} nm/ps -> rebuild_every {rebuild_every}",
+          flush=True)
+
+    n_steps = 200
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    final, es = nve_trajectory_nb(s1, e_fn, init_nb, masses, DT_PS, n_steps,
+                                  rebuild_every)
+    b.record()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    ms = a.elapsed_time(b) / n_steps
+    es = es.double().cpu()
+    e0 = float(s1.potential) + float(kinetic_energy(s1.velocities, masses))
+    drift = float(es[-1]) - e0
+    print(f"phase 5 NVE: {n_steps} steps, {ms:.3f} ms/step (CUDA events, "
+          f"includes the final consistent-state evaluation); total energy "
+          f"{e0:.3f} -> {float(es[-1]):.3f} kJ/mol, drift {drift:.4f} "
+          f"kJ/mol ({drift / x.shape[0]:.3e} per atom), max |E - E0| "
+          f"{float((es - e0).abs().max()):.4f}; launches {launches}",
+          flush=True)
+    if not (torch.isfinite(es).all() and math.isfinite(float(final.potential))
+            and torch.isfinite(final.positions).all()):
+        fail("NVE run produced non-finite energies (NaN poison or blowup)")
+    if int(final.nb.overflow) != 0:
+        fail("binning overflow in the NVE run")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    return launches, ms
+
+
+def main():
+    if not (ROOT / "chargeflux_tpu_torch" / "__init__.py").is_file():
+        fail("run from the root of a checkout (chargeflux_tpu_torch/ missing)")
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    from chargeflux_tpu_torch.ops import native
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.library()
+    print(f"phase 2 build: {time.perf_counter() - t0:.1f} s -> {lib.name}",
+          flush=True)
+
+    from chargeflux_tpu_torch.utils.measure import main_path
+
+    force, x, m, box, _, system = main_path(torch.device("cuda", 0))
+    spec = system.spec
+    print(f"phase 3 system: {system.n_atoms} atoms, cells {spec.cell_grid} "
+          f"cap {spec.cell_capacity}, PME {spec.pme_grid} order "
+          f"{spec.pme_order} slack {spec.pme_slack}", flush=True)
+
+    results = {}
+    check_kernels(system, x, results)
+    check_energy(system, x)
+    launches, ms_step = run_md(force, system, x, m, box)
+    for name, count in launches.items():
+        results[name]["launches"] = count
+    print(json.dumps({"kernels": list(results.values()),
+                      "ms_per_step": ms_step}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,104 @@
+"""PyTorch port: the CUDA kernels against their plain versions on the card.
+
+Needs an NVIDIA GPU (sm_90a), nvcc and a CUDA build of PyTorch; every test
+here is marked ``cuda`` and skips without a card.  This file imports no
+JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+"""
+
+import pytest
+import torch
+
+from chargeflux_tpu_torch import cells, ops, pme
+from chargeflux_tpu_torch.charges import effective_charges
+from chargeflux_tpu_torch.energy import energy_and_forces, energy_components
+from chargeflux_tpu_torch.models import water_box
+from chargeflux_tpu_torch.neighbors import build_neighbor_state
+from chargeflux_tpu_torch.ops import direct_walk as dw
+from chargeflux_tpu_torch.ops import pme_spread as ps
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def setup():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    force, pos, _, box = water_box(n_side=9, cutoff=0.65)
+    system = force.create_system(box=box, dtype=torch.float32,
+                                 direct_method="cell", device=dev)
+    x = torch.tensor(pos, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        nb = build_neighbor_state(x, system)
+        b = cells.blockify(x, effective_charges(x, system), system, nb.slots,
+                           nb.inv_slot, wrap=nb.wrap)
+    return dict(system=system, x=x, blocks=b,
+                ids=nb.slots.reshape(b.x.shape))
+
+
+def _max_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def test_spread_kernels_match_plain_and_repeat_bitwise(setup):
+    s = setup
+    args = pme.column_spread_inputs(s["blocks"], s["ids"], s["system"])
+    ct = torch.randn(args[5], device=s["x"].device,
+                     generator=torch.Generator(s["x"].device).manual_seed(0))
+    n0 = dict(ops.launch_counts())
+    a, b = ps.spread_fwd(*args), ps.spread_fwd(*args)
+    assert torch.equal(a, b)
+    assert _max_rel(a, ps.spread_fwd_plain(*args)) <= 1e-6
+    k1 = ps.spread_bwd(*args[:5], ct)
+    k2 = ps.spread_bwd(*args[:5], ct)
+    for u, v, w in zip(k1, k2, ps.spread_bwd_plain(*args[:5], ct)):
+        assert torch.equal(u, v)
+        assert _max_rel(u, w) <= 2e-5
+    counts = ops.launch_counts()
+    assert counts["spread_fwd"] == n0["spread_fwd"] + 2
+    assert counts["spread_bwd"] == n0["spread_bwd"] + 2
+
+
+def test_direct_walk_kernel_matches_plain_and_repeats_bitwise(setup):
+    s = setup
+    b, system = s["blocks"], s["system"]
+    args = (*b, s["ids"], system.box, system.n_atoms, system.spec.alpha,
+            system.spec.cutoff)
+    k1, k2, p = dw.direct_walk(*args), dw.direct_walk(*args), \
+        dw.direct_walk_plain(*args)
+    for u, v in zip(k1, k2):
+        assert torch.equal(u, v)
+    assert abs(float(k1[0] - p[0])) <= 1e-5 * abs(float(p[0]))
+    assert _max_rel(k1[1], p[1]) <= 1e-4 and _max_rel(k1[2], p[2]) <= 1e-4
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(setup):
+    s = setup
+    b, system = s["blocks"], s["system"]
+    args = [*b, s["ids"], system.box, system.n_atoms, system.spec.alpha,
+            system.spec.cutoff]
+    with pytest.raises(TypeError):
+        dw.direct_walk(*[a.double() if i < 6 else a
+                         for i, a in enumerate(args)])
+    with pytest.raises(ValueError, match="contiguous"):
+        dw.direct_walk(b.x.transpose(0, 1), *args[1:])
+    sp = list(pme.column_spread_inputs(b, s["ids"], system))
+    sp[0] = sp[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ps.spread_fwd(*sp)
+
+
+def test_energy_and_forces_kernel_path_matches_plain(setup):
+    s = setup
+    e_k, f_k = energy_and_forces(s["x"], s["system"])
+    e_p, f_p = energy_and_forces(s["x"], s["system"], plain=True)
+    assert torch.isfinite(f_k).all()
+    rms = torch.sqrt(torch.mean((f_k - f_p) ** 2) / torch.mean(f_p ** 2))
+    assert float(rms) <= 1e-4
+    with torch.no_grad():
+        scale = sum(abs(float(v)) for v in energy_components(
+            s["x"], s["system"], plain=True).values())
+    assert abs(float(e_k - e_p)) <= 1e-5 * scale

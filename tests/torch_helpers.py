@@ -1,0 +1,44 @@
+"""Shared pieces of the PyTorch-port parity tests (tests/test_torch_*.py):
+systems built by both packages from one builder, converted through NumPy."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from chargeflux_tpu.models import water_box as jax_water_box
+from chargeflux_tpu_torch.cells import CellBlocks
+from chargeflux_tpu_torch.system import ARRAY_FIELDS, system_from_arrays
+
+JAX_DTYPE = {torch.float32: jnp.float32, torch.float64: jnp.float64}
+
+
+def port_system(jsys, dtype=torch.float64):
+    """The port's system with the JAX system's leaves and spec."""
+    arrays = {name: np.asarray(getattr(jsys, name)) for name in ARRAY_FIELDS}
+    spec = {f.name: getattr(jsys.spec, f.name)
+            for f in dataclasses.fields(jsys.spec)}
+    return system_from_arrays(arrays, spec, dtype=dtype)
+
+
+def water_systems(dtype=torch.float64, n_side=7, cutoff=0.65, **kw):
+    """(jax_system, port_system, positions float64 [N, 3], masses) for the
+    cell + PME route, both from the JAX builder."""
+    force, pos, masses, box = jax_water_box(n_side=n_side, flux="bond_angle",
+                                            cutoff=cutoff)
+    jsys = force.create_system(box=box, dtype=JAX_DTYPE[dtype],
+                               direct_method="cell", recip_method="pme", **kw)
+    return jsys, port_system(jsys, dtype), pos, masses
+
+
+def port_blocks(jblocks, dtype):
+    return CellBlocks(*(torch.as_tensor(np.array(getattr(jblocks, f)))
+                        .to(dtype) for f in CellBlocks._fields))
+
+
+def rel_err(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-300))
