@@ -3,11 +3,13 @@ hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 
 A port of ``chargeflux_tpu`` (JAX/TPU), which stays the reference it is
 tested against; module names match that package's.  This package imports
-torch and never jax.  It runs the periodic cell + PME main path: flux
+torch and never jax.  It runs the periodic cell + PME main path (flux
 charges, the fused direct walk (CUDA kernel), the exclusion correction,
-the cell-column PME spread (CUDA kernels, forward and backward), cuFFT,
-harmonic water bonds and angles, and NVE with neighbor-state reuse.
-ROADMAP.md lists what is still to port.
+the cell-column PME spread (CUDA kernels, forward and backward), cuFFT),
+the dense periodic route with classical Ewald (CUDA structure-factor
+kernels) and the non-periodic all-pairs route, harmonic water bonds and
+angles, and NVE with neighbor-state reuse.  ROADMAP.md lists what is
+still to port.
 """
 
 from .system import ChargeFluxSystem, CoulForce, StaticSpec, system_from_arrays

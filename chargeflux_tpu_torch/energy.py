@@ -4,18 +4,30 @@ Because q = q(x), F = -dE/dx - (dE/dq)(dq/dx); here the whole force is
 ``torch.autograd.grad`` of E(q(x), x), so the chain-rule term comes from
 autograd through :func:`charges.effective_charges`.
 
-The port runs the periodic, orthorhombic cell + PME route (the main path of
-the JAX package's ``bench.py 30k``): self energy, the fused direct walk on
-the cell blocks, the exclusion correction and the cell-column PME
-reciprocal.  ``recip_method`` "auto" and "pme" both take that route.  The
-dense direct route, the non-periodic route, classical Ewald and triclinic
-boxes raise ``NotImplementedError`` (ROADMAP.md lists them).
+Routes, as in the JAX package:
+
+* non-periodic: the masked all-pairs 1/r Coulomb + LJ, ``{"pair": ...}``;
+* periodic, orthorhombic: self energy, [dispersion tail,] direct space,
+  exclusion correction and reciprocal.  Direct space is the dense masked
+  pair sum (``direct_method="dense"``) or the fused cell walk
+  (``"cell"``).  The reciprocal is the cell-column SPME (``"pme"``, cell
+  route only) or classical Ewald (``"xla"``: the plain factorized product;
+  ``"pallas"``: the hand-written structure-factor kernel — the JAX spec
+  string is kept, see ``ewald.py``).
+
+``recip_method="auto"`` resolves as the JAX package does, with a CUDA
+device in f32 where JAX has the TPU in f32: the cell route takes "pme";
+the dense route "pallas" while the half-space k count
+Kx (2 Ky - 1)(2 Kz - 1) is below 4000, else "xla"; on the CPU or in f64,
+"xla".  Triclinic boxes and dense direct space with the dense-mesh PME
+raise ``NotImplementedError`` (ROADMAP.md lists them).
 
 Three conditions poison the energy and, through ``poison * sum(x)``, every
-force component to NaN, as in the JAX package: a binning overflow, a cell
-plane spacing below the cutoff, and (with a reused neighbor state) drift
-past the PME patch slack.  ``plain=True`` runs the plain versions of the
-kernels on any device — the reference the kernel path is held to.
+force component to NaN on the cell route, as in the JAX package: a binning
+overflow, a cell plane spacing below the cutoff, and (with a reused
+neighbor state on the PME route) drift past the PME patch slack.
+``plain=True`` runs the plain versions of the kernels on any device — the
+reference the kernel path is held to.
 """
 
 from __future__ import annotations
@@ -26,9 +38,9 @@ import torch
 
 from . import cells
 from .charges import effective_charges
-from .ewald import self_energy
-from .ops.erfc import erfc_fast
-from .pairs import box_volume, displacement, plane_widths
+from .ewald import reciprocal_energy, self_energy
+from .ops.erfc import erf_over_r_eval, erfc_fast
+from .pairs import box_volume, displacement, pair_matrix_mask, plane_widths
 from .pme import pme_cell_column_reciprocal_energy
 from .system import ChargeFluxSystem
 from .units import ONE_4PI_EPS0
@@ -108,38 +120,69 @@ def _exclusion_correction(positions, q, system: ChargeFluxSystem,
     return total
 
 
-def _check_route(system: ChargeFluxSystem):
+def _dense_pair_energy(positions, q, system: ChargeFluxSystem):
+    """Masked all-pairs short-range energy.  Non-periodic: full 1/r Coulomb
+    + LJ over every non-excluded pair.  Periodic: erfc(alpha r)/r Coulomb
+    (f32 as 1/r - P(r^2), f64 through the exact erfc) + LJ over the
+    non-excluded minimum-image pairs within the cutoff."""
     spec = system.spec
+    d = displacement(positions[:, None, :], positions[None, :, :],
+                     system.box, spec.pbc)
+    r2 = torch.sum(d * d, dim=-1)
+    mask = pair_matrix_mask(positions.shape[0], system.exclusions)
+    if spec.pbc:
+        mask = mask & (r2 < spec.cutoff * spec.cutoff)
+    r2_safe = torch.where(mask, r2, 1.0)
+    inv_r = torch.rsqrt(r2_safe)
+    qq = q[:, None] * q[None, :]
     if not spec.pbc:
-        raise NotImplementedError(
-            "the non-periodic all-pairs route is not ported yet (ROADMAP.md)")
-    if spec.direct_method != "cell":
-        raise NotImplementedError(
-            "the dense direct route is not ported yet (ROADMAP.md); build "
-            "the system with direct_method='cell'")
-    if spec.recip_method not in ("auto", "pme"):
-        raise NotImplementedError(
-            f"recip_method={spec.recip_method!r} (classical Ewald) is not "
-            f"ported yet (ROADMAP.md); use 'pme'")
+        coul = ONE_4PI_EPS0 * qq * inv_r
+    elif positions.dtype == torch.float64:
+        coul = ONE_4PI_EPS0 * qq * inv_r * erfc_fast(
+            spec.alpha * (r2_safe * inv_r))
+    else:
+        coul = ONE_4PI_EPS0 * qq * (
+            inv_r - erf_over_r_eval(r2_safe, spec.alpha, spec.cutoff))
+    half_sig = 0.5 * (system.sigma[:, None] + system.sigma[None, :])
+    eps = 4.0 * torch.sqrt(system.epsilon[:, None] * system.epsilon[None, :])
+    lj = _lj_pair_terms(half_sig, eps, inv_r)
+    return torch.sum(torch.where(mask, coul + lj, 0.0))
+
+
+def resolve_recip_method(spec, dtype, device) -> str:
+    """The reciprocal route ``spec.recip_method`` stands for on this device
+    and type ("auto" resolved as in the JAX package, a CUDA device in f32
+    standing where JAX has the TPU in f32)."""
+    if spec.recip_method != "auto":
+        return spec.recip_method
+    if torch.device(device).type == "cuda" and dtype == torch.float32:
+        if spec.direct_method == "cell":
+            return "pme"
+        kx, ky, kz = spec.kmax
+        return "pallas" if kx * (2 * ky - 1) * (2 * kz - 1) < 4000 else "xla"
+    return "xla"
+
+
+def _check_route(system: ChargeFluxSystem, recip: str):
     if system.box.ndim == 2:
         raise NotImplementedError(
             "triclinic boxes are not ported yet (ROADMAP.md)")
+    if system.spec.direct_method != "cell" and recip == "pme":
+        raise NotImplementedError(
+            "the dense-mesh PME reciprocal (pme.pme_reciprocal_energy) is "
+            "not ported yet (ROADMAP.md); use direct_method='cell' or "
+            "recip_method='xla'/'pallas'")
 
 
-def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
-                                    system: ChargeFluxSystem, nb=None,
-                                    plain: bool = False
-                                    ) -> Dict[str, torch.Tensor]:
-    """Energy breakdown {self, [dispersion,] direct, exclusion, reciprocal}
-    treating the effective charges as an independent input."""
-    _check_route(system)
+def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
+                 plain: bool):
+    """(blocks, ids, E_direct) of the cell route: binning (or the reused
+    neighbor state), blockify and the fused walk, with the NaN poisons:
+    overflow dropped pairs, a cell plane below the cutoff (a shrunken box),
+    or, on the PME route, drift past the patch slack since the rebuild.
+    The poison multiplies sum(x) so every force is NaN too."""
     spec = system.spec
-    dtype = positions.dtype
-    comps: Dict[str, torch.Tensor] = {}
-    comps["self"] = self_energy(q, spec.alpha)
-    if spec.tail_coeff is not None:
-        comps["dispersion"] = spec.tail_coeff / box_volume(system.box)
-
+    dtype, dev = positions.dtype, positions.device
     if nb is None:
         slots, inv_slot, overflow = cells.build_cell_list_full(
             positions.detach(), system.box, spec.cell_grid, spec.cell_capacity)
@@ -150,27 +193,55 @@ def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
     blocks = cells.blockify(positions, q, system, slots, inv_slot, wrap=wrap)
     ids = slots.reshape(blocks.x.shape)
     e_dir = cells.direct_energy_on_blocks(blocks, ids, system, plain=plain)
-
-    # NaN poisons: overflow dropped pairs, a cell plane below the cutoff
-    # (a shrunken box), or drift past the PME patch slack since the
-    # rebuild.  The poison multiplies sum(x) so every force is NaN too.
-    grid = torch.tensor(spec.cell_grid, dtype=dtype, device=positions.device)
+    grid = torch.tensor(spec.cell_grid, dtype=dtype, device=dev)
     bad = (overflow > 0) | torch.any(plane_widths(system.box) / grid
                                      < spec.cutoff)
-    if nb is not None:
+    if nb is not None and recip == "pme":
         h = plane_widths(system.box) / torch.tensor(
-            spec.pme_grid, dtype=dtype, device=positions.device)
+            spec.pme_grid, dtype=dtype, device=dev)
         budget = torch.min(torch.tensor(
-            spec.pme_slack, dtype=dtype, device=positions.device) * h)
+            spec.pme_slack, dtype=dtype, device=dev) * h)
         d = positions.detach() - nb.x_ref
         max_d2 = torch.max(torch.sum(d * d, dim=-1))
         bad = bad | (max_d2 > budget * budget)
     poison = torch.where(bad, torch.nan, 0.0).to(dtype)
-    comps["direct"] = e_dir + poison * torch.sum(positions)
-    comps["exclusion"] = _exclusion_correction(positions, q, system,
-                                               subtract_direct=True)
-    comps["reciprocal"] = pme_cell_column_reciprocal_energy(
-        blocks, ids, system, plain=plain)
+    return blocks, ids, e_dir + poison * torch.sum(positions)
+
+
+def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
+                                    system: ChargeFluxSystem, nb=None,
+                                    plain: bool = False
+                                    ) -> Dict[str, torch.Tensor]:
+    """Energy breakdown {self, [dispersion,] direct, exclusion, reciprocal}
+    under PBC, {pair} otherwise, treating the effective charges as an
+    independent input."""
+    spec = system.spec
+    if not spec.pbc:
+        return {"pair": _dense_pair_energy(positions, q, system)}
+    dtype = positions.dtype
+    recip = resolve_recip_method(spec, dtype, positions.device)
+    _check_route(system, recip)
+    comps: Dict[str, torch.Tensor] = {}
+    comps["self"] = self_energy(q, spec.alpha)
+    if spec.tail_coeff is not None:
+        comps["dispersion"] = spec.tail_coeff / box_volume(system.box)
+
+    if spec.direct_method == "cell":
+        blocks, ids, comps["direct"] = _cell_direct(positions, q, system, nb,
+                                                    recip, plain)
+        comps["exclusion"] = _exclusion_correction(positions, q, system,
+                                                   subtract_direct=True)
+    else:
+        comps["direct"] = _dense_pair_energy(positions, q, system)
+        comps["exclusion"] = _exclusion_correction(positions, q, system,
+                                                   subtract_direct=False)
+    if recip == "pme":
+        comps["reciprocal"] = pme_cell_column_reciprocal_energy(
+            blocks, ids, system, plain=plain)
+    else:
+        comps["reciprocal"] = reciprocal_energy(
+            positions, q, system.box, spec.alpha, spec.kmax, method=recip,
+            plain=plain)
     return comps
 
 

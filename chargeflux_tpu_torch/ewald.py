@@ -1,14 +1,130 @@
-"""Ewald self energy (torch counterpart of ``chargeflux_tpu.ewald``).
+"""Classical Ewald: self energy, structure factors and the reciprocal sum
+(torch counterpart of ``chargeflux_tpu.ewald``).
 
-Classical Ewald (structure factors and the reciprocal sum) is not ported
-yet; ROADMAP.md lists it with the dense route.
+S(k) = sum_i q_i e^{i k.x_i} factorizes per axis in fractional
+coordinates, so per-axis phase tables are built once and contracted over
+atoms.  The half-space grid is kx in [0, kmax_x) times the full (ky, kz)
+plane, weighted 1/2 at kx == 0 and 0 at the origin:
+
+    E_rec = (4 pi k_e / V) sum_k w(k) exp(-k^2 / (4 alpha^2)) / k^2 |S(k)|^2
+
+:func:`structure_factors` has the JAX package's two methods:
+
+* ``"xla"``, the plain factorized product: q folded into the combined
+  [Kx*Ky, N] tables cxy/sxy, contracted with [cos_z | sin_z] by
+  ``torch.matmul`` (the JAX package leaves this product to XLA too);
+* ``"pallas"``, which keeps the JAX spec string and here names the
+  hand-written structure-factor kernel (``ops/structure_factor.py``,
+  ``csrc/structure_factor.cu``): q folded into zq = q [cos_z | sin_z], the
+  combined tables formed inside the kernel.  f32 only.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
+import numpy as np
 import torch
 
+from .ops.structure_factor import structure_factor, xy_tables
+from .pairs import box_volume, frac_coords, reciprocal_metric
 from .units import ONE_4PI_EPS0, SQRT_PI
+
+
+def kvector_grid(kmax: Tuple[int, int, int]):
+    """(nx [Kx], ny [Ky], nz [Kz], w [Kx, Ky, Kz]) as NumPy arrays, with
+    Kx = kmax_x, Ky = 2 kmax_y - 1, Kz = 2 kmax_z - 1; w is 1 for nx > 0,
+    0.5 for nx == 0 and 0 at the origin."""
+    kx, ky, kz = kmax
+    nx = np.arange(0, kx)
+    ny = np.arange(-(ky - 1), ky)
+    nz = np.arange(-(kz - 1), kz)
+    w = np.where(nx[:, None, None] > 0, 1.0, 0.5) * np.ones(
+        (len(nx), len(ny), len(nz)))
+    origin = ((nx[:, None, None] == 0) & (ny[None, :, None] == 0)
+              & (nz[None, None, :] == 0))
+    return nx, ny, nz, np.where(origin, 0.0, w)
+
+
+def phase_tables(positions, box, kmax):
+    """(cx, sx, cy, sy, cz, sz), each [N, K_axis]: cos and sin of
+    2 pi f n per axis.  The fractional coordinates are wrapped into [0, 1)
+    with a detached floor (f32 phase accuracy; the periodic energy and its
+    gradient are unchanged)."""
+    dtype, dev = positions.dtype, positions.device
+    frac = frac_coords(positions, box)
+    frac = frac - torch.floor(frac).detach()
+    out = []
+    for axis, n in enumerate(kvector_grid(kmax)[:3]):
+        nk = torch.as_tensor(n, dtype=dtype, device=dev)
+        ph = 2.0 * math.pi * frac[:, axis:axis + 1] * nk[None, :]
+        out += [torch.cos(ph), torch.sin(ph)]
+    return tuple(out)
+
+
+def kernel_inputs(positions, q, box, kmax):
+    """(cxT, sxT, cyT, syT, zq) in the layouts of
+    :func:`ops.structure_factor.structure_factor`."""
+    cx, sx, cy, sy, cz, sz = phase_tables(positions, box, kmax)
+    zq = q[:, None] * torch.cat([cz, sz], dim=1)
+    return (cx.T.contiguous(), sx.T.contiguous(), cy.T.contiguous(),
+            sy.T.contiguous(), zq.contiguous())
+
+
+def assemble(a, b, kz: int):
+    """(s_cos, s_sin) [Kx*Ky, Kz] from the contractions A, B [Kx*Ky, 2Kz]
+    of the cos and sin xy tables with [cos_z | sin_z]."""
+    return a[:, :kz] - b[:, kz:], b[:, :kz] + a[:, kz:]
+
+
+def structure_factors(positions, q, box, kmax, method: str = "xla",
+                      plain: bool = False):
+    """S(k) over the weighted half-space grid as (s_cos, s_sin), each
+    [Kx*Ky, Kz].  ``plain=True`` runs the kernel's plain version for
+    ``method="pallas"``."""
+    kz = 2 * kmax[2] - 1
+    if method == "pallas":
+        if positions.dtype != torch.float32:
+            raise ValueError(
+                "recip_method='pallas' is the f32 structure-factor kernel "
+                f"and would degrade a {positions.dtype} system's ~1e-10 "
+                "parity contract; use 'xla' (or 'pme') for f64 work")
+        return assemble(*structure_factor(
+            *kernel_inputs(positions, q, box, kmax), plain=plain), kz)
+    if method != "xla":
+        raise ValueError(f"unknown structure-factor method {method!r}")
+    cx, sx, cy, sy, cz, sz = phase_tables(positions, box, kmax)
+    cxy, sxy = xy_tables(cx.T, sx.T, cy.T, sy.T)       # [Kx*Ky, N]
+    cz_sz = torch.cat([cz, sz], dim=1)                 # [N, 2Kz]
+    return assemble((cxy * q) @ cz_sz, (sxy * q) @ cz_sz, kz)
+
+
+def reciprocal_energy_from_sf(s_cos, s_sin, box, alpha: float, kmax):
+    """E_rec from assembled structure factors (orthorhombic box)."""
+    dtype, dev = s_cos.dtype, s_cos.device
+    nx, ny, nz, w = kvector_grid(kmax)
+    g = torch.diagonal(reciprocal_metric(box, dtype))  # (2 pi / L)^2
+
+    def sq(v):
+        return torch.as_tensor(v * v, dtype=dtype, device=dev)
+
+    k2 = (g[0] * sq(nx)[:, None, None] + g[1] * sq(ny)[None, :, None]
+          + g[2] * sq(nz)[None, None, :]).reshape(len(nx) * len(ny), len(nz))
+    k2_safe = torch.where(k2 > 0, k2, 1.0)
+    eak = torch.exp(-k2_safe * (0.25 / (alpha * alpha))) / k2_safe
+    wk = torch.as_tensor(w.reshape(k2.shape), dtype=dtype, device=dev) * eak
+    const = 4.0 * math.pi * ONE_4PI_EPS0 / box_volume(box)
+    return const * torch.sum(wk * (s_cos * s_cos + s_sin * s_sin))
+
+
+def reciprocal_energy(positions, q, box, alpha: float, kmax,
+                      method: str = "xla", plain: bool = False):
+    """Reciprocal-space Ewald energy through the factorized structure
+    factors."""
+    s_cos, s_sin = structure_factors(positions, q, box, kmax, method=method,
+                                     plain=plain)
+    return reciprocal_energy_from_sf(s_cos, s_sin, box, alpha, kmax)
 
 
 def self_energy(q: torch.Tensor, alpha: float) -> torch.Tensor:

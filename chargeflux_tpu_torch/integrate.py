@@ -1,10 +1,11 @@
 """Velocity-Verlet NVE with neighbor-state reuse (torch counterpart of the
 ``*_nb`` drivers of ``chargeflux_tpu.integrate``).
 
-A trajectory is a Python loop: the neighbor state is rebuilt every
-``rebuild_every`` steps, and in between the energy function's freshness
-guard NaN-poisons energy and forces if an atom moved past skin/2.  The
-step arithmetic is the JAX package's packed-chunk step
+A trajectory is a Python loop: on the cell route the neighbor state is
+rebuilt every ``rebuild_every`` steps, and in between the energy
+function's freshness guard NaN-poisons energy and forces if an atom moved
+past skin/2.  The dense route has no neighbor state (``nb`` is ``None``)
+and no guard.  The step arithmetic is the JAX package's packed-chunk step
 (v += f * (dt/2m); x += dt v; f = F(x); v += f * (dt/2m)).
 """
 
@@ -25,7 +26,7 @@ class MDStateNB:
     velocities: torch.Tensor  # [N, 3] nm/ps
     forces: torch.Tensor      # [N, 3] kJ/mol/nm
     potential: torch.Tensor   # scalar kJ/mol
-    nb: object                # neighbors.NeighborState
+    nb: object                # neighbors.NeighborState, None when dense
 
 
 def kinetic_energy(velocities, masses) -> torch.Tensor:
@@ -36,12 +37,15 @@ def make_nb_energy_fn(system, bonded=None, plain: bool = False):
     """Returns (e_fn, init_nb): ``e_fn(x, nb) -> (energy, forces, nb)``
     evaluates with a reused neighbor state (charge-flux electrostatics plus
     the optional bonded terms), ``init_nb(x)`` rebuilds one.  A stale state
-    poisons energy and forces to NaN.  ``plain=True`` runs the kernels'
-    plain-PyTorch versions (the f64 control and the kernel-vs-plain step
-    timing of ``utils.measure`` use it)."""
+    poisons energy and forces to NaN.  On the dense route there is nothing
+    to reuse: ``init_nb`` returns ``None`` and no guard applies.
+    ``plain=True`` runs the kernels' plain-PyTorch versions (the f64
+    control and the kernel-vs-plain step timing of ``utils.measure`` use
+    it)."""
+    has_cells = system.spec.direct_method == "cell"
 
     def init_nb(x):
-        return build_neighbor_state(x, system)
+        return build_neighbor_state(x, system) if has_cells else None
 
     def e_fn(x, nb):
         xg = x.detach().requires_grad_(True)
@@ -50,6 +54,8 @@ def make_nb_energy_fn(system, bonded=None, plain: bool = False):
             if bonded is not None:
                 e = e + bonded_energy(xg, bonded)
             (g,) = torch.autograd.grad(e, xg)
+        if nb is None:
+            return e.detach(), -g, nb
         bad = torch.where(neighbor_state_fresh(nb, x, system), 1.0,
                           torch.nan).to(e.dtype)
         return e.detach() * bad, -g * bad, nb

@@ -16,12 +16,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("pme_spread.cu", "direct_walk.cu")
+SOURCES = ("pme_spread.cu", "direct_walk.cu", "structure_factor.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,22 +73,30 @@ def library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cf_spread_limits.argtypes = [ctypes.POINTER(i)] * 2
         lib.cf_walk_limits.argtypes = [ctypes.POINTER(i)] * 2
+        lib.cf_sf_limits.argtypes = [ctypes.POINTER(i)] * 3
         lib.cf_spread_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.cf_spread_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.cf_direct_walk.argtypes = ([p] * 11 + [i, f, f, i, i, i]
                                        + [p] * 3 + [p])
+        lib.cf_sf_fwd.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.cf_sf_bwd_tables.argtypes = [p] * 11 + [i] * 4 + [p]
+        lib.cf_sf_bwd_zq.argtypes = [p] * 7 + [i] * 4 + [p]
         for fn in (lib.cf_spread_limits, lib.cf_walk_limits,
-                   lib.cf_spread_fwd, lib.cf_spread_bwd, lib.cf_direct_walk):
+                   lib.cf_sf_limits, lib.cf_spread_fwd, lib.cf_spread_bwd,
+                   lib.cf_direct_walk, lib.cf_sf_fwd, lib.cf_sf_bwd_tables,
+                   lib.cf_sf_bwd_zq):
             fn.restype = i
         _lib = lib
     return _lib
 
 
-def limits(name: str) -> tuple:
-    """Compile-time bounds a kernel family was built with."""
-    a, b = ctypes.c_int(), ctypes.c_int()
-    getattr(library(), name)(ctypes.byref(a), ctypes.byref(b))
-    return a.value, b.value
+@lru_cache(maxsize=None)
+def limits(name: str, count: int = 2) -> tuple:
+    """Compile-time bounds a kernel family was built with (``count``
+    values)."""
+    vals = [ctypes.c_int() for _ in range(count)]
+    getattr(library(), name)(*map(ctypes.byref, vals))
+    return tuple(v.value for v in vals)
 
 
 def check(err: int, what: str):

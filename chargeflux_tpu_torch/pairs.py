@@ -1,4 +1,5 @@
-"""Displacement geometry (torch counterpart of ``chargeflux_tpu.pairs``).
+"""Displacement geometry and dense pair masking (torch counterpart of
+``chargeflux_tpu.pairs``).
 
 Orthorhombic minimum image: ``delta - box * floor(delta / box + 0.5)``,
 OpenMM's reference convention.  A [3, 3] reduced lower-triangular lattice
@@ -6,6 +7,8 @@ OpenMM's reference convention.  A [3, 3] reduced lower-triangular lattice
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -72,3 +75,28 @@ def plane_widths(box: torch.Tensor) -> torch.Tensor:
         inv = box_inverse(box)
         return 1.0 / torch.sqrt(torch.sum(inv * inv, dim=0))
     return box
+
+
+def reciprocal_metric(box: torch.Tensor, dtype) -> torch.Tensor:
+    """G [3, 3] with |k(n)|^2 = n . G . n: diagonal (2 pi / L_i)^2 for an
+    orthorhombic box.  The triclinic Gram matrix is not ported yet."""
+    if box.ndim == 2:
+        raise NotImplementedError(
+            "triclinic boxes are not ported yet (ROADMAP.md)")
+    r = (2.0 * math.pi) / box.to(dtype)
+    return torch.diag(r * r)
+
+
+def pair_matrix_mask(n: int, exclusions: torch.Tensor) -> torch.Tensor:
+    """[N, N] bool mask of interacting ordered pairs i < j with the excluded
+    pairs removed (an excluded pair has neither short-range Coulomb nor
+    LJ)."""
+    i = torch.arange(n, device=exclusions.device)
+    mask = i[:, None] < i[None, :]
+    if exclusions.shape[0] > 0:
+        p1, p2 = exclusions[:, 0], exclusions[:, 1]
+        excl = torch.zeros((n, n), dtype=torch.bool, device=exclusions.device)
+        excl[p1, p2] = True
+        excl[p2, p1] = True
+        mask = mask & ~excl
+    return mask

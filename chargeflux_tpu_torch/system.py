@@ -394,8 +394,9 @@ class CoulForce:
 
         ``cell_grid`` may only reduce the derived grid (never below the
         cutoff); ``pme_grid`` may only raise the derived mesh; both raise
-        otherwise.  The port's energy path runs the periodic orthorhombic
-        cell + PME route (see energy.py for what raises).
+        otherwise.  The port's energy path runs the orthorhombic periodic
+        routes and the non-periodic one (see energy.py for the routes and
+        for what raises).
         """
         n = len(self._charges)
         if n == 0:

@@ -1,26 +1,28 @@
-"""Step measurements of the 30k cell+PME NVE main path on one CUDA card.
+"""Step measurements of the port's NVE paths on one CUDA card.
 
-    python3 -m chargeflux_tpu_torch.utils.measure profile
-    python3 -m chargeflux_tpu_torch.utils.measure f64
+    python3 -m chargeflux_tpu_torch.utils.measure profile [--path 216]
+    python3 -m chargeflux_tpu_torch.utils.measure f64 [--path 216]
 
-Both start from the main path's system (``water_box(n_side=22,
-flux="bond_angle", cutoff=0.72)``, 31,944 atoms, forced 8^3 cell grid,
-64^3 PME mesh at order 8) and the burn-in that ``chip_smoke.py`` runs
-(:func:`burn_in`).  Run from the root of a checkout; each prints the
-card's name and power limit first.
+``--path 30k`` (the default) starts from the cell + SPME main path's system
+(``water_box(n_side=22, flux="bond_angle", cutoff=0.72)``, 31,944 atoms,
+forced 8^3 cell grid, 64^3 PME mesh at order 8) and the burn-in that
+``chip_smoke.py`` runs (:func:`burn_in`).  ``--path 216`` starts from the
+dense + classical-Ewald system of :func:`dense_path` at the lattice, at
+rest, as the JAX package's ``bench.py 216`` does; it has no neighbor state,
+and its "rebuild chunks" are 10 steps.  Run from the root of a checkout;
+each prints the card's name and power limit first.
 
 ``profile``: ms/step of the kernel path and of the plain path
 (``plain=True``) from CUDA events, samples in the order kernel, plain,
-plain, kernel, each two rebuild chunks from the same burned-in state; the
-ms of one neighbor rebuild (the plain-torch binning).  Then one
+plain, kernel, each two rebuild chunks from the same start state; on the
+30k path the ms of one neighbor rebuild (the plain-torch binning).  Then one
 ``torch.profiler`` window over the kernel path: the device-busy time
 (union of the device events' intervals), the window's wall time on the
 host clock, and the idle share ``1 - busy / wall`` of that one window,
 once with CUDA activity only and once with CPU and CUDA activity.
 
 ``f64``: 200 NVE steps of the f32 kernel path beside 200 of the plain f64
-path from one burned-in state: ms/step, net drift, max and RMS of
-``E - E0``.
+path from one start state: ms/step, net drift, max and RMS of ``E - E0``.
 """
 
 from __future__ import annotations
@@ -38,9 +40,11 @@ KB = 0.00831446261815324  # kJ/mol/K
 
 def build_system(force, box, cap, device, dtype=torch.float32,
                  grid=(8, 8, 8)):
+    """The cell + SPME system (recip_method pinned to "pme", so the f64
+    control stays on SPME too)."""
     return force.create_system(box=box, dtype=dtype, direct_method="cell",
-                               cell_grid=grid, cell_capacity=cap,
-                               device=device)
+                               recip_method="pme", cell_grid=grid,
+                               cell_capacity=cap, device=device)
 
 
 def main_path(device):
@@ -53,6 +57,25 @@ def main_path(device):
                                         cutoff=0.72)
     cap = suggest_capacity(pos, box, (8, 8, 8), margin=1.05)
     system = build_system(force, box, cap, device)
+    x = torch.tensor(pos, dtype=torch.float32, device=device)
+    m = torch.tensor(masses, dtype=torch.float32, device=device)
+    bonded = water_bonded_params(len(masses) // 3, box=box, device=device)
+    return force, x, m, box, bonded, system
+
+
+def dense_path(device):
+    """(force, x, masses, box, bonded, system) of the JAX package's
+    ``bench.py 216`` program at full width, nothing cut: water_box(n_side=6,
+    flux="bond_angle", cutoff=0.9), 648 atoms in a 1.8642 nm box, f32,
+    dense direct space, classical Ewald with ``recip_method="auto"`` (alpha
+    3.2427, kmax (7, 7, 7): 1183 half-space k-vectors, so the
+    structure-factor kernel route on a CUDA card)."""
+    from ..models import water_bonded_params, water_box
+
+    force, pos, masses, box = water_box(n_side=6, flux="bond_angle",
+                                        cutoff=0.9)
+    system = force.create_system(box=box, dtype=torch.float32,
+                                 direct_method="dense", device=device)
     x = torch.tensor(pos, dtype=torch.float32, device=device)
     m = torch.tensor(masses, dtype=torch.float32, device=device)
     bonded = water_bonded_params(len(masses) // 3, box=box, device=device)
@@ -159,16 +182,17 @@ def profile(system, state, rebuild_every, masses, bonded):
           f"{['%.3f' % t for t in times[True]]}", flush=True)
 
     e_fn, init_nb = fns[False]
-    init_nb(state.positions)
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(5):
+    if state.nb is not None:
         init_nb(state.positions)
-    b.record()
-    torch.cuda.synchronize()
-    print(f"neighbor rebuild: {a.elapsed_time(b) / 5:.3f} ms (CUDA events, "
-          f"mean of 5)", flush=True)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(5):
+            init_nb(state.positions)
+        b.record()
+        torch.cuda.synchronize()
+        print(f"neighbor rebuild: {a.elapsed_time(b) / 5:.3f} ms (CUDA "
+              f"events, mean of 5)", flush=True)
 
     for label, acts in (("CUDA only", [ProfilerActivity.CUDA]),
                         ("CPU+CUDA", [ProfilerActivity.CPU,
@@ -235,6 +259,7 @@ def f64_control(system, state, rebuild_every, masses, box):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("profile", "f64"))
+    ap.add_argument("--path", choices=("30k", "216"), default="30k")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: needs a CUDA device")
@@ -243,11 +268,23 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
-    force, x, m, box, bonded, system0 = main_path(torch.device("cuda", 0))
-    system, state, rebuild_every, info = burn_in(force, system0, x, m, box,
-                                                 bonded)
-    print(f"burned in: capacity {system.spec.cell_capacity}, rebuild_every "
-          f"{rebuild_every}, vmax {info['vmax']:.2f} nm/ps", flush=True)
+    dev = torch.device("cuda", 0)
+    if args.path == "216":
+        from ..integrate import init_state_nb, make_nb_energy_fn
+
+        _, x, m, box, bonded, system = dense_path(dev)
+        state = init_state_nb(x, torch.zeros_like(x),
+                              *make_nb_energy_fn(system, bonded=bonded))
+        rebuild_every = 10
+        print(f"216 path: {system.n_atoms} atoms, dense, kmax "
+              f"{system.spec.kmax}, from the lattice at rest", flush=True)
+    else:
+        force, x, m, box, bonded, system0 = main_path(dev)
+        system, state, rebuild_every, info = burn_in(force, system0, x, m,
+                                                     box, bonded)
+        print(f"burned in: capacity {system.spec.cell_capacity}, "
+              f"rebuild_every {rebuild_every}, vmax {info['vmax']:.2f} "
+              f"nm/ps", flush=True)
     if args.what == "profile":
         profile(system, state, rebuild_every, m, bonded)
     else:

@@ -4,20 +4,27 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a),
-nvcc and a CUDA build of PyTorch.  Phases, one line each, in order:
+nvcc and a CUDA build of PyTorch.  It drives two paths of the port: the
+30k cell + SPME path (the JAX package's ``bench.py 30k``) and the 216-water
+dense + classical-Ewald path (``bench.py 216``).  Phases, in order:
 
 1. CUDA present (else exit non-zero), the card's name and power limit;
 2. build the CUDA kernels from ``chargeflux_tpu_torch/csrc``;
-3. at the 30k main-path shapes (water_box(n_side=22), 8^3 cells, capacity
-   88, 64^3 PME mesh, order 8) each kernel against its plain-PyTorch
-   version on the card: max |diff| / max |plain|, bitwise equality of two
-   launches, and CUDA-event times over 20 warm reps;
-4. energy_and_forces at the start positions: kernel path against the
-   plain path in f32 and in f64 on the card;
-5. the main path: 240 burn-in steps on a capacity-1.35 twin (velocities
+3. at the 30k shapes (water_box(n_side=22), 8^3 cells, capacity 88, 64^3
+   PME mesh, order 8) the spread and walk kernels against their
+   plain-PyTorch versions on the card: max |diff| / max |plain|, bitwise
+   equality of two launches, and CUDA-event times over 20 warm reps;
+3b. the same for the three structure-factor kernels, at the 216 path's
+   shapes and at a 4k box's (n_side 11, kmax 13^3), on the real tables
+   and the real cotangents dE_rec/dA, dE_rec/dB;
+4. / 4b. energy_and_forces at the start positions of each path: kernel
+   path against the plain path in f32 and in f64 on the card;
+5. the 30k path: 240 burn-in steps on a capacity-1.35 twin (velocities
    rescaled to 300 K per rebuild chunk), capacity re-provisioned from the
-   measured occupancy, then 200 NVE steps with neighbor reuse, with the
-   kernels' launch counts reset just before them;
+   measured occupancy, then 200 NVE steps with neighbor reuse;
+5b. the 216 path: 200 NVE steps from the lattice at rest;
+   in 5 and 5b the launch counts are reset just before the 200 steps and
+   each kernel of that path must have launched;
 6. a JSON line with each kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
@@ -37,15 +44,21 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# (wrapper, source, the TPU kernel it replaces)
+SF_SRC = "chargeflux_tpu_torch/csrc/structure_factor.cu"
+# wrapper: (source, the TPU kernel it replaces, the path that runs it)
 KERNELS = {
     "spread_fwd": ("chargeflux_tpu_torch/csrc/pme_spread.cu",
-                   "chargeflux_tpu/ops/pallas_pme.py:162"),
+                   "chargeflux_tpu/ops/pallas_pme.py:162", "30k"),
     "spread_bwd": ("chargeflux_tpu_torch/csrc/pme_spread.cu",
-                   "chargeflux_tpu/ops/pallas_pme.py:183"),
+                   "chargeflux_tpu/ops/pallas_pme.py:183", "30k"),
     "direct_walk": ("chargeflux_tpu_torch/csrc/direct_walk.cu",
-                    "chargeflux_tpu/cells.py:862"),
+                    "chargeflux_tpu/cells.py:862", "30k"),
+    "sf_fwd": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:145", "216"),
+    "sf_bwd_tables": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:157",
+                      "216"),
+    "sf_bwd_zq": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:172", "216"),
 }
+N_STEPS = 200
 
 
 def fail(msg: str):
@@ -71,6 +84,41 @@ def max_rel(a, b) -> float:
     """max |a - b| / max |b| over matching tensors."""
     return float((a.double() - b.double()).abs().max()
                  / b.double().abs().max().clamp_min(1e-300))
+
+
+def compare(name, kern, plain, tols, where):
+    """One kernel against its plain version on the same inputs: max |diff| /
+    max |plain| of each output within its tolerance (one for all outputs,
+    or a tuple), two launches bitwise equal, and the CUDA-event ms of
+    both; returns the kernel's JSON fields."""
+    import torch
+
+    with torch.no_grad():
+        out_k, out_k2, out_p = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(u, v) for u, v in zip(out_k, out_k2))
+        errs = [max_rel(u, v) for u, v in zip(out_k, out_p)]
+        abs_err = max(float((u.double() - v.double()).abs().max())
+                      for u, v in zip(out_k, out_p))
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain)
+    if not isinstance(tols, tuple):
+        tols = (tols,) * len(errs)
+    print(f"{where} kernel {name}: rel_err={['%.3e' % e for e in errs]} "
+          f"(limits {list(tols)}) max_abs_err={abs_err:.4e} "
+          f"bitwise_repeat={bitwise} ms={ms:.4f} plain_ms={plain_ms:.4f}",
+          flush=True)
+    if any(e > t for e, t in zip(errs, tols)):
+        fail(f"{name} disagrees with its plain version ({where}): {errs}")
+    if not bitwise:
+        fail(f"{name}: two launches on the same inputs differ ({where})")
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def kernel_entry(name, fields):
+    src, repl, _ = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": src, "replaces": repl,
+            **fields}
 
 
 def check_kernels(system, x, results):
@@ -107,37 +155,16 @@ def check_kernels(system, x, results):
                        lambda: ps.spread_bwd_plain(qw, wy, wz, zo, offsets,
                                                    ct), 2e-5),
         "direct_walk": (lambda: dw.direct_walk(*walk_args),
-                        lambda: dw.direct_walk_plain(*walk_args), None),
+                        lambda: dw.direct_walk_plain(*walk_args),
+                        (1e-5, 1e-4, 1e-4)),
     }
-    for name, (kern, plain, tol) in cases.items():
-        with torch.no_grad():
-            out_k, out_k2, out_p = kern(), kern(), plain()
-            torch.cuda.synchronize()
-            bitwise = all(torch.equal(u, v) for u, v in zip(out_k, out_k2))
-            errs = [max_rel(u, v) for u, v in zip(out_k, out_p)]
-            abs_err = max(float((u.double() - v.double()).abs().max())
-                          for u, v in zip(out_k, out_p))
-            ms = cuda_ms(kern)
-            plain_ms = cuda_ms(plain)
-        if name == "direct_walk":
-            ok = errs[0] <= 1e-5 and errs[1] <= 1e-4 and errs[2] <= 1e-4
-        else:
-            ok = max(errs) <= tol
-        print(f"phase 3 kernel {name}: rel_err={['%.3e' % e for e in errs]} "
-              f"max_abs_err={abs_err:.4e} bitwise_repeat={bitwise} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
-        if not ok:
-            fail(f"{name} disagrees with its plain version: {errs}")
-        if not bitwise:
-            fail(f"{name}: two launches on the same inputs differ")
-        src, repl = KERNELS[name]
-        results[name] = {"name": name, "route": "cuda", "source": src,
-                         "replaces": repl, "max_abs_err": abs_err,
-                         "ms": ms, "plain_ms": plain_ms}
+    for name, (kern, plain, tols) in cases.items():
+        results[name] = kernel_entry(
+            name, compare(name, kern, plain, tols, "phase 3"))
 
 
-def check_energy(system, x):
-    """Phase 4: kernel path vs plain path (f32) and plain f64."""
+def check_energy(system, x, phase):
+    """Phase 4 / 4b: kernel path vs plain path (f32) and plain f64."""
     import torch
 
     from chargeflux_tpu_torch.energy import energy_and_forces, energy_components
@@ -158,7 +185,7 @@ def check_energy(system, x):
     d_p = abs(float(e_k) - float(e_p)) / scale
     d_64 = abs(float(e_k) - float(e_64)) / scale
     fr_p, fr_64 = rms_rel(f_k, f_p), rms_rel(f_k, f_64)
-    print(f"phase 4 energy_and_forces: E_kernel={float(e_k):.6f} "
+    print(f"phase {phase} energy_and_forces: E_kernel={float(e_k):.6f} "
           f"E_plain={float(e_p):.6f} E_plain_f64={float(e_64):.6f} "
           f"|dE|/sum|E_c|: vs plain {d_p:.3e} vs f64 {d_64:.3e}; "
           f"force rms rel: vs plain {fr_p:.3e} vs f64 {fr_64:.3e}",
@@ -190,7 +217,7 @@ def run_md(force, system0, x, masses, box):
           f"vmax {info['vmax']:.2f} nm/ps -> rebuild_every {rebuild_every}",
           flush=True)
 
-    n_steps = 200
+    n_steps = N_STEPS
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -215,10 +242,105 @@ def run_md(force, system0, x, masses, box):
         fail("NVE run produced non-finite energies (NaN poison or blowup)")
     if int(final.nb.overflow) != 0:
         fail("binning overflow in the NVE run")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    return launches, ms
+    return check_launches(launches, "30k", lambda c: c > 0), ms
+
+
+def check_launches(launches, path, ok):
+    """Every kernel of ``path`` launched as ``ok`` wants in that path's
+    run; returns that path's counts."""
+    counts = {k: launches[k] for k, v in KERNELS.items() if v[2] == path}
+    for name, count in counts.items():
+        if not ok(count):
+            fail(f"kernel {name}: {count} launches on the {path} path")
+    return counts
+
+
+def check_sf_kernels(results):
+    """Phase 3b: the structure-factor kernels against their plain versions
+    at the 216 path's shapes and at a 4k box's, on the real tables (real
+    positions and flux charges) and the real cotangents dE_rec/d(A, B)."""
+    import torch
+
+    from chargeflux_tpu_torch import ewald
+    from chargeflux_tpu_torch.charges import effective_charges
+    from chargeflux_tpu_torch.models import water_box
+    from chargeflux_tpu_torch.ops import structure_factor as sf
+
+    dev = torch.device("cuda", 0)
+    for label, n_side, cutoff in (("216", 6, 0.9), ("4k", 11, 0.8)):
+        force, pos, _, box = water_box(n_side=n_side, cutoff=cutoff)
+        system = force.create_system(box=box, dtype=torch.float32,
+                                     direct_method="dense", device=dev)
+        spec = system.spec
+        x = torch.tensor(pos, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            tabs = ewald.kernel_inputs(x, effective_charges(x, system),
+                                       system.box, spec.kmax)
+        a, b = (t.requires_grad_(True) for t in sf.sf_fwd_plain(*tabs))
+        e = ewald.reciprocal_energy_from_sf(
+            *ewald.assemble(a, b, tabs[4].shape[1] // 2), system.box,
+            spec.alpha, spec.kmax)
+        abar, bbar = (t.contiguous() for t in torch.autograd.grad(e, (a, b)))
+        shape = (f"Kx {tabs[0].shape[0]} Ky {tabs[2].shape[0]} 2Kz "
+                 f"{tabs[4].shape[1]} N {tabs[0].shape[1]}")
+        cases = {
+            "sf_fwd": (lambda: sf.sf_fwd(*tabs),
+                       lambda: sf.sf_fwd_plain(*tabs), 1e-5),
+            "sf_bwd_tables": (
+                lambda: sf.sf_bwd_tables(*tabs, abar, bbar),
+                lambda: sf.sf_bwd_tables_plain(*tabs, abar, bbar), 2e-5),
+            "sf_bwd_zq": (
+                lambda: (sf.sf_bwd_zq(*tabs[:4], abar, bbar),),
+                lambda: (sf.sf_bwd_zq_plain(*tabs[:4], abar, bbar),), 2e-5),
+        }
+        for name, (kern, plain, tol) in cases.items():
+            fields = compare(name, kern, plain, tol,
+                             f"phase 3b at the {label} shapes ({shape})")
+            if label == "216":
+                results[name] = kernel_entry(name, fields)
+            else:
+                results[name].update(
+                    {f"{k}_4k": v for k, v in fields.items()})
+
+
+def run_dense_md(x, masses, bonded, system):
+    """Phase 5b: the 216 path, NVE from the lattice at rest as the JAX
+    package's bench.py 216 runs it; each structure-factor kernel launches
+    once per step plus the final consistent-state evaluation."""
+    import torch
+
+    from chargeflux_tpu_torch import ops
+    from chargeflux_tpu_torch.integrate import (init_state_nb,
+                                                kinetic_energy,
+                                                make_nb_energy_fn,
+                                                nve_trajectory_nb)
+    from chargeflux_tpu_torch.utils.measure import DT_PS
+
+    e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
+    s0 = init_state_nb(x, torch.zeros_like(x), e_fn, init_nb)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    final, es = nve_trajectory_nb(s0, e_fn, init_nb, masses, DT_PS, N_STEPS,
+                                  rebuild_every=10)
+    b.record()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    ms = a.elapsed_time(b) / N_STEPS
+    es = es.double().cpu()
+    e0 = float(s0.potential)
+    drift = float(es[-1]) - e0
+    print(f"phase 5b dense NVE: {N_STEPS} steps of {x.shape[0]} atoms, "
+          f"{ms:.3f} ms/step (CUDA events, includes the final "
+          f"consistent-state evaluation); total energy {e0:.3f} -> "
+          f"{float(es[-1]):.3f} kJ/mol, drift {drift:.4f} kJ/mol, max "
+          f"|E - E0| {float((es - e0).abs().max()):.4f}; launches "
+          f"{launches}", flush=True)
+    if not (torch.isfinite(es).all() and math.isfinite(float(final.potential))
+            and torch.isfinite(final.positions).all()):
+        fail("dense NVE run produced non-finite energies")
+    return check_launches(launches, "216", lambda c: c == N_STEPS + 1), ms
 
 
 def main():
@@ -247,22 +369,35 @@ def main():
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s -> {lib.name}",
           flush=True)
 
-    from chargeflux_tpu_torch.utils.measure import main_path
+    from chargeflux_tpu_torch.energy import resolve_recip_method
+    from chargeflux_tpu_torch.utils.measure import dense_path, main_path
 
-    force, x, m, box, _, system = main_path(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    force, x, m, box, _, system = main_path(dev)
     spec = system.spec
     print(f"phase 3 system: {system.n_atoms} atoms, cells {spec.cell_grid} "
           f"cap {spec.cell_capacity}, PME {spec.pme_grid} order "
           f"{spec.pme_order} slack {spec.pme_slack}", flush=True)
+    _, x_d, m_d, _, bonded_d, sys_d = dense_path(dev)
+    route = resolve_recip_method(sys_d.spec, torch.float32, dev)
+    print(f"phase 3b system: {sys_d.n_atoms} atoms, dense, alpha "
+          f"{sys_d.spec.alpha:.4f} kmax {sys_d.spec.kmax}, recip_method "
+          f"{sys_d.spec.recip_method!r} -> {route!r}", flush=True)
+    if route != "pallas":
+        fail(f"the 216 path resolved to {route!r}, not the kernel route")
 
     results = {}
     check_kernels(system, x, results)
-    check_energy(system, x)
+    check_sf_kernels(results)
+    check_energy(system, x, "4")
+    check_energy(sys_d, x_d, "4b")
     launches, ms_step = run_md(force, system, x, m, box)
-    for name, count in launches.items():
+    launches_d, ms_d = run_dense_md(x_d, m_d, bonded_d, sys_d)
+    for name, count in {**launches, **launches_d}.items():
         results[name]["launches"] = count
     print(json.dumps({"kernels": list(results.values()),
-                      "ms_per_step": ms_step}), flush=True)
+                      "ms_per_step": ms_step, "ms_per_step_216": ms_d}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,12 @@
-"""PyTorch port: energy components, energy_and_forces and the NaN poisons
-on the cell + PME route, held to the JAX package (pinned to
-direct_method="cell", recip_method="pme"; on the CPU its cell-blocked
-XLA spread stands in for the Pallas kernel, which tests/test_pme.py holds
-equal to it)."""
+"""PyTorch port: energy components, energy_and_forces and the NaN poisons,
+held to the JAX package.  The cell + PME route is pinned to
+direct_method="cell", recip_method="pme" (on the CPU the JAX package's
+cell-blocked XLA spread stands in for the Pallas kernel, which
+tests/test_pme.py holds equal to it); the other routes — recip_method
+"auto" on the CPU, dense and non-periodic direct space, classical Ewald
+through the plain factorized product and through the structure-factor
+kernel's plain version against the JAX Pallas kernel in interpret mode —
+follow."""
 
 import importlib
 
@@ -15,7 +19,7 @@ from chargeflux_tpu_torch import energy
 from chargeflux_tpu_torch.models import water_box
 from chargeflux_tpu_torch.neighbors import build_neighbor_state
 
-from torch_helpers import water_systems
+from torch_helpers import jax_water, port_system, water_systems
 
 jenergy = importlib.import_module("chargeflux_tpu.energy")
 
@@ -85,7 +89,8 @@ def _all_nan(e, f):
 def test_overflow_poisons_energy_and_forces():
     force, pos, _, box = water_box(n_side=7, cutoff=0.65)
     system = force.create_system(box=box, dtype=torch.float64,
-                                 direct_method="cell", cell_capacity=24)
+                                 direct_method="cell", recip_method="pme",
+                                 cell_capacity=24)
     e, f = energy.energy_and_forces(torch.as_tensor(pos), system)
     assert _all_nan(e, f)
 
@@ -114,14 +119,116 @@ def test_shrunken_box_poisons_energy_and_forces():
                                               small))
 
 
-@pytest.mark.parametrize("kw", [dict(direct_method="dense"),
-                                dict(direct_method="cell", recip_method="xla"),
-                                dict(pbc=False)])
+def test_pme_slack_poison_is_gated_on_the_pme_route():
+    """The same drift on classical Ewald (no patches) is not poisoned."""
+    force, pos, _, box = water_box(n_side=7, cutoff=0.65)
+    system = force.create_system(box=box, dtype=torch.float64,
+                                 direct_method="cell", recip_method="xla")
+    x0 = torch.as_tensor(pos)
+    nb = build_neighbor_state(x0, system)
+    x1 = x0.clone()
+    x1[5, 0] += 1.05 * system.spec.pme_slack[0] * (
+        float(system.box[0]) / system.spec.pme_grid[0])
+    assert not _all_nan(*energy.energy_and_forces(x1, system, nb=nb))
+
+
+def test_auto_recip_on_the_cpu_matches_jax():
+    """recip_method="auto" on the CPU in f64 takes classical Ewald in both
+    packages (the port once took SPME here: 1.03e-4 off the JAX reciprocal
+    energy).  Each package builds the n_side 7 cell system with its own
+    builder; every component within 1e-10 relative."""
+    from chargeflux_tpu.models import water_box as jax_water_box
+
+    force_j, pos, _, box = jax_water_box(n_side=7, cutoff=0.65)
+    jsys = force_j.create_system(box=box, dtype=jnp.float64,
+                                 direct_method="cell", recip_method="auto")
+    force_t, pos_t, _, box_t = water_box(n_side=7, cutoff=0.65)
+    sys_t = force_t.create_system(box=box_t, dtype=torch.float64,
+                                  direct_method="cell", recip_method="auto")
+    assert np.array_equal(pos, pos_t)
+    comps_j = jenergy._energy_components(jnp.asarray(pos), jsys)
+    comps_t = energy.energy_components(torch.as_tensor(pos_t), sys_t)
+    assert list(comps_t) == list(comps_j)
+    for k, v in comps_t.items():
+        ref = float(comps_j[k])
+        assert abs(float(v) - ref) <= 1e-10 * abs(ref), k
+
+
+@pytest.mark.parametrize("n_side, cutoff, pbc, kw", [
+    (3, 0.9, True, dict(direct_method="dense")),
+    (6, 0.9, True, dict(direct_method="dense")),
+    (3, 0.9, False, {}),
+    (7, 0.65, True, dict(direct_method="cell", recip_method="xla")),
+], ids=["dense-n3", "dense-n6", "nonperiodic-n3", "cell-xla-n7"])
+def test_routes_match_jax_f64(n_side, cutoff, pbc, kw):
+    """Dense PBC, non-periodic and cell + classical Ewald, f64: every
+    component and the total within 1e-10 relative (the total of the
+    periodic routes is a cancellation of components ~1e2x larger, so it is
+    held to 1e-10 of sum |E_c|), forces within 1e-10 of max |F|."""
+    jsys, sys_t, pos, _ = jax_water(n_side, cutoff, pbc=pbc, **kw)
+    x_j = jnp.asarray(pos)
+    comps_j = {k: float(v) for k, v in
+               jenergy._energy_components(x_j, jsys).items()}
+    e_j, f_j = jenergy.energy_and_forces(x_j, jsys)
+    x = torch.as_tensor(pos)
+    comps_t = energy.energy_components(x, sys_t)
+    assert list(comps_t) == list(comps_j)
+    for k, v in comps_t.items():
+        assert abs(float(v) - comps_j[k]) <= 1e-10 * abs(comps_j[k]), k
+    e_t, f_t = energy.energy_and_forces(x, sys_t)
+    scale = sum(abs(v) for v in comps_j.values())
+    assert abs(float(e_t) - float(e_j)) <= 1e-10 * scale
+    f_j = np.asarray(f_j)
+    assert np.abs(f_t.numpy() - f_j).max() <= 1e-10 * np.abs(f_j).max()
+
+
+def test_structure_factor_kernel_route_matches_jax_pallas_f32():
+    """The bench.py 216 system with recip_method="pallas" in f32: the
+    port's plain structure-factor version against the JAX Pallas kernel in
+    interpret mode — energy within 1e-4 relative, forces within 2e-5 of
+    max |F| (tests/test_pallas_recip.py's full-engine tolerances)."""
+    jsys, sys_t, pos, _ = jax_water(6, 0.9, dtype=torch.float32,
+                                    direct_method="dense",
+                                    recip_method="pallas")
+    e_j, f_j = jenergy.energy_and_forces(jnp.asarray(pos, jnp.float32), jsys)
+    e_t, f_t = energy.energy_and_forces(torch.as_tensor(pos).float(), sys_t)
+    assert abs(float(e_t) - float(e_j)) <= 1e-4 * abs(float(e_j))
+    f_j = np.asarray(f_j, np.float64)
+    assert np.abs(f_t.double().numpy() - f_j).max() <= \
+        2e-5 * np.abs(f_j).max()
+
+
+def test_dispersion_tail_matches_jax():
+    """setUseDispersionCorrection(True): the tail term C / V in f64 within
+    1e-10 relative of the JAX package's, on the cell + PME route."""
+    from chargeflux_tpu.models import water_box as jax_water_box
+
+    force, pos, _, box = jax_water_box(n_side=7, cutoff=0.65)
+    force.setUseDispersionCorrection(True)
+    jsys = force.create_system(box=box, dtype=jnp.float64,
+                               direct_method="cell", recip_method="pme")
+    sys_t = port_system(jsys)
+    force_t, _, _, box_t = water_box(n_side=7, cutoff=0.65)
+    force_t.setUseDispersionCorrection(True)
+    assert force_t.create_system(box=box_t).spec.tail_coeff == \
+        pytest.approx(jsys.spec.tail_coeff, rel=1e-12)
+    ref = float(jenergy.dispersion_energy(jsys.box, jsys.spec, jnp.float64))
+    comps = energy.energy_components(torch.as_tensor(pos), sys_t)
+    assert list(comps)[:2] == ["self", "dispersion"]
+    assert ref < 0 and abs(float(comps["dispersion"]) - ref) <= \
+        1e-10 * abs(ref)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(direct_method="dense", recip_method="pme"),
+    dict(direct_method="cell", triclinic=True),
+], ids=["dense-pme", "triclinic"])
 def test_unported_routes_raise(kw):
     force, pos, _, box = water_box(n_side=7, cutoff=0.65)
-    if kw.pop("pbc", True) is False:
-        force.setUsesPeriodicBoundaryConditions(False)
-        box = None
+    if kw.pop("triclinic", False):
+        L = box[0]
+        box = np.array([[L, 0.0, 0.0], [0.15 * L, L, 0.0],
+                        [0.10 * L, -0.12 * L, L]])
     system = force.create_system(box=box, dtype=torch.float64, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         energy.energy_and_forces(torch.as_tensor(pos), system)

@@ -10,13 +10,15 @@ JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from chargeflux_tpu_torch import cells, ops, pme
+from chargeflux_tpu_torch import cells, ewald, ops, pme
 from chargeflux_tpu_torch.charges import effective_charges
 from chargeflux_tpu_torch.energy import energy_and_forces, energy_components
 from chargeflux_tpu_torch.models import water_box
 from chargeflux_tpu_torch.neighbors import build_neighbor_state
 from chargeflux_tpu_torch.ops import direct_walk as dw
 from chargeflux_tpu_torch.ops import pme_spread as ps
+from chargeflux_tpu_torch.ops import structure_factor as sf
+from chargeflux_tpu_torch.utils.measure import dense_path
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +31,8 @@ def setup():
     dev = torch.device("cuda", 0)
     force, pos, _, box = water_box(n_side=9, cutoff=0.65)
     system = force.create_system(box=box, dtype=torch.float32,
-                                 direct_method="cell", device=dev)
+                                 direct_method="cell", recip_method="pme",
+                                 device=dev)
     x = torch.tensor(pos, dtype=torch.float32, device=dev)
     with torch.no_grad():
         nb = build_neighbor_state(x, system)
@@ -101,4 +104,81 @@ def test_energy_and_forces_kernel_path_matches_plain(setup):
     with torch.no_grad():
         scale = sum(abs(float(v)) for v in energy_components(
             s["x"], s["system"], plain=True).values())
+    assert abs(float(e_k - e_p)) <= 1e-5 * scale
+
+
+@pytest.fixture(scope="module", params=[(6, 0.9), (11, 0.8)],
+                ids=["216", "4k"])
+def sf_inputs(request):
+    """Structure-factor tables at the 216-water path's shapes (Kx 7, Ky 13,
+    2Kz 26, N 648) and at a 4k box's (13, 25, 50, 3993), from the real
+    positions and flux charges, with seeded cotangents."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    n_side, cutoff = request.param
+    force, pos, _, box = water_box(n_side=n_side, cutoff=cutoff)
+    system = force.create_system(box=box, dtype=torch.float32,
+                                 direct_method="dense", device=dev)
+    x = torch.tensor(pos, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        tabs = ewald.kernel_inputs(x, effective_charges(x, system),
+                                   system.box, system.spec.kmax)
+    g = torch.Generator(dev).manual_seed(n_side)
+    rows, kz2 = tabs[0].shape[0] * tabs[2].shape[0], tabs[4].shape[1]
+    bars = [torch.randn((rows, kz2), device=dev, generator=g)
+            for _ in range(2)]
+    return tabs, bars
+
+
+def test_structure_factor_kernels_match_plain_and_repeat_bitwise(sf_inputs):
+    """Forward within 1e-5 of max, each backward output within 2e-5 of its
+    max (tests/test_pallas_recip.py's tolerances); two launches equal."""
+    tabs, (abar, bbar) = sf_inputs
+    n0 = dict(ops.launch_counts())
+    cases = [(lambda: sf.sf_fwd(*tabs), sf.sf_fwd_plain(*tabs), 1e-5),
+             (lambda: sf.sf_bwd_tables(*tabs, abar, bbar),
+              sf.sf_bwd_tables_plain(*tabs, abar, bbar), 2e-5),
+             (lambda: (sf.sf_bwd_zq(*tabs[:4], abar, bbar),),
+              (sf.sf_bwd_zq_plain(*tabs[:4], abar, bbar),), 2e-5)]
+    for kern, plain, tol in cases:
+        k1, k2 = kern(), kern()
+        for u, v, w in zip(k1, k2, plain):
+            assert torch.equal(u, v)
+            assert _max_rel(u, w) <= tol
+    counts = ops.launch_counts()
+    for name in ("sf_fwd", "sf_bwd_tables", "sf_bwd_zq"):
+        assert counts[name] == n0[name] + 2
+
+
+def test_structure_factor_wrappers_refuse_what_the_kernels_do_not_take(
+        sf_inputs):
+    tabs, _ = sf_inputs
+    with pytest.raises(TypeError):
+        sf.sf_fwd(*(t.double() for t in tabs))
+    with pytest.raises(ValueError, match="contiguous"):
+        sf.sf_fwd(tabs[0].T.contiguous().T, *tabs[1:])
+    with pytest.raises(ValueError, match="zq"):
+        sf.sf_fwd(*tabs[:4], tabs[4][:-1])
+
+
+def test_dense_path_kernel_route_matches_plain():
+    """The bench.py 216 system ("auto" resolves to the structure-factor
+    kernel): kernel path against the plain path, |dE| <= 1e-5 sum |E_c|,
+    force RMS rel <= 1e-4; one launch of each kernel per evaluation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    _, x, _, _, _, system = dense_path(torch.device("cuda", 0))
+    ops.reset_launch_counts()
+    e_k, f_k = energy_and_forces(x, system)
+    counts = ops.launch_counts()
+    assert all(counts[k] == 1 for k in ("sf_fwd", "sf_bwd_tables",
+                                        "sf_bwd_zq"))
+    e_p, f_p = energy_and_forces(x, system, plain=True)
+    assert torch.isfinite(f_k).all()
+    rms = torch.sqrt(torch.mean((f_k - f_p) ** 2) / torch.mean(f_p ** 2))
+    assert float(rms) <= 1e-4
+    with torch.no_grad():
+        scale = sum(abs(float(v)) for v in energy_components(
+            x, system, plain=True).values())
     assert abs(float(e_k - e_p)) <= 1e-5 * scale

@@ -1,6 +1,6 @@
 """PyTorch port: the helpers of ``chargeflux_tpu_torch.utils.measure`` that
-run without a card (interval union of the profiler's device events, and
-the bench.py burn-in at a small size)."""
+run without a card (interval union of the profiler's device events, the
+bench.py burn-in at a small size, and the bench.py 216 system)."""
 
 import math
 
@@ -51,3 +51,22 @@ def test_burn_in_small_box():
     t = float(torch.sum(m.double()[:, None] * v * v)) / (
         3 * len(masses) * measure.KB)
     assert abs(t - 300.0) < 1e-3 * 300.0
+
+
+def test_dense_path_is_bench_216():
+    """648 atoms in a 1.8642 nm box, dense, alpha 3.2427 and kmax (7, 7, 7)
+    (1183 half-space k-vectors): "auto" takes the structure-factor kernel
+    on a CUDA card in f32 and the plain factorized product here."""
+    from chargeflux_tpu_torch.energy import resolve_recip_method
+
+    _, x, m, box, bonded, system = measure.dense_path(torch.device("cpu"))
+    spec = system.spec
+    assert x.shape == (648, 3) and m.shape == (648,)
+    assert x.dtype == torch.float32 and float(box[0]) == pytest.approx(1.8642)
+    assert spec.direct_method == "dense" and spec.recip_method == "auto"
+    assert spec.kmax == (7, 7, 7) and spec.alpha == pytest.approx(3.2427,
+                                                                 abs=1e-4)
+    assert resolve_recip_method(spec, torch.float32,
+                                torch.device("cuda")) == "pallas"
+    assert resolve_recip_method(spec, torch.float32, x.device) == "xla"
+    assert bonded is not None

@@ -4,6 +4,7 @@ systems built by both packages from one builder, converted through NumPy."""
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,14 +25,24 @@ def port_system(jsys, dtype=torch.float64):
     return system_from_arrays(arrays, spec, dtype=dtype)
 
 
-def water_systems(dtype=torch.float64, n_side=7, cutoff=0.65, **kw):
-    """(jax_system, port_system, positions float64 [N, 3], masses) for the
-    cell + PME route, both from the JAX builder."""
+def jax_water(n_side, cutoff, dtype=torch.float64, pbc=True, **kw):
+    """(jax_system, port_system, positions float64 [N, 3], masses) from the
+    JAX builder's water box; ``kw`` goes to ``create_system``."""
     force, pos, masses, box = jax_water_box(n_side=n_side, flux="bond_angle",
                                             cutoff=cutoff)
-    jsys = force.create_system(box=box, dtype=JAX_DTYPE[dtype],
-                               direct_method="cell", recip_method="pme", **kw)
+    if not pbc:
+        force.setUsesPeriodicBoundaryConditions(False)
+        box = None
+    with warnings.catch_warnings():   # small boxes: cutoff > half the box
+        warnings.simplefilter("ignore")
+        jsys = force.create_system(box=box, dtype=JAX_DTYPE[dtype], **kw)
     return jsys, port_system(jsys, dtype), pos, masses
+
+
+def water_systems(dtype=torch.float64, n_side=7, cutoff=0.65, **kw):
+    """:func:`jax_water` on the cell + PME route."""
+    return jax_water(n_side, cutoff, dtype, direct_method="cell",
+                     recip_method="pme", **kw)
 
 
 def port_blocks(jblocks, dtype):
