@@ -13,7 +13,9 @@ dense + classical-Ewald path (``bench.py 216``).  Phases, in order:
 3. at the 30k shapes (water_box(n_side=22), 8^3 cells, capacity 88, 64^3
    PME mesh, order 8) the spread and walk kernels against their
    plain-PyTorch versions on the card: max |diff| / max |plain|, bitwise
-   equality of two launches, and CUDA-event times over 20 warm reps;
+   equality of two launches, and the time per call of each: a CUDA graph
+   of 20 back-to-back calls (no host enqueue in the timed span) replayed
+   between CUDA events, kernel and plain in turns over 7 rounds, median;
 3b. the same for the three structure-factor kernels, at the 216 path's
    shapes and at a 4k box's (n_side 11, kmax 13^3), on the real tables
    and the real cotangents dE_rec/dA, dE_rec/dB;
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -59,25 +62,51 @@ KERNELS = {
     "sf_bwd_zq": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:172", "216"),
 }
 N_STEPS = 200
+ROUNDS = 7      # timing rounds, kernel and plain in turns
+REPS = 20       # calls per timed CUDA graph
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
+def call_graph(fn):
+    """A CUDA graph of REPS back-to-back calls of ``fn``, warmed up first
+    on the capture's side stream."""
     import torch
 
-    for _ in range(warm):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(REPS):
+            fn()
+    return graph
+
+
+def interleaved_ms(fns) -> list:
+    """Median CUDA-event ms per call of each function over ROUNDS rounds:
+    in each, the graph of every function is replayed once, in turns (the
+    order reversed every other round)."""
+    import torch
+
+    graphs = [call_graph(fn) for fn in fns]
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for r in range(ROUNDS):
+        for k in order if r % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            a.record()
+            graphs[k].replay()
+            b.record()
+            torch.cuda.synchronize()
+            times[k].append(a.elapsed_time(b) / REPS)
+    return [statistics.median(t) for t in times]
 
 
 def max_rel(a, b) -> float:
@@ -89,8 +118,8 @@ def max_rel(a, b) -> float:
 def compare(name, kern, plain, tols, where):
     """One kernel against its plain version on the same inputs: max |diff| /
     max |plain| of each output within its tolerance (one for all outputs,
-    or a tuple), two launches bitwise equal, and the CUDA-event ms of
-    both; returns the kernel's JSON fields."""
+    or a tuple), two launches bitwise equal, and the median ms per call
+    of both (:func:`interleaved_ms`); returns the kernel's JSON fields."""
     import torch
 
     with torch.no_grad():
@@ -100,8 +129,7 @@ def compare(name, kern, plain, tols, where):
         errs = [max_rel(u, v) for u, v in zip(out_k, out_p)]
         abs_err = max(float((u.double() - v.double()).abs().max())
                       for u, v in zip(out_k, out_p))
-        ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain)
+        ms, plain_ms = interleaved_ms((kern, plain))
     if not isinstance(tols, tuple):
         tols = (tols,) * len(errs)
     print(f"{where} kernel {name}: rel_err={['%.3e' % e for e in errs]} "

@@ -151,6 +151,43 @@ def test_structure_factor_kernels_match_plain_and_repeat_bitwise(sf_inputs):
         assert counts[name] == n0[name] + 2
 
 
+@pytest.mark.parametrize(
+    "kx, ky, kz2, n",
+    [(3, 5, 2, 5), (7, 13, 26, 647), (1, 3, 6, 40), (4, 1, 10, 33),
+     (5, 64, 128, 100), (2, 3, 5, 17)],
+    ids=["n5-2kz2", "n647-2kz26", "kx1", "ky1", "ky64-2kz128", "2kz5"])
+def test_structure_factor_backward_kernels_at_tile_edges(kx, ky, kz2, n):
+    """The two backward kernels against their plain versions where their
+    tiles have ragged edges (N not a multiple of the 16-atom tile, 2Kz of
+    the 4 columns a slab row is padded to, Ky of the tables kernel's
+    2-row groups), at Kx 1 and Ky 1, at the Ky / 2Kz limits (shared memory
+    above 48 KB), and at an odd 2Kz (the slabs copy in single floats, not
+    pairs): each output within 2e-5 of its max, two launches equal.
+    Seeded random tables in [-1, 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(dev).manual_seed(1000 * kx + n)
+
+    def rand(*shape):
+        return torch.rand(shape, device=dev, generator=g) * 2.0 - 1.0
+
+    tabs = (rand(kx, n), rand(kx, n), rand(ky, n), rand(ky, n),
+            rand(n, kz2))
+    abar, bbar = rand(kx * ky, kz2), rand(kx * ky, kz2)
+    cases = [(lambda: sf.sf_bwd_tables(*tabs, abar, bbar),
+              sf.sf_bwd_tables_plain(*tabs, abar, bbar)),
+             (lambda: (sf.sf_bwd_zq(*tabs[:4], abar, bbar),),
+              (sf.sf_bwd_zq_plain(*tabs[:4], abar, bbar),))]
+    for kern, plain in cases:
+        k1, k2 = kern(), kern()
+        for u, v, w in zip(k1, k2, plain):
+            assert u.shape == w.shape
+            assert torch.equal(u, v)
+            assert _max_rel(u, w) <= 2e-5
+
+
 def test_structure_factor_wrappers_refuse_what_the_kernels_do_not_take(
         sf_inputs):
     tabs, _ = sf_inputs

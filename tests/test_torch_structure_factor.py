@@ -22,26 +22,33 @@ from torch_helpers import rel_err
 torch.set_num_threads(2)
 
 
-def _tables(n_side):
+def _tables(n_side, kmax=None):
     """(cxT, sxT, cyT, syT, zq) float32 NumPy from the water box's positions
-    and flux charges (the 216-water path's shapes at n_side 6), and kmax."""
+    and flux charges (the 216-water path's shapes at n_side 6, the 4k box's
+    at n_side 11), and kmax (the system's own unless given)."""
     force, pos, _, box = water_box(n_side=n_side, cutoff=0.9)
     with warnings.catch_warnings():   # n_side 3: cutoff > half the box
         warnings.simplefilter("ignore")
         system = force.create_system(box=box, dtype=torch.float64,
                                      direct_method="dense")
+    kmax = kmax or system.spec.kmax
     x = torch.as_tensor(pos)
     q = effective_charges(x, system)
-    tabs = ewald.kernel_inputs(x, q, system.box, system.spec.kmax)
-    return [t.float().numpy() for t in tabs], system.spec.kmax
+    tabs = ewald.kernel_inputs(x, q, system.box, kmax)
+    return [t.float().numpy() for t in tabs], kmax
 
 
-@pytest.mark.parametrize("n_side", [3, 6])
-def test_plain_forward_and_vjp_match_pallas_interpret(n_side):
+@pytest.mark.parametrize("n_side, kmax", [(3, None), (6, None), (11, None),
+                                          (6, (4, 9, 6))],
+                         ids=["3", "6", "11", "6-kmax4x9x6"])
+def test_plain_forward_and_vjp_match_pallas_interpret(n_side, kmax):
     """f32: A, B within 1e-5 of their max; each VJP output within 2e-5 of
     its max (the tolerances of tests/test_pallas_recip.py), compared on the
-    real rows (the JAX kernel pads Ky to 8 and N to 128 with zeros)."""
-    tabs, kmax = _tables(n_side)
+    real rows (the JAX kernel pads Ky to 8 and N to 128 with zeros).  n_side
+    11 is the 4k shapes the CUDA kernels are timed at (Kx 13, Ky 25, 2Kz
+    50, N 3993); kmax (4, 9, 6) makes Kx, Ky and 2Kz all differ (4, 17, 22)
+    so a transposed [Kx, N] / [Ky, N] / [N, 2Kz] layout cannot pass."""
+    tabs, kmax = _tables(n_side, kmax)
     cxT, sxT, cyT, syT, zq = tabs
     kx, n = cxT.shape
     ky, kz2 = cyT.shape[0], zq.shape[1]
