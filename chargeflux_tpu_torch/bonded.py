@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .pairs import displacement
 from .topology import TemplateSet, detect_templates
 
@@ -51,9 +52,11 @@ class BondedParams:
     @classmethod
     def create(cls, bond_idx, bond_k, bond_r0, angle_idx, angle_k,
                angle_theta0, box, pbc, n_atoms=None, dtype=torch.float32,
-               device="cpu") -> "BondedParams":
+               device=None) -> "BondedParams":
         """Build with molecule-template detection: repeating index
-        structure is reordered molecule-major for the static-slice path."""
+        structure is reordered molecule-major for the static-slice path.
+        ``device`` defaults to the CUDA card (``"cpu"`` for the CPU)."""
+        device = resolve_device(device)
         bond_idx = np.asarray(bond_idx, np.int64).reshape(-1, 2)
         angle_idx = np.asarray(angle_idx, np.int64).reshape(-1, 3)
         bond_k, bond_r0 = np.asarray(bond_k), np.asarray(bond_r0)

@@ -69,7 +69,7 @@ def _build(force: CoulForce, n_waters: int, flux: str):
 
 
 def water_bonded_params(n_waters: int, box=None, dtype=torch.float32,
-                        device="cpu") -> BondedParams:
+                        device=None) -> BondedParams:
     """SPC/Fw-style harmonic bonds/angles holding each water together."""
     base = 3 * np.arange(n_waters)[:, None]
     bond_idx = np.concatenate([base + [0, 1], base + [0, 2]], axis=0)

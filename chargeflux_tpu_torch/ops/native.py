@@ -24,7 +24,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("pme_spread.cu", "direct_walk.cu", "structure_factor.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -45,7 +45,8 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels if the library for the current sources is not
-    built yet; returns its path."""
+    built yet; returns its path.  One ``nvcc`` per source, all started
+    together, then one link."""
     srcs = [CSRC_DIR / s for s in SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
@@ -55,12 +56,29 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    objs = [tmp.with_suffix(f".{s.stem}.o") for s in srcs]
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [c[-1] for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        cmds.append([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                     *map(str, objs)])
+        res = subprocess.run(cmds[-1], capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append("link")
+    (BUILD_DIR / "build.log").write_text("".join(
+        " ".join(c) + "\n" + log for c, log in zip(cmds, logs)))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           + "".join(logs))
     os.replace(tmp, out)
     return out
 

@@ -107,9 +107,9 @@ def _check(qwlxt, wlyt, wzt, zorg, offsets, pad_xy, extra=()):
         raise ValueError("spread kernel: a column patch leaves the padded "
                          "mesh")
     max_wy, max_order = native.limits("cf_spread_limits")
-    if wyp > max_wy or order > max_order or 32 % order:
+    if wyp > max_wy or order > max_order:
         raise ValueError(f"spread kernel: needs Wyp <= {max_wy} and a "
-                         f"spline order dividing 32 (got {wyp}, {order})")
+                         f"spline order <= {max_order} (got {wyp}, {order})")
 
 
 def spread_fwd(qwlxt, wlyt, wzt, zorg, offsets, pad_xy):
@@ -119,6 +119,8 @@ def spread_fwd(qwlxt, wlyt, wzt, zorg, offsets, pad_xy):
         return spread_fwd_plain(qwlxt, wlyt, wzt, zorg, offsets, pad_xy)
     px, py, gz = (int(v) for v in pad_xy)
     _check(qwlxt, wlyt, wzt, zorg, offsets, (px, py))
+    if gz < 8:
+        raise ValueError(f"spread kernel: needs Gz >= 8 (got {gz})")
     n_col, wx, rows = qwlxt.shape
     wyp, order = wlyt.shape[1], wzt.shape[1]
     dev = qwlxt.device

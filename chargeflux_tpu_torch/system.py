@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .topology import MoleculeTemplate, TemplateSet, detect_templates
 
 
@@ -209,7 +210,7 @@ def _template_set(obj) -> Optional[TemplateSet]:
         remainder=tuple((str(k), int(v)) for k, v in get("remainder")))
 
 
-def system_from_arrays(arrays: dict, spec_fields: dict, device="cpu",
+def system_from_arrays(arrays: dict, spec_fields: dict, device=None,
                        dtype=torch.float32) -> ChargeFluxSystem:
     """Build the port's system from NumPy leaves.
 
@@ -217,8 +218,10 @@ def system_from_arrays(arrays: dict, spec_fields: dict, device="cpu",
     ``sigma``, ..., ``box``) to an array; ``spec_fields`` maps each field
     of :class:`StaticSpec` to its value (templates may be given as
     ``dataclasses.asdict`` dictionaries or as objects with the same
-    attributes).  Float leaves become ``dtype``, index leaves int64.
+    attributes).  Float leaves become ``dtype``, index leaves int64, on
+    ``device`` (default the CUDA card; ``"cpu"`` for the CPU).
     """
+    device = resolve_device(device)
     missing = set(ARRAY_FIELDS) - set(arrays)
     if missing:
         raise ValueError(f"system_from_arrays: missing arrays {sorted(missing)}")
@@ -387,10 +390,11 @@ class CoulForce:
         halo_devices: Optional[int] = None,
         cell_grid=None,
         pme_grid=None,
-        device="cpu",
+        device=None,
     ) -> ChargeFluxSystem:
         """Plan and build the system (same planning and arguments as the
-        JAX package's ``create_system``, plus ``device``).
+        JAX package's ``create_system``, plus ``device``: the CUDA card by
+        default, ``"cpu"`` for the CPU; without CUDA the default raises).
 
         ``cell_grid`` may only reduce the derived grid (never below the
         cutoff); ``pme_grid`` may only raise the derived mesh; both raise
@@ -398,6 +402,7 @@ class CoulForce:
         routes and the non-periodic one (see energy.py for the routes and
         for what raises).
         """
+        device = resolve_device(device)
         n = len(self._charges)
         if n == 0:
             raise ValueError("system has no particles")

@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import argparse
 import math
+import re
+import statistics
 import subprocess
 import time
 
@@ -36,6 +38,95 @@ import torch
 
 DT_PS = 5e-4              # 0.5 fs, as the JAX package's bench.py
 KB = 0.00831446261815324  # kJ/mol/K
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): f32 on the
+# CUDA cores (no tensor cores), and HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+F32 = 4  # bytes of a float32 or an int32
+# the port's hand-written kernels, as a profiler trace names them
+PORT_KERNELS = re.compile(r"\(anonymous namespace\)::"
+                          r"(spread_|direct_walk|sf_)")
+ROUNDS = 7        # timing rounds of interleaved_ms, the functions in turns
+GRAPH_REPS = 20   # calls per timed CUDA graph
+
+
+def kernel_bound(name: str, **dims) -> dict:
+    """The least time the card could take for one call of kernel ``name``
+    at the shapes ``dims``: its flops (an FMA counts 2, rsqrt 1), the bytes
+    it must move (each input read once, each output written once), and
+    ``bound_ms``, the larger of flops / PEAK_F32_FLOPS and bytes /
+    PEAK_BYTES_PER_S, with ``bound_by`` naming the larger.
+
+    spread_fwd / spread_bwd (n_col, wx, wy, wyp, rows, order, px, py, gz,
+      n_real): only the n_real rows that carry an atom make work (the
+      sentinel slots have q = 0: they add nothing to the mesh, and their
+      cotangents are multiplied by q = 0 on the way to the positions), and
+      of such a row only ``order`` x weights of wx and ``order`` y weights
+      of wy are nonzero (a B-spline's support; the zero pad rows up to
+      wyp never are).  Forward: per nonzero (x, y) pair of a row, q w_x w_y
+      (1) and its order taps (2 order).  Backward: the mesh dot product of
+      the order taps (2 order) for every pair with a nonzero x or y
+      weight, the x cotangent (2) per pair with a nonzero y weight, the y
+      cotangent (2) per pair with a nonzero x weight, and the term and its
+      tap cotangents (1 + 2 order) per pair with both.  With every weight
+      nonzero (wx = wy = order, n_real = n_col rows) these are the dense
+      (2 order + 1) and (4 order + 5) per (column, x, y, row) term.
+    sf_fwd / sf_bwd_tables / sf_bwd_zq (kx, ky, kz2, n): two [Kx Ky, N]
+      by [N, 2Kz] products (4 Kx Ky N 2Kz); forming cxy, sxy costs 6 per
+      (kx, ky, n), the tables' epilogue 16.
+    direct_walk (n_pairs, n_slots, n_cells, ncoef): each of the n_pairs
+      in-cutoff pairs once, 51 + 4 (ncoef - 1) flops (the Horner pair of
+      P and dP is 4 per coefficient; the j-side updates are counted, the
+      distance tests of pairs beyond the cutoff are not); bytes: six float
+      and one id column per slot in, dE/dx and dE/dq per slot out, the
+      27-cell neighbor and image tables and one energy per cell.
+    """
+    d = dims
+    if name in ("spread_fwd", "spread_bwd"):
+        o, wx, wy = d["order"], d["wx"], d["wy"]
+        weights = d["n_col"] * d["rows"] * (wx + d["wyp"] + o)
+        rest = d["n_col"] * d["rows"] + d["px"] * d["py"] * d["gz"]
+        if name == "spread_fwd":
+            flops = d["n_real"] * o * o * (2 * o + 1)
+            nbytes = F32 * (weights + rest)
+        else:                           # reads and writes the weights
+            either = wx * o + o * wy - o * o
+            flops = d["n_real"] * (2 * o * either + 2 * wx * o + 2 * o * wy
+                                   + o * o * (2 * o + 1))
+            nbytes = F32 * (2 * weights + rest)
+    elif name in ("sf_fwd", "sf_bwd_tables", "sf_bwd_zq"):
+        k, n = d["kx"] * d["ky"], d["n"]
+        tables = 2 * (d["kx"] + d["ky"]) * n     # cx, sx, cy, sy
+        bwd_tables = name == "sf_bwd_tables"      # reads and writes them
+        flops = k * n * (4 * d["kz2"] + (16 if bwd_tables else 6))
+        nbytes = F32 * ((2 if bwd_tables else 1) * tables + n * d["kz2"]
+                        + 2 * k * d["kz2"])
+    elif name == "direct_walk":
+        flops = d["n_pairs"] * (51 + 4 * (d["ncoef"] - 1))
+        nbytes = (F32 * (11 * d["n_slots"] + d["n_cells"] * (1 + 27 + 81)
+                         + 3 + d["ncoef"]))
+    else:
+        raise ValueError(f"no bound for kernel {name!r}")
+    t_ops, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"flops": int(flops), "bytes": int(nbytes),
+            "bound_ms": 1e3 * max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes"}
+
+
+def pairs_within_cutoff(x, box, cutoff: float, chunk: int = 1024) -> int:
+    """Unordered atom pairs closer than ``cutoff`` under the minimum image
+    of an orthorhombic ``box`` (the pairs the direct walk must evaluate)."""
+    box = box.to(x.dtype)
+    n, count = x.shape[0], 0
+    for i0 in range(0, n, chunk):
+        d = x[i0:i0 + chunk, None, :] - x[None, :, :]
+        d = d - box * torch.round(d / box)
+        close = (d * d).sum(-1) < cutoff * cutoff
+        rows = torch.arange(i0, min(i0 + chunk, n), device=x.device)
+        close &= rows[:, None] < torch.arange(n, device=x.device)[None, :]
+        count += int(close.sum())
+    return count
 
 
 def build_system(force, box, cap, device, dtype=torch.float32,
@@ -132,6 +223,58 @@ def burn_in(force, system0, x, masses, box, bonded, n_steps: int = 240):
     return system, state, rebuild_every, info
 
 
+def call_graph(fn):
+    """A CUDA graph of GRAPH_REPS back-to-back calls of ``fn``, warmed up
+    first on the capture's side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(GRAPH_REPS):
+            fn()
+    return graph
+
+
+def interleaved_ms(fns) -> list:
+    """Median CUDA-event ms per call of each function over ROUNDS rounds:
+    in each, the graph of every function is replayed once, in turns (the
+    order reversed every other round).  Device time, no host enqueue."""
+    graphs = [call_graph(fn) for fn in fns]
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for r in range(ROUNDS):
+        for k in order if r % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            a.record()
+            graphs[k].replay()
+            b.record()
+            torch.cuda.synchronize()
+            times[k].append(a.elapsed_time(b) / GRAPH_REPS)
+    return [statistics.median(t) for t in times]
+
+
+def spread_inputs(x, system):
+    """The spread's arguments at positions ``x`` (``spread_columns``'s
+    (qwlxt, wlyt, wzt, zorg, offsets, pad_xy)) and the cell blocks."""
+    from .. import cells, pme
+    from ..charges import effective_charges
+    from ..neighbors import build_neighbor_state
+
+    with torch.no_grad():
+        nb = build_neighbor_state(x, system)
+        if int(nb.overflow) != 0:
+            raise RuntimeError("binning overflow at these positions")
+        b = cells.blockify(x, effective_charges(x, system), system,
+                           nb.slots, nb.inv_slot, wrap=nb.wrap)
+        ids = nb.slots.reshape(b.x.shape)
+        return pme.column_spread_inputs(b, ids, system), b, ids
+
+
 def union_length(intervals) -> float:
     """Length of the union of (start, end) intervals, in their unit."""
     total, cur_s, cur_e = 0.0, None, None
@@ -225,7 +368,10 @@ def profile(system, state, rebuild_every, masses, bonded):
         for e in dev_events:
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + (e.time_range.end - e.time_range.start))
-        for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])
+        # the twelve largest, then the port's own kernels below them
+        own = [kv for kv in ranked[12:] if PORT_KERNELS.search(kv[0])]
+        for name, us in ranked[:12] + own:
             print(f"  {us / 1e3 / n_steps:8.4f} ms/step  {name[:100]}",
                   flush=True)
 

@@ -15,7 +15,13 @@ dense + classical-Ewald path (``bench.py 216``).  Phases, in order:
    plain-PyTorch versions on the card: max |diff| / max |plain|, bitwise
    equality of two launches, and the time per call of each: a CUDA graph
    of 20 back-to-back calls (no host enqueue in the timed span) replayed
-   between CUDA events, kernel and plain in turns over 7 rounds, median;
+   between CUDA events, kernel, plain version and library yardstick in
+   turns over 7 rounds, median.  The yardstick is one PyTorch call for the
+   kernel's core product (``library_ms``; the port never calls it; none
+   for the walk, which no single call computes).  Beside each time, the
+   kernel's bound at these inputs (``utils.measure.kernel_bound``: the
+   larger of flops over the H100's f32 peak and bytes over its memory
+   rate) and ``bound_share`` = bound / ms;
 3b. the same for the three structure-factor kernels, at the 216 path's
    shapes and at a 4k box's (n_side 11, kmax 13^3), on the real tables
    and the real cotangents dE_rec/dA, dE_rec/dB;
@@ -39,7 +45,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -62,51 +67,10 @@ KERNELS = {
     "sf_bwd_zq": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:172", "216"),
 }
 N_STEPS = 200
-ROUNDS = 7      # timing rounds, kernel and plain in turns
-REPS = 20       # calls per timed CUDA graph
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def call_graph(fn):
-    """A CUDA graph of REPS back-to-back calls of ``fn``, warmed up first
-    on the capture's side stream."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(REPS):
-            fn()
-    return graph
-
-
-def interleaved_ms(fns) -> list:
-    """Median CUDA-event ms per call of each function over ROUNDS rounds:
-    in each, the graph of every function is replayed once, in turns (the
-    order reversed every other round)."""
-    import torch
-
-    graphs = [call_graph(fn) for fn in fns]
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    times = [[] for _ in fns]
-    order = list(range(len(fns)))
-    for r in range(ROUNDS):
-        for k in order if r % 2 == 0 else order[::-1]:
-            torch.cuda.synchronize()
-            a.record()
-            graphs[k].replay()
-            b.record()
-            torch.cuda.synchronize()
-            times[k].append(a.elapsed_time(b) / REPS)
-    return [statistics.median(t) for t in times]
 
 
 def max_rel(a, b) -> float:
@@ -115,12 +79,16 @@ def max_rel(a, b) -> float:
                  / b.double().abs().max().clamp_min(1e-300))
 
 
-def compare(name, kern, plain, tols, where):
+def compare(name, kern, plain, tols, where, bound, library=None):
     """One kernel against its plain version on the same inputs: max |diff| /
     max |plain| of each output within its tolerance (one for all outputs,
     or a tuple), two launches bitwise equal, and the median ms per call
-    of both (:func:`interleaved_ms`); returns the kernel's JSON fields."""
+    of the kernel, the plain version and the ``library`` yardstick (if
+    any) in turns (:func:`interleaved_ms`), beside the kernel's ``bound``
+    (``utils.measure.kernel_bound``); returns the kernel's JSON fields."""
     import torch
+
+    from chargeflux_tpu_torch.utils.measure import interleaved_ms
 
     with torch.no_grad():
         out_k, out_k2, out_p = kern(), kern(), plain()
@@ -129,18 +97,25 @@ def compare(name, kern, plain, tols, where):
         errs = [max_rel(u, v) for u, v in zip(out_k, out_p)]
         abs_err = max(float((u.double() - v.double()).abs().max())
                       for u, v in zip(out_k, out_p))
-        ms, plain_ms = interleaved_ms((kern, plain))
+        times = interleaved_ms((kern, plain) + ((library,) if library else ()))
+    ms, plain_ms = times[:2]
+    library_ms = times[2] if library else None
     if not isinstance(tols, tuple):
         tols = (tols,) * len(errs)
+    lib = "none" if library_ms is None else f"{library_ms:.4f}"
     print(f"{where} kernel {name}: rel_err={['%.3e' % e for e in errs]} "
           f"(limits {list(tols)}) max_abs_err={abs_err:.4e} "
-          f"bitwise_repeat={bitwise} ms={ms:.4f} plain_ms={plain_ms:.4f}",
-          flush=True)
+          f"bitwise_repeat={bitwise} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib} bound_ms={bound['bound_ms']:.6f} "
+          f"({bound['bound_by']}: {bound['flops']} flops, {bound['bytes']} "
+          f"bytes) bound_share={bound['bound_ms'] / ms:.4f}", flush=True)
     if any(e > t for e, t in zip(errs, tols)):
         fail(f"{name} disagrees with its plain version ({where}): {errs}")
     if not bitwise:
         fail(f"{name}: two launches on the same inputs differ ({where})")
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound,
+            "bound_share": bound["bound_ms"] / ms}
 
 
 def kernel_entry(name, fields):
@@ -153,42 +128,71 @@ def check_kernels(system, x, results):
     """Phase 3: each kernel against its plain version at the real shapes."""
     import torch
 
-    from chargeflux_tpu_torch import cells, pme
-    from chargeflux_tpu_torch.charges import effective_charges
-    from chargeflux_tpu_torch.neighbors import build_neighbor_state
+    from chargeflux_tpu_torch import pme
     from chargeflux_tpu_torch.ops import direct_walk as dw
     from chargeflux_tpu_torch.ops import pme_spread as ps
+    from chargeflux_tpu_torch.ops.erfc import erf_over_r_coeffs
+    from chargeflux_tpu_torch.utils.measure import (kernel_bound,
+                                                    pairs_within_cutoff,
+                                                    spread_inputs)
 
+    spread_in, b, ids = spread_inputs(x, system)
+    spec = system.spec
+    walk_args = (b.x, b.y, b.z, b.q, b.hs, b.se, ids, system.box,
+                 system.n_atoms, spec.alpha, spec.cutoff)
+    qw, wy, wz, zo, offsets, pad_xy = spread_in
     with torch.no_grad():
-        q = effective_charges(x, system)
-        nb = build_neighbor_state(x, system)
-        if int(nb.overflow) != 0:
-            fail("binning overflow at the start positions")
-        b = cells.blockify(x, q, system, nb.slots, nb.inv_slot, wrap=nb.wrap)
-        ids = nb.slots.reshape(b.x.shape)
-        spec = system.spec
-        walk_args = (b.x, b.y, b.z, b.q, b.hs, b.se, ids, system.box,
-                     system.n_atoms, spec.alpha, spec.cutoff)
-        spread_in = pme.column_spread_inputs(b, ids, system)
-        qw, wy, wz, zo, offsets, pad_xy = spread_in
+        # the yardsticks' operands, formed outside the timed calls: the
+        # plain version's dense patch product and its backward's two
+        n_col, wx, rows = qw.shape
+        px, py, gz = pad_xy
+        a2 = ps._a2(qw, wy)                          # [n_col, Wx*Wyp, rows]
+        wz_dense = ps._expand_z(wz, zo, gz)          # [n_col, rows, Gz]
+        # wy: the y rows of the patch, not the zero rows padding it to Wyp;
+        # n_real: the rows that hold an atom (the rest are sentinel slots)
+        spread_dims = dict(
+            n_col=n_col, wx=wx, wyp=wy.shape[1], rows=rows,
+            order=wz.shape[1], px=px, py=py, gz=gz,
+            wy=pme._patch_width(spec.cell_grid[1], spec.pme_grid[1],
+                                spec.pme_order, spec.pme_slack[1]),
+            n_real=int((ids < system.n_atoms).sum()))
+        n_pairs = pairs_within_cutoff(x, system.box, spec.cutoff)
     # the real mesh cotangent dE_rec/dQpad
     qpad_ref = ps.spread_fwd_plain(*spread_in).requires_grad_(True)
     (ct,) = torch.autograd.grad(pme.mesh_energy(qpad_ref, system), qpad_ref)
     ct = ct.contiguous()
+    dp = torch.stack([ct[ox:ox + wx, oy:oy + wy.shape[1]]
+                      for ox, oy in zip(*offsets)]).reshape(n_col, -1, gz)
+    print(f"phase 3 shapes: spread {spread_dims}; walk {n_pairs} pairs "
+          f"within the cutoff over {b.x.numel()} slots", flush=True)
 
     cases = {
         "spread_fwd": (lambda: (ps.spread_fwd(*spread_in),),
-                       lambda: (ps.spread_fwd_plain(*spread_in),), 1e-6),
+                       lambda: (ps.spread_fwd_plain(*spread_in),), 1e-6,
+                       kernel_bound("spread_fwd", **spread_dims),
+                       lambda: (torch.bmm(a2, wz_dense),)),
         "spread_bwd": (lambda: ps.spread_bwd(qw, wy, wz, zo, offsets, ct),
                        lambda: ps.spread_bwd_plain(qw, wy, wz, zo, offsets,
-                                                   ct), 2e-5),
+                                                   ct), 2e-5,
+                       kernel_bound("spread_bwd", **spread_dims),
+                       lambda: (torch.bmm(a2.transpose(1, 2), dp),
+                                torch.bmm(dp, wz_dense.transpose(1, 2)))),
         "direct_walk": (lambda: dw.direct_walk(*walk_args),
                         lambda: dw.direct_walk_plain(*walk_args),
-                        (1e-5, 1e-4, 1e-4)),
+                        (1e-5, 1e-4, 1e-4),
+                        kernel_bound("direct_walk", n_pairs=n_pairs,
+                                     n_slots=b.x.numel(),
+                                     n_cells=math.prod(spec.cell_grid),
+                                     ncoef=len(erf_over_r_coeffs(
+                                         spec.alpha, spec.cutoff))),
+                        None),
     }
-    for name, (kern, plain, tols) in cases.items():
+    for name, (kern, plain, tols, bound, library) in cases.items():
         results[name] = kernel_entry(
-            name, compare(name, kern, plain, tols, "phase 3"))
+            name, compare(name, kern, plain, tols, "phase 3", bound, library))
+    results["direct_walk"]["library_note"] = (
+        "no single call: no PyTorch call computes the cell walk's energy, "
+        "dE/dx and dE/dq")
 
 
 def check_energy(system, x, phase):
@@ -293,6 +297,7 @@ def check_sf_kernels(results):
     from chargeflux_tpu_torch.charges import effective_charges
     from chargeflux_tpu_torch.models import water_box
     from chargeflux_tpu_torch.ops import structure_factor as sf
+    from chargeflux_tpu_torch.utils.measure import kernel_bound
 
     dev = torch.device("cuda", 0)
     for label, n_side, cutoff in (("216", 6, 0.9), ("4k", 11, 0.8)):
@@ -309,21 +314,33 @@ def check_sf_kernels(results):
             *ewald.assemble(a, b, tabs[4].shape[1] // 2), system.box,
             spec.alpha, spec.kmax)
         abar, bbar = (t.contiguous() for t in torch.autograd.grad(e, (a, b)))
-        shape = (f"Kx {tabs[0].shape[0]} Ky {tabs[2].shape[0]} 2Kz "
-                 f"{tabs[4].shape[1]} N {tabs[0].shape[1]}")
+        dims = dict(kx=tabs[0].shape[0], ky=tabs[2].shape[0],
+                    kz2=tabs[4].shape[1], n=tabs[0].shape[1])
+        shape = "Kx {kx} Ky {ky} 2Kz {kz2} N {n}".format(**dims)
+        with torch.no_grad():
+            # the yardsticks' operands: [cxy; sxy] [2 Kx Ky, N] and its
+            # transpose, [Abar; Bbar] [2 Kx Ky, 2Kz]
+            left = torch.cat(sf.xy_tables(*tabs[:4]))
+            left_t = left.T.contiguous()
+            bars = torch.cat([abar, bbar])
+        zq = tabs[4]
         cases = {
             "sf_fwd": (lambda: sf.sf_fwd(*tabs),
-                       lambda: sf.sf_fwd_plain(*tabs), 1e-5),
+                       lambda: sf.sf_fwd_plain(*tabs), 1e-5,
+                       lambda: (left @ zq,)),
             "sf_bwd_tables": (
                 lambda: sf.sf_bwd_tables(*tabs, abar, bbar),
-                lambda: sf.sf_bwd_tables_plain(*tabs, abar, bbar), 2e-5),
+                lambda: sf.sf_bwd_tables_plain(*tabs, abar, bbar), 2e-5,
+                lambda: (bars @ zq.T,)),
             "sf_bwd_zq": (
                 lambda: (sf.sf_bwd_zq(*tabs[:4], abar, bbar),),
-                lambda: (sf.sf_bwd_zq_plain(*tabs[:4], abar, bbar),), 2e-5),
+                lambda: (sf.sf_bwd_zq_plain(*tabs[:4], abar, bbar),), 2e-5,
+                lambda: (left_t @ bars,)),
         }
-        for name, (kern, plain, tol) in cases.items():
+        for name, (kern, plain, tol, library) in cases.items():
             fields = compare(name, kern, plain, tol,
-                             f"phase 3b at the {label} shapes ({shape})")
+                             f"phase 3b at the {label} shapes ({shape})",
+                             kernel_bound(name, **dims), library)
             if label == "216":
                 results[name] = kernel_entry(name, fields)
             else:

@@ -111,7 +111,8 @@ def test_full_shell_traversal_matches_plain_walk(n_side):
     is walked twice) and 4 (n_side 9)."""
     force, pos, _, box = water_box(n_side=n_side, cutoff=0.65)
     system = force.create_system(box=box, dtype=torch.float64,
-                                 direct_method="cell", recip_method="pme")
+                                 direct_method="cell", recip_method="pme",
+                                 device="cpu")
     assert min(system.spec.cell_grid) == (3 if n_side == 7 else 4)
     x = torch.as_tensor(pos)
     nb = build_neighbor_state(x, system)

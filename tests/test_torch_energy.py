@@ -90,7 +90,7 @@ def test_overflow_poisons_energy_and_forces():
     force, pos, _, box = water_box(n_side=7, cutoff=0.65)
     system = force.create_system(box=box, dtype=torch.float64,
                                  direct_method="cell", recip_method="pme",
-                                 cell_capacity=24)
+                                 cell_capacity=24, device="cpu")
     e, f = energy.energy_and_forces(torch.as_tensor(pos), system)
     assert _all_nan(e, f)
 
@@ -123,7 +123,8 @@ def test_pme_slack_poison_is_gated_on_the_pme_route():
     """The same drift on classical Ewald (no patches) is not poisoned."""
     force, pos, _, box = water_box(n_side=7, cutoff=0.65)
     system = force.create_system(box=box, dtype=torch.float64,
-                                 direct_method="cell", recip_method="xla")
+                                 direct_method="cell", recip_method="xla",
+                                 device="cpu")
     x0 = torch.as_tensor(pos)
     nb = build_neighbor_state(x0, system)
     x1 = x0.clone()
@@ -144,7 +145,8 @@ def test_auto_recip_on_the_cpu_matches_jax():
                                  direct_method="cell", recip_method="auto")
     force_t, pos_t, _, box_t = water_box(n_side=7, cutoff=0.65)
     sys_t = force_t.create_system(box=box_t, dtype=torch.float64,
-                                  direct_method="cell", recip_method="auto")
+                                  direct_method="cell", recip_method="auto",
+                                  device="cpu")
     assert np.array_equal(pos, pos_t)
     comps_j = jenergy._energy_components(jnp.asarray(pos), jsys)
     comps_t = energy.energy_components(torch.as_tensor(pos_t), sys_t)
@@ -210,7 +212,7 @@ def test_dispersion_tail_matches_jax():
     sys_t = port_system(jsys)
     force_t, _, _, box_t = water_box(n_side=7, cutoff=0.65)
     force_t.setUseDispersionCorrection(True)
-    assert force_t.create_system(box=box_t).spec.tail_coeff == \
+    assert force_t.create_system(box=box_t, device="cpu").spec.tail_coeff == \
         pytest.approx(jsys.spec.tail_coeff, rel=1e-12)
     ref = float(jenergy.dispersion_energy(jsys.box, jsys.spec, jnp.float64))
     comps = energy.energy_components(torch.as_tensor(pos), sys_t)
@@ -229,6 +231,7 @@ def test_unported_routes_raise(kw):
         L = box[0]
         box = np.array([[L, 0.0, 0.0], [0.15 * L, L, 0.0],
                         [0.10 * L, -0.12 * L, L]])
-    system = force.create_system(box=box, dtype=torch.float64, **kw)
+    system = force.create_system(box=box, dtype=torch.float64, device="cpu",
+                                 **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         energy.energy_and_forces(torch.as_tensor(pos), system)

@@ -74,7 +74,7 @@ def test_kernel_route_plain_matches_xla_route_f32():
     tolerances)."""
     force, pos, _, box = water_box(n_side=6, cutoff=0.9)
     system = force.create_system(box=box, dtype=torch.float32,
-                                 direct_method="dense")
+                                 direct_method="dense", device="cpu")
     spec = system.spec
     x = torch.tensor(pos, dtype=torch.float32, requires_grad=True)
     q = effective_charges(x, system)
@@ -115,7 +115,8 @@ def test_auto_resolves_as_the_jax_package(direct, n_side, device, dtype,
     standing where JAX has the TPU in f32.  (torch.device("cuda") needs no
     card.)"""
     force, _, _, box = water_box(n_side=n_side, cutoff=0.9)
-    spec = force.create_system(box=box, direct_method=direct).spec
+    spec = force.create_system(box=box, direct_method=direct,
+                               device="cpu").spec
     assert resolve_recip_method(spec, dtype, torch.device(device)) == want
     pinned = dataclasses.replace(spec, recip_method="pme")
     assert resolve_recip_method(pinned, dtype, torch.device(device)) == "pme"

@@ -65,7 +65,7 @@ def test_nve_trajectory_matches_jax_f64():
                                              jnp.asarray(masses), 5e-4, 20,
                                              rebuild_every=5)
 
-    tb = water_bonded_params(n_w, box=box, dtype=torch.float64)
+    tb = water_bonded_params(n_w, box=box, dtype=torch.float64, device="cpu")
     e_fn, init_nb = integrate.make_nb_energy_fn(sys_t, bonded=tb)
     s = integrate.init_state_nb(torch.as_tensor(x0), torch.as_tensor(v0),
                                 e_fn, init_nb)
@@ -100,7 +100,7 @@ def test_dense_nve_trajectory_matches_jax_f64():
                                              jnp.asarray(masses), 5e-4, 20,
                                              rebuild_every=10)
 
-    tb = water_bonded_params(n_w, box=box, dtype=torch.float64)
+    tb = water_bonded_params(n_w, box=box, dtype=torch.float64, device="cpu")
     e_fn, init_nb = integrate.make_nb_energy_fn(sys_t, bonded=tb)
     assert init_nb(torch.as_tensor(x0)) is None
     s = integrate.init_state_nb(torch.as_tensor(x0), torch.as_tensor(v0),
@@ -126,7 +126,7 @@ def test_bonded_energy_and_grad_match_jax():
     x = pos + np.random.default_rng(3).normal(0.0, 0.005, pos.shape)
     jb = jax_bonded_params(n_w, box=box, dtype=jnp.float64)
     e_j, g_j = jax.value_and_grad(jax_bonded_energy)(jnp.asarray(x), jb)
-    tb = water_bonded_params(n_w, box=box, dtype=torch.float64)
+    tb = water_bonded_params(n_w, box=box, dtype=torch.float64, device="cpu")
     xt = torch.tensor(x, requires_grad=True)
     e_t = bonded_energy(xt, tb)
     (g_t,) = torch.autograd.grad(e_t, xt)

@@ -7,6 +7,7 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -63,6 +64,85 @@ def test_spread_kernels_match_plain_and_repeat_bitwise(setup):
     counts = ops.launch_counts()
     assert counts["spread_fwd"] == n0["spread_fwd"] + 2
     assert counts["spread_bwd"] == n0["spread_bwd"] + 2
+
+
+# (id, n_col, Wx, Wyp, rows, order, Gz, zorg layout, one column all q = 0)
+SPREAD_EDGES = [
+    ("random-zorg-gz16", 9, 6, 8, 128, 8, 16, "random", False),
+    ("random-zorg-gz64", 9, 6, 24, 256, 8, 64, "random", False),
+    ("zorg-57-63", 4, 20, 24, 704, 8, 64, "wrap", False),
+    ("sentinel-column", 4, 20, 24, 704, 8, 64, "cells", True),
+    ("rows-100", 4, 20, 24, 100, 8, 64, "cells", False),
+    ("rows-77-order4", 4, 7, 8, 77, 4, 32, "random", False),
+    ("wyp8-order4", 4, 20, 8, 704, 4, 64, "cells", False),
+    ("wyp24-order4", 4, 9, 24, 352, 4, 64, "cells", False),
+]
+
+
+@pytest.mark.parametrize("case", SPREAD_EDGES,
+                         ids=[c[0] for c in SPREAD_EDGES])
+def test_spread_fwd_kernel_edge_cases(case):
+    """The forward kernel's z windows at their edges, against the plain
+    version within 1e-6 of max (phase 3's tolerance) and two launches
+    bitwise equal: zorg uniform in [0, Gz) (wide windows that wrap, several
+    window tiles, Gz 16 below the 32-column tile), every zorg in 57-63
+    (every window wraps), a column whose rows are all sentinel slots
+    (q = 0), rows not a multiple of the 64-row segment (100; 77, which
+    also takes the single-word copies), Wyp 8 and 24, order 4 and 8.
+    "cells" lays the rows out z-cell-major like the main path (88 slots a
+    cell, a third of them sentinel: q = 0, zorg 57), each row's x weights
+    on ``order`` consecutive x, so each block's x rows see their own
+    subset of the rows.  Seeded NumPy inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    name, n_col, wx, wyp, rows, order, gz, layout, empty = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    qwlxt = rng.standard_normal((n_col, wx, rows))
+    wlyt = rng.random((n_col, wyp, rows))
+    wlyt[:, wyp - 2:] = 0.0                      # zero Wy pad rows
+    wzt = rng.random((n_col, order, rows))
+    if layout == "random":
+        zorg = rng.integers(0, gz, (n_col, 1, rows))
+    elif layout == "wrap":
+        zorg = rng.integers(57, 64, (n_col, 1, rows))
+    else:
+        cz = np.arange(rows) // 88
+        zorg = (8 * cz - 7 + rng.integers(0, 10, (n_col, 1, rows))) % gz
+        sentinel = rng.random((n_col, 1, rows)) < 1 / 3
+        sx = rng.integers(0, wx - order + 1, (n_col, 1, rows))
+        xs = np.arange(wx)[None, :, None]
+        qwlxt = np.where(sentinel | (xs < sx) | (xs >= sx + order), 0.0,
+                         qwlxt)
+        zorg = np.where(sentinel, 57 % gz, zorg)
+    if empty:
+        qwlxt[1] = 0.0
+        zorg[1] = 57
+    ncy = 2 if n_col == 4 else 3
+    offsets = (tuple(8 * (c // ncy) for c in range(n_col)),
+               tuple(8 * (c % ncy) for c in range(n_col)))
+    pad = (8 * (n_col // ncy - 1) + wx, 8 * (ncy - 1) + wyp, gz)
+    dev = torch.device("cuda", 0)
+    args = [torch.tensor(a, dtype=torch.float32, device=dev)
+            for a in (qwlxt, wlyt, wzt)]
+    args += [torch.tensor(zorg, dtype=torch.int32, device=dev), offsets, pad]
+    k1, k2 = ps.spread_fwd(*args), ps.spread_fwd(*args)
+    plain = ps.spread_fwd_plain(*args)
+    assert k1.shape == plain.shape == pad
+    assert torch.equal(k1, k2)
+    assert _max_rel(k1, plain) <= 1e-6
+
+
+def test_spread_fwd_refuses_gz_below_8():
+    """A window tile's columns must be distinct mesh points: the forward
+    kernel refuses Gz < 8 (its 8-column warp tiles) before launching."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    args = [torch.ones((1, w, 8), device=dev) for w in (4, 8, 4)]
+    args += [torch.zeros((1, 1, 8), dtype=torch.int32, device=dev),
+             ((0,), (0,)), (4, 8, 4)]
+    with pytest.raises(ValueError, match="Gz >= 8"):
+        ps.spread_fwd(*args)
 
 
 def test_direct_walk_kernel_matches_plain_and_repeats_bitwise(setup):

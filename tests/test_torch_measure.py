@@ -38,7 +38,7 @@ def test_burn_in_small_box():
                                    grid=grid)
     x = torch.tensor(pos, dtype=torch.float32)
     m = torch.tensor(masses, dtype=torch.float32)
-    bonded = water_bonded_params(len(masses) // 3, box=box)
+    bonded = water_bonded_params(len(masses) // 3, box=box, device="cpu")
     system, state, rebuild_every, info = measure.burn_in(
         force, system0, x, m, box, bonded, n_steps=8)
     assert system.spec.cell_grid == grid
@@ -70,3 +70,107 @@ def test_dense_path_is_bench_216():
                                 torch.device("cuda")) == "pallas"
     assert resolve_recip_method(spec, torch.float32, x.device) == "xla"
     assert bonded is not None
+
+
+SPREAD_30K = dict(n_col=64, wx=20, wy=20, wyp=24, rows=704, order=8, px=76,
+                  py=80, gz=64, n_real=31_944)
+
+
+def test_kernel_bound_at_the_30k_spread_shapes():
+    """The 30k spread (64 columns, Wx = Wy 20 padded to 24, 704 rows of
+    which 31,944 hold an atom, order 8, Qpad 76 x 80 x 64).  Only the
+    nonzero weights of the atom rows make work: 8 x 8 (x, y) pairs a row,
+    17 flops each forward; backward 256 mesh dot products of 16, 160 + 160
+    x / y cotangent updates of 2 and 64 tap terms of 17.  Each input is
+    read once and each output written once, so bytes set both bounds."""
+    fwd = measure.kernel_bound("spread_fwd", **SPREAD_30K)
+    assert fwd["flops"] == 31_944 * 64 * 17 == 34_755_072
+    assert fwd["bytes"] == 11_108_352
+    bwd = measure.kernel_bound("spread_bwd", **SPREAD_30K)
+    assert bwd["flops"] == 31_944 * 5_824 == 186_041_856
+    assert bwd["bytes"] == 20_480_000
+    for b in (fwd, bwd):
+        t_ops = b["flops"] / measure.PEAK_F32_FLOPS * 1e3
+        t_mem = b["bytes"] / measure.PEAK_BYTES_PER_S * 1e3
+        assert b["bound_ms"] == max(t_ops, t_mem)
+        assert b["bound_by"] == "bytes"
+    assert fwd["bound_ms"] == pytest.approx(3.316e-3, rel=1e-3)
+    assert bwd["bound_ms"] == pytest.approx(6.113e-3, rel=1e-3)
+
+
+@pytest.mark.parametrize("name, per_term", [("spread_fwd", 17),
+                                            ("spread_bwd", 37)])
+def test_kernel_bound_spread_dense_limit(name, per_term):
+    """With every weight nonzero (Wx = Wy = order, every row an atom) the
+    count is the dense one, 2 order + 1 (forward) and 4 order + 5
+    (backward) flops per (column, x, y, row) term; at order 16 that is
+    enough work for the operations to set the bound."""
+    dense = dict(SPREAD_30K, wx=8, wy=8, wyp=8, n_real=64 * 704)
+    assert (measure.kernel_bound(name, **dense)["flops"]
+            == 64 * 8 * 8 * 704 * per_term)
+    wide = measure.kernel_bound(name, **dict(dense, wx=16, wy=16, wyp=16,
+                                             order=16))
+    assert wide["bound_by"] == "operations"
+    assert wide["bound_ms"] == wide["flops"] / measure.PEAK_F32_FLOPS * 1e3
+
+
+def test_kernel_bound_structure_factor_and_walk():
+    """216 shapes (Kx 7, Ky 13, 2Kz 26, N 648) and the walk's per-pair
+    count; unknown kernels raise."""
+    dims = dict(kx=7, ky=13, kz2=26, n=648)
+    fwd = measure.kernel_bound("sf_fwd", **dims)
+    assert fwd["flops"] == 4 * 91 * 648 * 26 + 6 * 91 * 648
+    assert fwd["bytes"] == 4 * (2 * 20 * 648 + 648 * 26 + 2 * 91 * 26)
+    tables = measure.kernel_bound("sf_bwd_tables", **dims)
+    assert tables["flops"] == 4 * 91 * 648 * 26 + 16 * 91 * 648
+    assert tables["bytes"] == fwd["bytes"] + 4 * 2 * 20 * 648
+    assert measure.kernel_bound("sf_bwd_zq", **dims)["bytes"] == fwd["bytes"]
+    walk = measure.kernel_bound("direct_walk", n_pairs=1000, n_slots=88,
+                                n_cells=1, ncoef=13)
+    assert walk["flops"] == 99_000
+    assert walk["bytes"] == 4 * (11 * 88 + 109 + 3 + 13)
+    with pytest.raises(ValueError):
+        measure.kernel_bound("fft", n=1)
+
+
+def test_pairs_within_cutoff_is_the_brute_force_count():
+    """Minimum-image pair count against a loop over all pairs in NumPy."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    box = np.array([1.3, 1.5, 1.7])
+    x = rng.random((150, 3)) * box
+    want = 0
+    for i in range(len(x)):
+        d = x[i + 1:] - x[i]
+        d -= box * np.round(d / box)
+        want += int(np.sum(np.sum(d * d, axis=1) < 0.4 ** 2))
+    got = measure.pairs_within_cutoff(torch.as_tensor(x), torch.as_tensor(box),
+                                      0.4, chunk=64)
+    assert got == want > 0
+
+
+def test_spread_inputs_small_box():
+    """The spread's arguments at n_side 7 (3^3 cells): one column per
+    (x, y) cell column, rows z-cell-major (cell z, then slot), and each
+    atom's B-spline weights sum to 1 along each axis (the x weights carry
+    its charge; sentinel slots carry q = 0)."""
+    force, pos, _, box = water_box(n_side=7, flux="bond_angle", cutoff=0.65)
+    grid = (3, 3, 3)
+    cap = suggest_capacity(pos, box, grid, margin=1.05)
+    system = measure.build_system(force, box, cap, torch.device("cpu"),
+                                  grid=grid)
+    x = torch.tensor(pos, dtype=torch.float32)
+    args, blocks, ids = measure.spread_inputs(x, system)
+    qwlxt, wlyt, wzt, zorg, offsets, pad_xy = args
+    assert qwlxt.shape[0] == 9 and qwlxt.shape[2] == 3 * cap
+    assert wlyt.shape[1] % 8 == 0 and zorg.dtype == torch.int32
+    assert ids.shape == blocks.x.shape
+    real = (ids < system.n_atoms).reshape(9, -1)
+    q_rows = torch.where(real, blocks.q.reshape(9, -1), 0.0)
+    torch.testing.assert_close(qwlxt.sum(1), q_rows, rtol=0, atol=1e-5)
+    torch.testing.assert_close(wlyt.sum(1)[real], torch.ones(int(real.sum())),
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(wzt.sum(1), torch.ones_like(q_rows),
+                               rtol=0, atol=1e-5)
+    assert len(offsets[0]) == 9 and pad_xy[2] == system.spec.pme_grid[2]

@@ -30,7 +30,7 @@ def _tables(n_side, kmax=None):
     with warnings.catch_warnings():   # n_side 3: cutoff > half the box
         warnings.simplefilter("ignore")
         system = force.create_system(box=box, dtype=torch.float64,
-                                     direct_method="dense")
+                                     direct_method="dense", device="cpu")
     kmax = kmax or system.spec.kmax
     x = torch.as_tensor(pos)
     q = effective_charges(x, system)

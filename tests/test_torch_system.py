@@ -47,7 +47,7 @@ def test_builder_spec_and_arrays_match_jax(name, dtype):
     f_j, pos_j, m_j, box_j = jax_water_box(n_side=n_side, cutoff=cutoff)
     assert np.array_equal(pos_t, pos_j) and np.array_equal(m_t, m_j)
     assert np.array_equal(box_t, box_j)
-    st = f_t.create_system(box=box_t, dtype=dtype, **kw)
+    st = f_t.create_system(box=box_t, dtype=dtype, device="cpu", **kw)
     sj = f_j.create_system(box=box_j, dtype=JAX_DTYPE[dtype], **kw)
     assert dataclasses.asdict(st.spec) == dataclasses.asdict(sj.spec)
     for field in ARRAY_FIELDS:
@@ -63,12 +63,13 @@ def test_builder_derived_capacity_and_overrides_match_jax():
     derived; the override checks raise in both packages alike."""
     f_t, _, _, box = water_box(n_side=22, cutoff=0.72)
     f_j, _, _, _ = jax_water_box(n_side=22, cutoff=0.72)
-    st = f_t.create_system(box=box, direct_method="cell")
+    st = f_t.create_system(box=box, direct_method="cell", device="cpu")
     sj = f_j.create_system(box=box, direct_method="cell")
     assert dataclasses.asdict(st.spec) == dataclasses.asdict(sj.spec)
     for bad in (dict(cell_grid=(12, 12, 12)), dict(pme_grid=(32, 32, 32))):
         with pytest.raises(ValueError):
-            f_t.create_system(box=box, direct_method="cell", **bad)
+            f_t.create_system(box=box, direct_method="cell", device="cpu",
+                              **bad)
         with pytest.raises(ValueError):
             f_j.create_system(box=box, direct_method="cell", **bad)
 
@@ -78,7 +79,7 @@ def test_system_from_arrays_round_trip():
     assert dataclasses.asdict(sys_t.spec) == dataclasses.asdict(jsys.spec)
     back = system_from_arrays(
         {f: getattr(sys_t, f).numpy() for f in ARRAY_FIELDS},
-        dataclasses.asdict(sys_t.spec), dtype=torch.float64)
+        dataclasses.asdict(sys_t.spec), dtype=torch.float64, device="cpu")
     assert back.spec == sys_t.spec
     for f in ARRAY_FIELDS:
         assert torch.equal(getattr(back, f), getattr(sys_t, f)), f
@@ -86,7 +87,44 @@ def test_system_from_arrays_round_trip():
                               np.asarray(getattr(jsys, f))), f
     with pytest.raises(ValueError, match="missing"):
         system_from_arrays({"q0": np.zeros(3)}, dataclasses.asdict(
-            sys_t.spec))
+            sys_t.spec), device="cpu")
+
+
+def _entry_points():
+    from chargeflux_tpu_torch.bonded import BondedParams
+    from chargeflux_tpu_torch.models import water_bonded_params
+
+    force, _, _, box = water_box(n_side=7, cutoff=0.65)
+    _, sys_t, _, _ = water_systems(torch.float64)
+    arrays = {f: getattr(sys_t, f).numpy() for f in ARRAY_FIELDS}
+    spec = dataclasses.asdict(sys_t.spec)
+    return {
+        "create_system": lambda **kw: force.create_system(box=box, **kw),
+        "water_bonded_params": lambda **kw: water_bonded_params(
+            9, box=box, **kw),
+        "system_from_arrays": lambda **kw: system_from_arrays(arrays, spec,
+                                                              **kw),
+        "BondedParams.create": lambda **kw: BondedParams.create(
+            [[0, 1]], [1.0], [0.1], np.zeros((0, 3)), [], [], box, True,
+            **kw),
+    }
+
+
+@pytest.mark.parametrize("entry", ["create_system", "water_bonded_params",
+                                   "system_from_arrays",
+                                   "BondedParams.create"])
+def test_entry_points_default_to_the_card(entry):
+    """Without ``device`` the entry points build on the CUDA card: on a
+    host without CUDA they raise (never a silent CPU fallback), and
+    ``device="cpu"`` builds on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default builds there")
+    build = _entry_points()[entry]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build()
+    out = build(device="cpu")
+    tensors = [v for v in vars(out).values() if isinstance(v, torch.Tensor)]
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
 def test_import_loads_no_jax():

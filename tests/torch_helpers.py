@@ -22,7 +22,7 @@ def port_system(jsys, dtype=torch.float64):
     arrays = {name: np.asarray(getattr(jsys, name)) for name in ARRAY_FIELDS}
     spec = {f.name: getattr(jsys.spec, f.name)
             for f in dataclasses.fields(jsys.spec)}
-    return system_from_arrays(arrays, spec, dtype=dtype)
+    return system_from_arrays(arrays, spec, dtype=dtype, device="cpu")
 
 
 def jax_water(n_side, cutoff, dtype=torch.float64, pbc=True, **kw):
