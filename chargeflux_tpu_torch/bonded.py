@@ -2,8 +2,9 @@
 ``chargeflux_tpu.bonded``): E = 0.5 k (r - r0)^2 + 0.5 k (theta - theta0)^2.
 
 Templated molecule blocks evaluate on [count, stride, 3] reshapes with
-static slices; remainder rows take one gather.  Periodic torsions and
-restraints are not ported yet (ROADMAP.md).
+static slices; remainder rows take one gather, whose backward sums in the
+fixed order of ``BondedParams.plan`` (deterministic on the card).
+Periodic torsions and restraints are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from .device import resolve_device
 from .pairs import displacement
+from .rows import RowPlan, gather_planned, row_plan
 from .topology import TemplateSet, detect_templates
 
 
@@ -48,6 +50,20 @@ class BondedParams:
     box: torch.Tensor           # [3]
     pbc: bool
     template: Optional[TemplateSet] = None
+    # fixed-order plan of the remainder rows' atoms (bonds, then angles),
+    # made once at construction; None when every row is templated
+    plan: Optional[RowPlan] = dataclasses.field(init=False, compare=False)
+
+    def __post_init__(self):
+        rows = []
+        for kind, idx in (("bonds", self.bond_idx),
+                          ("angles", self.angle_idx)):
+            start = (self.template.covered(kind, idx.shape[0])
+                     if self.template is not None else 0)
+            rows.append(idx[start:].reshape(-1).cpu().numpy())
+        flat = np.concatenate(rows)
+        object.__setattr__(self, "plan", row_plan(
+            flat, self.bond_idx.device) if flat.size else None)
 
     @classmethod
     def create(cls, bond_idx, bond_k, bond_r0, angle_idx, angle_k,
@@ -118,9 +134,7 @@ def bonded_energy(positions: torch.Tensor,
     n_b = bonded.bond_idx.shape[0] - b0
     n_a = bonded.angle_idx.shape[0] - a0
     if n_b + n_a > 0:
-        bi = bonded.bond_idx[b0:]
-        ai = bonded.angle_idx[a0:]
-        p_all = positions[torch.cat([bi.reshape(-1), ai.reshape(-1)])]
+        p_all = gather_planned(positions, bonded.plan)
         if n_b:
             pb = p_all[:2 * n_b].reshape(n_b, 2, 3)
             e = e + _bond_e(pb[:, 0], pb[:, 1], bonded.bond_k[b0:],

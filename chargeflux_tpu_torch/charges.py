@@ -5,8 +5,9 @@ q(x) is a plain function of the positions; autograd through it gives the
 dE/dq . dq/dx chain-rule term of the forces.  Templated molecule blocks
 (topology.py) evaluate on [count, stride, 3] reshapes with static slices;
 only the remainder rows (a solute) go through one gather and one
-``index_add``, which on the card uses atomics and so is the one
-non-deterministic step — the templated 30k water box has no remainder.
+scatter-add, both in the fixed order of the system's ``flux_plan``
+(``rows.gather_planned`` / ``scatter_add_planned``), so a run on the card
+gives the same bits twice, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .pairs import displacement
+from .rows import gather_planned, scatter_add_planned
 from .system import ChargeFluxSystem
 
 
@@ -104,17 +106,17 @@ def _template_dq_flat(positions, system: ChargeFluxSystem, tpl, starts):
 
 def _scatter_flux(q, positions, system: ChargeFluxSystem,
                   b0: int = 0, a0: int = 0, w0: int = 0):
-    """General charge update on term rows [b0:], [a0:], [w0:]: one
-    position gather and one ``index_add`` for all kinds."""
+    """General charge update on the remainder term rows [b0:], [a0:],
+    [w0:] (those of ``system.flux_plan``): one position gather and one
+    scatter-add for all kinds, each in the plan's fixed order."""
     box, pbc = system.box, system.spec.pbc
-    bi = system.bond_idx[b0:]
-    ai = system.angle_idx[a0:]
-    wi = system.water_idx[w0:]
-    n_b, n_a, n_w = bi.shape[0], ai.shape[0], wi.shape[0]
+    n_b = system.bond_idx.shape[0] - b0
+    n_a = system.angle_idx.shape[0] - a0
+    n_w = system.water_idx.shape[0] - w0
     if n_b + n_a + n_w == 0:
         return q
-    idx_all = torch.cat([bi.reshape(-1), ai.reshape(-1), wi.reshape(-1)])
-    p_all = positions[idx_all]
+    plan = system.flux_plan
+    p_all = gather_planned(positions, plan)
     dq_parts = []
     if n_b:
         pb = p_all[:2 * n_b].reshape(n_b, 2, 3)
@@ -133,7 +135,7 @@ def _scatter_flux(q, positions, system: ChargeFluxSystem,
             system.water_k2[w0:], system.water_kub[w0:],
             system.water_b0[w0:], system.water_ub0[w0:], box, pbc)
         dq_parts.append(torch.stack([dqo, dq2, dq3], dim=1).reshape(-1))
-    return q.index_add(0, idx_all, torch.cat(dq_parts))
+    return scatter_add_planned(q, torch.cat(dq_parts), plan)
 
 
 def effective_charges(positions: torch.Tensor,

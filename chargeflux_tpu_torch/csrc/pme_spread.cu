@@ -83,9 +83,59 @@
 // the bmm's 0.070; for the left operand on the fly, double-buffered
 // stages and one barrier, the forward 0.045-0.065 ms.
 //
-// The backward is one thread per (column, row): it reads the <= Wx*Wyp*order
-// mesh cotangents its taps touch and forms all three weight cotangents
-// locally, so no reduction crosses threads.
+// Backward, for the mesh cotangent ct [Px, Py, Gz] and dP its column patch
+// (dP[x, y, g] = ct[ox + x, oy + y, g]), per row with taps g_k = (zorg +
+// k) mod Gz and h[x, y] = sum_k dP[x, y, g_k] w_z[k]:
+//   d_qwlxt[x] = sum_y w_y[y] h[x, y]      (at every x, q w_x zero or not)
+//   d_wlyt[y]  = sum_x (q w_x)[x] h[x, y]  (at every y, the pad rows too)
+//   d_wzt[k]   = sum_{x,y} (q w_x)[x] w_y[y] dP[x, y, g_k]
+// It must write every element.  What bounds it: the work these inputs
+// need, 186 MFLOP at 30k (atom rows, nonzero weights), is 2.8 us at 67
+// TFLOP/s; it moves 20.5 MB, 6.1 us at 3.35 TB/s: bytes.
+//   spread_bwd_kernel: one block of kBwdWarps = 8 warps per (column,
+//     segment of kSeg = 64 rows): 64 x 11 = 704 blocks at 30k, 2 per SM
+//     (107 KB of shared memory).  The segment's q w_x, w_y, w_z and zorg
+//     rows land in a stage by cp.async (16-byte copies where rows % 4 ==
+//     0).  Active rows: q w_x or w_y not all zero; every other row's
+//     outputs are zero and it costs nothing (the sentinel slots, q = 0,
+//     at the origin, of every column whose y patch misses y = 0).
+//     Every warp finds the active rows and their z window as the
+//     forward does (offsets from
+//     the first active row mod Gz, W = 15-17 columns for a segment in one
+//     z cell at 30k, 23-25 across two) and the block stages dP[x, y,
+//     window] of the column's cotangent (from L2: ct is 1.56 MB) by
+//     cp.async into a tile [Wx][Wyp][W | 1] (odd row stride, so the 32
+//     lanes' y rows hit 32 banks).  The tile holds every x, so the
+//     backward takes Wx <= kMaxWx = 36 (the forward has no Wx limit;
+//     tiling x would lift it).  A window wider than kBwdTile = 32
+//     goes in tiles, each taking the rows whose 8 taps all lie in it,
+//     whole; the next starts at the first row left, so any zorg in [0,
+//     Gz) is exact and no row's sums are split.
+//     One warp per row, y on the lanes (Wyp <= 32): per x, a lane forms
+//     h from its 8 taps (8 conflict-free loads, 8 FMA), d_wlyt[y] +=
+//     (q w_x)[x] h in a register, and d_wzt[k] += (q w_x)[x] w_y[y] dP in
+//     8 registers; the x loop and its skips are warp-uniform: at an x
+//     whose q w_x is zero only w_y h is formed (for d_qwlxt), and nothing
+//     if the row's w_y is all zero.  d_qwlxt and d_wzt are sums over the
+//     lanes: each lane writes its Wx + order terms into a per-warp
+//     scratch [Wx + order][33], and lane i sums row i over the 32 lanes
+//     in a fixed order (four chains, lanes j mod 4; h too is two chains,
+//     even and odd taps, and the x loop is unrolled 4: the latency of one
+//     dependent chain per row was what 16 warps per SM could not hide).
+//     The row's results go into the stage in place of its inputs (no
+//     other warp reads them), and the block writes the stage out as it
+//     came in, coalesced.  No float atomics, no TF32: every
+//     element has one writer and a fixed order, so two launches give the
+//     same bits.
+// Prediction, written before its first run on the card: ~600 warp
+// instructions per active row (31,944 atom rows and the sentinel rows of
+// the columns whose y patch covers the origin at 30k), 20 M in all, ~22
+// us at full issue; the 8-tap loads take ~250 shared-memory wavefronts a
+// row, ~35 us at one a clock per SM, so shared memory bounds it; with the two copy latencies
+// per block and 2.7 waves of blocks, 0.045-0.09 ms, below the plain
+// version's two torch.bmm (0.188 ms) and the plain version (0.55 ms).
+// (The backward it replaces, one thread per (column, row) looping over
+// all Wx * Wyp * order taps from global memory, took 0.525 ms.)
 
 #include <cuda_runtime.h>
 
@@ -94,9 +144,10 @@
 
 namespace {
 
-constexpr int kMaxWy = 32;     // Wyp bound (the backward's register arrays,
-                               // the forward's Wyp <= 8 * kMaxTM)
+constexpr int kMaxWy = 32;     // Wyp bound (the forward's Wyp <= 8 * kMaxTM,
+                               // the backward's lane = y)
 constexpr int kMaxOrder = 16;  // spline-order bound of the same
+constexpr int kMaxWx = 36;     // Wx bound (the backward's shared memory)
 
 constexpr int kSeg = 64;             // rows per staged segment
 constexpr int kSegP = kSeg + 4;      // a stage row's stride: 16-byte rows,
@@ -110,6 +161,10 @@ constexpr int kWinStride = kTile + 4;  // its shared row stride (16-byte
                                        // rows; taps of rows r..r+31 at one
                                        // column hit 8 banks, not 1)
 constexpr int kMaxTM = (kMaxWy + 7) / 8;  // patch rows per lane
+constexpr int kBwdWarps = 8;         // warps per backward block
+constexpr int kBwdTile = 32;         // window columns per backward tile
+                                     // (one per lane in its copy)
+constexpr int kScr = 33;             // a backward scratch row's stride
 static_assert(kSeg % 32 == 0, "segments are whole warps of rows");
 static_assert(kXC * 8 == 32, "a lane owns one x row and every 8th y row");
 
@@ -418,74 +473,289 @@ __global__ void spread_fold_kernel(const float* __restrict__ scratch,
   }
 }
 
-__global__ void spread_bwd_kernel(const float* __restrict__ qwlxt,
-                                  const float* __restrict__ wlyt,
-                                  const float* __restrict__ wzt,
-                                  const int* __restrict__ zorg,
-                                  const int* __restrict__ offsets,
-                                  const float* __restrict__ ct,
-                                  float* __restrict__ d_qwlxt,
-                                  float* __restrict__ d_wlyt,
-                                  float* __restrict__ d_wzt, int n_col,
-                                  int wx, int wyp, int order, int rows,
-                                  int py, int gz) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = blockIdx.y;
-  if (r >= rows) return;
-  const size_t qx_base = (size_t)c * wx * rows + r;
-  const size_t wy_base = (size_t)c * wyp * rows + r;
-  const size_t wz_base = (size_t)c * order * rows + r;
-  const int z0 = zorg[(size_t)c * rows + r];
-  const int ox = offsets[c];
-  const int oy = offsets[n_col + c];
-
-  float wy[kMaxWy], dwy[kMaxWy];
-#pragma unroll
-  for (int y = 0; y < kMaxWy; ++y) {
-    wy[y] = y < wyp ? wlyt[wy_base + (size_t)y * rows] : 0.0f;
-    dwy[y] = 0.0f;
+// Shared memory of one backward block, in floats: the stage (q w_x [Wx],
+// w_y [Wyp], w_z [order] and zorg rows of kSegP; each row's outputs land
+// in place), the cotangent tile [Wx][Wyp][kBwdTile | 1], and each warp's
+// reduction scratch [Wx + order][kScr].
+struct BwdSmem {
+  int wx, wyp, order;
+  __host__ __device__ constexpr int stage() const {
+    return (wx + wyp + order + 1) * kSegP;
   }
-  float wz[kMaxOrder], dwz[kMaxOrder];
-  int zk[kMaxOrder];
+  __host__ __device__ constexpr int tile() const {
+    return ceil4(wx * wyp * (kBwdTile + 1));
+  }
+  __host__ __device__ constexpr int scratch() const {
+    return kBwdWarps * (wx + order) * kScr;
+  }
+  __host__ __device__ constexpr size_t bytes() const {
+    return sizeof(float) * (size_t)(stage() + tile() + scratch());
+  }
+};
+static_assert(BwdSmem{kMaxWx, kMaxWy, kMaxOrder}.bytes() <= 232448,
+              "the largest backward block fits the H100's shared memory");
+
+// Global row q of the backward's stage: q w_x rows, then w_y, w_z, zorg.
+__device__ __forceinline__ float* bwd_row_ptr(float* qx, float* wy, float* wz,
+                                              float* zo, int c, int q,
+                                              int wx, int wyp, int order,
+                                              int rows) {
+  if (q < wx) return qx + ((size_t)c * wx + q) * rows;
+  q -= wx;
+  if (q < wyp) return wy + ((size_t)c * wyp + q) * rows;
+  q -= wyp;
+  if (q < order) return wz + ((size_t)c * order + q) * rows;
+  return zo + (size_t)c * rows;
+}
+
+// One row of the backward, by one warp, lane = y, its 8 (order) taps at
+// tile columns col..col+order-1.  Results land in the stage in place of
+// the row's inputs: d_qwlxt over q w_x, d_wlyt over w_y, d_wzt over w_z.
+template <int ORD, bool GUARD>
+__device__ __forceinline__ void bwd_row(float* st_qx, float* st_wy,
+                                        float* st_wz, const float* tile,
+                                        float* scr, int r, int col, int ts,
+                                        int wx, int wyp, int order,
+                                        int lane) {
+  const float wyl = lane < wyp ? st_wy[lane * kSegP + r] : 0.0f;
+  const bool any_wy = __any_sync(~0u, wyl != 0.0f);
+  float wz[ORD], dwz[ORD];
 #pragma unroll
-  for (int k = 0; k < kMaxOrder; ++k) {
-    wz[k] = k < order ? wzt[wz_base + (size_t)k * rows] : 0.0f;
+  for (int k = 0; k < ORD; ++k) {
+    wz[k] = !GUARD || k < order ? st_wz[k * kSegP + r] : 0.0f;
     dwz[k] = 0.0f;
-    int g = z0 + k;
-    if (g >= gz) g -= gz;
-    zk[k] = k < order ? g : 0;
   }
-
+  float dwy = 0.0f;
+  // lanes past Wyp read row Wyp-1 (a broadcast) and have w_y = 0
+  const float* trow = tile + min(lane, wyp - 1) * ts + col;
+  const int xstride = wyp * ts;
+#pragma unroll 4
   for (int x = 0; x < wx; ++x) {
-    const float qx = qwlxt[qx_base + (size_t)x * rows];
-    const float* ctx = ct + ((size_t)(ox + x) * py + oy) * gz;
-    float dqx = 0.0f;
+    const float q = st_qx[x * kSegP + r];
+    float dq = 0.0f;
+    // warp-uniform: at an x whose q w_x is 0 only d_qwlxt needs h, and
+    // only if some w_y of the row is not 0
+    if (q != 0.0f || any_wy) {
+      const float* p = trow + x * xstride;
+      float v[ORD];
+      float h0 = 0.0f, h1 = 0.0f;  // two chains: even and odd taps
 #pragma unroll
-    for (int y = 0; y < kMaxWy; ++y) {
-      if (y < wyp) {
-        const float* cty = ctx + (size_t)y * gz;
-        const float a = qx * wy[y];
-        float da = 0.0f;
+      for (int k = 0; k < ORD; ++k) {
+        v[k] = !GUARD || k < order ? p[k] : 0.0f;
+        if (k & 1)
+          h1 = fmaf(v[k], wz[k], h1);
+        else
+          h0 = fmaf(v[k], wz[k], h0);
+      }
+      const float h = h0 + h1;
+      dq = wyl * h;
+      if (q != 0.0f) {
+        dwy = fmaf(q, h, dwy);
+        const float a = q * wyl;
 #pragma unroll
-        for (int k = 0; k < kMaxOrder; ++k) {
-          if (k < order) {
-            const float v = cty[zk[k]];
-            da += v * wz[k];
-            dwz[k] += a * v;
-          }
-        }
-        dqx += da * wy[y];
-        dwy[y] += da * qx;
+        for (int k = 0; k < ORD; ++k) dwz[k] = fmaf(a, v[k], dwz[k]);
       }
     }
-    d_qwlxt[qx_base + (size_t)x * rows] = dqx;
+    scr[x * kScr + lane] = dq;
   }
 #pragma unroll
-  for (int y = 0; y < kMaxWy; ++y)
-    if (y < wyp) d_wlyt[wy_base + (size_t)y * rows] = dwy[y];
+  for (int k = 0; k < ORD; ++k)
+    if (!GUARD || k < order) scr[(wx + k) * kScr + lane] = dwz[k];
+  __syncwarp();
+  // d_qwlxt[x] and d_wzt[k]: each a sum over the 32 lanes in a fixed
+  // order (four chains over lanes j mod 4, then paired)
+  for (int i = lane; i < wx + order; i += 32) {
+    const float* row = scr + i * kScr;
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int k = 0; k < kMaxOrder; ++k)
-    if (k < order) d_wzt[wz_base + (size_t)k * rows] = dwz[k];
+    for (int j = 0; j < 32; ++j) part[j & 3] += row[j];
+    const float sum = (part[0] + part[1]) + (part[2] + part[3]);
+    if (i < wx)
+      st_qx[i * kSegP + r] = sum;
+    else
+      st_wz[(i - wx) * kSegP + r] = sum;
+  }
+  if (lane < wyp) st_wy[lane * kSegP + r] = dwy;
+  __syncwarp();  // the scratch is read before the next row writes it
+}
+
+template <int ORD, bool GUARD>
+__global__ void __launch_bounds__(kBwdWarps * 32, 2)
+    spread_bwd_kernel(const float* __restrict__ qwlxt,
+                      const float* __restrict__ wlyt,
+                      const float* __restrict__ wzt,
+                      const int* __restrict__ zorg,
+                      const int* __restrict__ offsets,
+                      const float* __restrict__ ct,
+                      float* __restrict__ d_qwlxt,
+                      float* __restrict__ d_wlyt,
+                      float* __restrict__ d_wzt, int n_col, int wx, int wyp,
+                      int order, int rows, int py, int gz, bool vec) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  const BwdSmem sm{wx, wyp, order};
+  float* st = bwd_smem;
+  float* tile = st + sm.stage();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* scr = tile + sm.tile() + warp * (wx + order) * kScr;
+  float* st_qx = st;
+  float* st_wy = st_qx + wx * kSegP;
+  float* st_wz = st_wy + wyp * kSegP;
+  const int* st_zo = reinterpret_cast<const int*>(st_wz + order * kSegP);
+  const int c = blockIdx.x, r0 = blockIdx.y * kSeg;
+  const int cnt = min(kSeg, rows - r0);
+  const int n_rows = wx + wyp + order + 1;
+
+  // the segment's rows into the stage (rows past the last are zero); a
+  // warp copies two rows a step as 16-byte quads when vec, else one row
+  // as words
+  {
+    float* in[4] = {const_cast<float*>(qwlxt), const_cast<float*>(wlyt),
+                    const_cast<float*>(wzt),
+                    reinterpret_cast<float*>(const_cast<int*>(zorg))};
+    const int per = vec ? 2 : 1;
+    for (int q0 = warp * per; q0 < n_rows; q0 += kBwdWarps * per) {
+      const int q = q0 + (vec ? lane >> 4 : 0);
+      if (q >= n_rows) continue;
+      const float* g = bwd_row_ptr(in[0], in[1], in[2], in[3], c, q, wx,
+                                   wyp, order, rows) + r0;
+      float* d = st + q * kSegP;
+      if (vec) {
+        const int col = (lane & 15) << 2;
+        if (col < cnt)
+          cp_async16(d + col, g + col);
+        else
+          d[col] = d[col + 1] = d[col + 2] = d[col + 3] = 0.0f;
+      } else {
+        for (int col = lane; col < kSeg; col += 32) {
+          if (col < cnt)
+            cp_async4(d + col, g + col);
+          else
+            d[col] = 0.0f;
+        }
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+  }
+  __syncthreads();
+
+  // Active rows: q w_x or w_y not all zero (every output of another row
+  // is zero).  Every warp finds them itself, lane l holding rows l and
+  // l + 32, and the z window over them as the forward does: offsets d
+  // from the first active row's zorg mod Gz, window [lo, lo + W) with W
+  // = d_max - d_min + order, a row's taps at window column s = d - d_min.
+  static_assert(kRJ == 2, "a lane holds two rows of a segment");
+  bool act[kRJ];
+  int s[kRJ];
+  int first = -1;
+#pragma unroll
+  for (int j = 0; j < kRJ; ++j) {
+    const int r = 32 * j + lane;
+    bool a = false;
+    for (int x = 0; x < wx; ++x) a |= st_qx[x * kSegP + r] != 0.0f;
+    for (int y = 0; y < wyp; ++y) a |= st_wy[y * kSegP + r] != 0.0f;
+    act[j] = a;
+    const unsigned ball = __ballot_sync(~0u, a);
+    if (first < 0 && ball) first = 32 * j + __ffs(ball) - 1;
+  }
+  if (first >= 0) {
+    const int ref = st_zo[first];
+    int dmin = INT_MAX, dmax = INT_MIN;
+#pragma unroll
+    for (int j = 0; j < kRJ; ++j) {
+      s[j] = wrap_gz(st_zo[32 * j + lane] - ref + gz / 2, gz) - gz / 2;
+      if (act[j]) {
+        dmin = min(dmin, s[j]);
+        dmax = max(dmax, s[j]);
+      }
+    }
+    dmin = __reduce_min_sync(~0u, dmin);
+    dmax = __reduce_max_sync(~0u, dmax);
+#pragma unroll
+    for (int j = 0; j < kRJ; ++j) s[j] -= dmin;
+    const int w = dmax - dmin + order;
+    const int lo = wrap_gz(ref + dmin, gz);
+    const int ox = offsets[c], oy = offsets[n_col + c];
+    // Tiles of up to kBwdTile window columns: a tile from column base
+    // takes every active row whose taps all lie in it (s <= base +
+    // kBwdTile - order), whole; the next tile starts at the first row
+    // left.  So each row is done once, in one tile (at 30k every window
+    // is one tile), and any zorg in [0, Gz) is exact.
+    int base = 0;
+    for (;;) {
+      const int tw = min(kBwdTile, w - base);
+      const int ts = tw | 1;  // odd: lanes (y) on distinct banks
+      __syncthreads();        // every warp is done with the tile before
+      const int zl = (lo + base + lane) % gz;
+      for (int x = 0; x < wx; ++x)
+        for (int y = warp; y < wyp; y += kBwdWarps)
+          if (lane < tw)
+            cp_async4(tile + (x * wyp + y) * ts + lane,
+                      ct + ((size_t)(ox + x) * py + oy + y) * gz + zl);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      const int hi = base + kBwdTile - order;
+      for (int r = warp; r < cnt; r += kBwdWarps) {
+        const int src = r & 31;
+        const int sr = __shfl_sync(~0u, r < 32 ? s[0] : s[1], src);
+        const bool ar = __shfl_sync(~0u, r < 32 ? act[0] : act[1], src);
+        if (!ar || sr < base || sr > hi) continue;
+        bwd_row<ORD, GUARD>(st_qx, st_wy, st_wz, tile, scr, r, sr - base,
+                            ts, wx, wyp, order, lane);
+      }
+      int nb = INT_MAX;
+#pragma unroll
+      for (int j = 0; j < kRJ; ++j)
+        if (act[j] && s[j] > hi) nb = min(nb, s[j]);
+      nb = __reduce_min_sync(~0u, nb);
+      if (nb == INT_MAX) break;
+      base = nb;
+    }
+  }
+  // an inactive row's d_wzt is zero (its d_qwlxt and d_wlyt, over its
+  // zero q w_x and w_y rows, are already)
+  for (int r = warp; r < cnt; r += kBwdWarps) {
+    const bool ar = __shfl_sync(~0u, r < 32 ? act[0] : act[1], r & 31);
+    if (!ar)
+      for (int k = lane; k < order; k += 32) st_wz[k * kSegP + r] = 0.0f;
+  }
+  __syncthreads();
+  // the stage's output rows out, as they came in
+  const int n_out = wx + wyp + order;
+  for (int q = warp; q < n_out; q += kBwdWarps) {
+    float* g = bwd_row_ptr(d_qwlxt, d_wlyt, d_wzt, nullptr, c, q, wx, wyp,
+                           order, rows) + r0;
+    const float* d = st + q * kSegP;
+    if (vec) {
+      const int col = lane << 2;
+      if (lane < 16 && col < cnt)
+        *reinterpret_cast<float4*>(g + col) =
+            *reinterpret_cast<const float4*>(d + col);
+    } else {
+      for (int col = lane; col < cnt; col += 32) g[col] = d[col];
+    }
+  }
+}
+
+template <int ORD, bool GUARD>
+cudaError_t launch_bwd(const float* qwlxt, const float* wlyt,
+                       const float* wzt, const int* zorg, const int* offsets,
+                       const float* ct, float* d_qwlxt, float* d_wlyt,
+                       float* d_wzt, int n_col, int wx, int wyp, int order,
+                       int rows, int py, int gz, bool vec, cudaStream_t s) {
+  const size_t smem = BwdSmem{wx, wyp, order}.bytes();
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        spread_bwd_kernel<ORD, GUARD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  spread_bwd_kernel<ORD, GUARD>
+      <<<dim3(n_col, (rows + kSeg - 1) / kSeg), kBwdWarps * 32, smem, s>>>(
+          qwlxt, wlyt, wzt, zorg, offsets, ct, d_qwlxt, d_wlyt, d_wzt, n_col,
+          wx, wyp, order, rows, py, gz, vec);
+  return cudaGetLastError();
 }
 
 template <int TM>
@@ -510,9 +780,10 @@ cudaError_t launch_patch(const float* qwlxt, const float* wlyt,
 
 extern "C" {
 
-int cf_spread_limits(int* max_wy, int* max_order) {
+int cf_spread_limits(int* max_wy, int* max_order, int* max_wx) {
   *max_wy = kMaxWy;
   *max_order = kMaxOrder;
+  *max_wx = kMaxWx;
   return 0;
 }
 
@@ -554,13 +825,29 @@ int cf_spread_bwd(const float* qwlxt, const float* wlyt, const float* wzt,
                   float* d_qwlxt, float* d_wlyt, float* d_wzt, int n_col,
                   int wx, int wyp, int order, int rows, int py, int gz,
                   void* stream) {
+  if (n_col < 1 || wx < 1 || wx > kMaxWx || wyp < 1 || wyp > kMaxWy ||
+      order < 1 || order > kMaxOrder || rows < 1 || gz < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  spread_bwd_kernel<<<dim3((rows + threads - 1) / threads, n_col), threads,
-                      0, s>>>(qwlxt, wlyt, wzt, zorg, offsets, ct, d_qwlxt,
-                              d_wlyt, d_wzt, n_col, wx, wyp, order, rows, py,
-                              gz);
-  return (int)cudaGetLastError();
+  const bool vec = rows % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(qwlxt) |
+                     reinterpret_cast<uintptr_t>(wlyt) |
+                     reinterpret_cast<uintptr_t>(wzt) |
+                     reinterpret_cast<uintptr_t>(zorg) |
+                     reinterpret_cast<uintptr_t>(d_qwlxt) |
+                     reinterpret_cast<uintptr_t>(d_wlyt) |
+                     reinterpret_cast<uintptr_t>(d_wzt)) & 15) == 0;
+  // the tap loops unrolled for order 8 (pme.DEFAULT_ORDER, the main
+  // path's), guarded up to kMaxOrder for any other order
+  const cudaError_t e =
+      order == 8
+          ? launch_bwd<8, false>(qwlxt, wlyt, wzt, zorg, offsets, ct, d_qwlxt,
+                                 d_wlyt, d_wzt, n_col, wx, wyp, order, rows,
+                                 py, gz, vec, s)
+          : launch_bwd<kMaxOrder, true>(qwlxt, wlyt, wzt, zorg, offsets, ct,
+                                        d_qwlxt, d_wlyt, d_wzt, n_col, wx,
+                                        wyp, order, rows, py, gz, vec, s);
+  return (int)e;
 }
 
 }  // extern "C"

@@ -18,9 +18,16 @@ Routes, as in the JAX package:
 ``recip_method="auto"`` resolves as the JAX package does, with a CUDA
 device in f32 where JAX has the TPU in f32: the cell route takes "pme";
 the dense route "pallas" while the half-space k count
-Kx (2 Ky - 1)(2 Kz - 1) is below 4000, else "xla"; on the CPU or in f64,
-"xla".  Triclinic boxes and dense direct space with the dense-mesh PME
+Kx (2 Ky - 1)(2 Kz - 1) is below 4000 and the grid is within the
+structure-factor kernels' Ky / 2Kz limits, else "xla"; on the CPU or in
+f64, "xla".  Triclinic boxes and dense direct space with the dense-mesh PME
 raise ``NotImplementedError`` (ROADMAP.md lists them).
+
+The walk and the spread take their kernels or their plain versions by the
+system's ``kernel_route``, fixed when it is built: a system in f64 (the
+kernels are f32 only) or on the CPU runs the plain versions, as
+``plain=True`` does; an f32 system on the card runs the kernels, whose
+wrappers raise on inputs past their limits.
 
 Three conditions poison the energy and, through ``poison * sum(x)``, every
 force component to NaN on the cell route, as in the JAX package: a binning
@@ -40,8 +47,10 @@ from . import cells
 from .charges import effective_charges
 from .ewald import reciprocal_energy, self_energy
 from .ops.erfc import erf_over_r_eval, erfc_fast
+from .ops.structure_factor import kernels_take_grid
 from .pairs import box_volume, displacement, pair_matrix_mask, plane_widths
 from .pme import pme_cell_column_reciprocal_energy
+from .rows import gather_planned
 from .system import ChargeFluxSystem
 from .units import ONE_4PI_EPS0
 
@@ -85,7 +94,8 @@ def _pair_terms(p1, p2, q1, q2, s1, s2, e1, e2, system, subtract_direct,
 def _exclusion_correction(positions, q, system: ChargeFluxSystem,
                           subtract_direct: bool):
     """Energy correction for excluded pairs under PBC: templated blocks by
-    static slices, remainder rows by one gather of an [N, 6] table."""
+    static slices, remainder rows by one gather of an [N, 6] table in the
+    fixed order of ``system.excl_plan`` (deterministic backward)."""
     dtype = positions.dtype
     total = torch.zeros((), dtype=dtype, device=positions.device)
     if system.n_exclusions == 0:
@@ -112,7 +122,7 @@ def _exclusion_correction(positions, q, system: ChargeFluxSystem,
     if e0 < system.exclusions.shape[0]:
         table = torch.cat([positions, q[:, None], sig[:, None],
                            eps[:, None]], dim=1)
-        ge = table[system.exclusions[e0:].reshape(-1)].reshape(-1, 2, 6)
+        ge = gather_planned(table, system.excl_plan).reshape(-1, 2, 6)
         a, b = ge[:, 0], ge[:, 1]
         total = total + _pair_terms(
             a[:, 0:3], b[:, 0:3], a[:, 3], b[:, 3], a[:, 4], b[:, 4],
@@ -152,14 +162,17 @@ def _dense_pair_energy(positions, q, system: ChargeFluxSystem):
 def resolve_recip_method(spec, dtype, device) -> str:
     """The reciprocal route ``spec.recip_method`` stands for on this device
     and type ("auto" resolved as in the JAX package, a CUDA device in f32
-    standing where JAX has the TPU in f32)."""
+    standing where JAX has the TPU in f32, and "pallas" only for a grid
+    the structure-factor kernels take)."""
     if spec.recip_method != "auto":
         return spec.recip_method
     if torch.device(device).type == "cuda" and dtype == torch.float32:
         if spec.direct_method == "cell":
             return "pme"
         kx, ky, kz = spec.kmax
-        return "pallas" if kx * (2 * ky - 1) * (2 * kz - 1) < 4000 else "xla"
+        if (kx * (2 * ky - 1) * (2 * kz - 1) < 4000
+                and kernels_take_grid(2 * ky - 1, 2 * (2 * kz - 1))):
+            return "pallas"
     return "xla"
 
 
@@ -218,6 +231,7 @@ def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
     spec = system.spec
     if not spec.pbc:
         return {"pair": _dense_pair_energy(positions, q, system)}
+    plain = plain or system.kernel_route == "plain"
     dtype = positions.dtype
     recip = resolve_recip_method(spec, dtype, positions.device)
     _check_route(system, recip)

@@ -16,7 +16,9 @@ plane, weighted 1/2 at kx == 0 and 0 at the origin:
 * ``"pallas"``, which keeps the JAX spec string and here names the
   hand-written structure-factor kernel (``ops/structure_factor.py``,
   ``csrc/structure_factor.cu``): q folded into zq = q [cos_z | sin_z], the
-  combined tables formed inside the kernel.  f32 only.
+  combined tables formed inside the kernel.  f32 only, and a grid within
+  the kernels' Ky / 2Kz limits (``recip_method="auto"`` picks it only for
+  such a grid).
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ thread per i slot, so that no output is written by two threads.
 
 :func:`direct_walk` runs the plain version on a CPU tensor and the kernel
 on a CUDA tensor, or raises (f64 on the card raises: the kernel is f32
-only, ROADMAP.md).
+only; an f64 system records the plain route when it is built).
 """
 
 from __future__ import annotations
@@ -126,6 +126,26 @@ def _coef_tensor(alpha, cutoff, device):
                         device=device)
 
 
+def _refusal(named, shape, alpha: float, cutoff: float):
+    """Why the walk kernel cannot take float inputs ``named``, (name,
+    dtype, device) triples, in the block shape ``shape`` [gx, gy, gz, cap]
+    at this alpha and cutoff: (exception class, message), or None.  It
+    reads types, devices and sizes only."""
+    for name, dtype, device in named:
+        if torch.device(device).type != "cuda" or dtype != torch.float32:
+            return TypeError, (f"direct walk kernel: {name} must be a "
+                               f"float32 CUDA tensor (got {dtype} on "
+                               f"{device}); the f64 walk on the card is the "
+                               f"plain version")
+    gx, gy, gz, cap = shape
+    max_coef, max_threads = native.limits("cf_walk_limits")
+    if (cap > max_threads or len(erf_over_r_coeffs(alpha, cutoff)) > max_coef
+            or min(gx, gy, gz) < 3):
+        return ValueError, (f"direct walk kernel: needs capacity <= "
+                            f"{max_threads} and >= 3 cells per axis")
+    return None
+
+
 def direct_walk(x, y, z, q, hs, se, ids, box, n_atoms: int, alpha: float,
                 cutoff: float):
     """Fused walk: plain version on the CPU, the CUDA kernel on the card."""
@@ -133,12 +153,13 @@ def direct_walk(x, y, z, q, hs, se, ids, box, n_atoms: int, alpha: float,
         return direct_walk_plain(x, y, z, q, hs, se, ids, box, n_atoms,
                                  alpha, cutoff)
     shape = x.shape
-    for name, t in (("x", x), ("y", y), ("z", z), ("q", q), ("hs", hs),
-                    ("se", se), ("box", box)):
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise TypeError(f"direct walk kernel: {name} must be a float32 "
-                            f"CUDA tensor (got {t.dtype} on {t.device}); "
-                            f"the f64 walk on the card is the plain version")
+    named = (("x", x), ("y", y), ("z", z), ("q", q), ("hs", hs), ("se", se),
+             ("box", box))
+    refusal = _refusal([(k, t.dtype, t.device) for k, t in named],
+                       tuple(shape), float(alpha), float(cutoff))
+    if refusal is not None:
+        raise refusal[0](refusal[1])
+    for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"direct walk kernel: {name} must be contiguous")
         if t is not box and t.shape != shape:
@@ -152,11 +173,7 @@ def direct_walk(x, y, z, q, hs, se, ids, box, n_atoms: int, alpha: float,
         raise ValueError("direct walk kernel: ids must be contiguous int32 in "
                          "the block shape, on the device of the blocks")
     gx, gy, gz, cap = shape
-    max_coef, max_threads = native.limits("cf_walk_limits")
     coef = _coef_tensor(float(alpha), float(cutoff), x.device)
-    if cap > max_threads or coef.numel() > max_coef or min(gx, gy, gz) < 3:
-        raise ValueError(f"direct walk kernel: needs capacity <= "
-                         f"{max_threads} and >= 3 cells per axis")
     n_cells = gx * gy * gz
     nbr, img = _tables((gx, gy, gz), x.device)
     e_part = torch.empty((n_cells,), dtype=torch.float32, device=x.device)

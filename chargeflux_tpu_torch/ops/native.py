@@ -89,7 +89,7 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cf_spread_limits.argtypes = [ctypes.POINTER(i)] * 2
+        lib.cf_spread_limits.argtypes = [ctypes.POINTER(i)] * 3
         lib.cf_walk_limits.argtypes = [ctypes.POINTER(i)] * 2
         lib.cf_sf_limits.argtypes = [ctypes.POINTER(i)] * 3
         lib.cf_spread_fwd.argtypes = [p] * 7 + [i] * 8 + [p]

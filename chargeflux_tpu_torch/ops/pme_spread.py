@@ -6,7 +6,9 @@ Counterpart of ``chargeflux_tpu.ops.pallas_pme`` (``spread_columns``,
 whose forward and backward each go through a wrapper: on a CPU tensor the
 wrapper runs the plain version; on a CUDA tensor it launches the kernel in
 ``csrc/pme_spread.cu`` or raises.  ``plain=True`` runs the plain version on
-any device (the reference the kernels are checked against on the card).
+any device (the reference the kernels are checked against on the card);
+an f64 system records that route when it is built (the kernels are f32
+only).
 """
 
 from __future__ import annotations
@@ -81,16 +83,45 @@ def _offsets_tensor(offsets, device):
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
+def _refusal(named, wx: int, wyp: int, order: int, gz=None):
+    """Why a spread kernel cannot take float inputs ``named``, (name,
+    dtype, device) triples, at patch width Wx, height Wyp and spline
+    order: the forward's conditions with its mesh depth ``gz``, the
+    backward's with ``gz=None``.  (exception class, message), or None; it
+    reads types, devices and sizes only."""
+    for name, dtype, device in named:
+        if torch.device(device).type != "cuda" or dtype != torch.float32:
+            return TypeError, (f"spread kernel: {name} must be a float32 "
+                               f"CUDA tensor (got {dtype} on {device}); the "
+                               f"plain version serves other types")
+    max_wy, max_order, max_wx = native.limits("cf_spread_limits", 3)
+    if wyp > max_wy or order > max_order:
+        return ValueError, (f"spread kernel: needs Wyp <= {max_wy} and a "
+                            f"spline order <= {max_order} (got {wyp}, "
+                            f"{order})")
+    if gz is not None and gz < 8:
+        return ValueError, f"spread kernel: needs Gz >= 8 (got {gz})"
+    if gz is None and wx > max_wx:
+        return ValueError, (f"spread backward kernel: needs Wx <= {max_wx} "
+                            f"(got {wx}), its shared-memory tile")
+    return None
+
+
+def _named(*pairs):
+    return [(name, t.dtype, t.device) for name, t in pairs]
+
+
 def _check(qwlxt, wlyt, wzt, zorg, offsets, pad_xy, extra=()):
-    """Raise unless every input is what the kernels take."""
+    """Raise unless every input is what the kernel takes: the forward's
+    with ``pad_xy`` (Px, Py, Gz), the backward's with (Px, Py)."""
     n_col, wx, rows = qwlxt.shape
     wyp, order = wlyt.shape[1], wzt.shape[1]
-    for name, t in (("qwlxt", qwlxt), ("wlyt", wlyt), ("wzt", wzt),
-                    *extra):
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise TypeError(f"spread kernel: {name} must be a float32 CUDA "
-                            f"tensor (got {t.dtype} on {t.device}); the "
-                            f"plain version serves other types")
+    named = (("qwlxt", qwlxt), ("wlyt", wlyt), ("wzt", wzt), *extra)
+    refusal = _refusal(_named(*named), wx, wyp, order,
+                       pad_xy[2] if len(pad_xy) > 2 else None)
+    if refusal is not None:
+        raise refusal[0](refusal[1])
+    for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"spread kernel: {name} must be contiguous")
     if wlyt.shape != (n_col, wyp, rows) or wzt.shape != (n_col, order, rows):
@@ -106,10 +137,6 @@ def _check(qwlxt, wlyt, wzt, zorg, offsets, pad_xy, extra=()):
             or max(offsets[1]) + wyp > pad_xy[1]):
         raise ValueError("spread kernel: a column patch leaves the padded "
                          "mesh")
-    max_wy, max_order = native.limits("cf_spread_limits")
-    if wyp > max_wy or order > max_order:
-        raise ValueError(f"spread kernel: needs Wyp <= {max_wy} and a "
-                         f"spline order <= {max_order} (got {wyp}, {order})")
 
 
 def spread_fwd(qwlxt, wlyt, wzt, zorg, offsets, pad_xy):
@@ -118,9 +145,7 @@ def spread_fwd(qwlxt, wlyt, wzt, zorg, offsets, pad_xy):
     if qwlxt.device.type == "cpu":
         return spread_fwd_plain(qwlxt, wlyt, wzt, zorg, offsets, pad_xy)
     px, py, gz = (int(v) for v in pad_xy)
-    _check(qwlxt, wlyt, wzt, zorg, offsets, (px, py))
-    if gz < 8:
-        raise ValueError(f"spread kernel: needs Gz >= 8 (got {gz})")
+    _check(qwlxt, wlyt, wzt, zorg, offsets, (px, py, gz))
     n_col, wx, rows = qwlxt.shape
     wyp, order = wlyt.shape[1], wzt.shape[1]
     dev = qwlxt.device

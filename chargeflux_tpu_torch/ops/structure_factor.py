@@ -17,7 +17,8 @@ CUDA tensor it launches the kernel in ``csrc/structure_factor.cu`` or
 raises.  ``plain=True`` runs the plain versions on any device (the
 reference the kernels are checked against on the card).  The TPU layout
 padding (Ky to a multiple of 8, N to a multiple of 128) is not carried
-over: every shape is taken as it is.
+over: every shape is taken as it is.  :func:`kernels_take_grid` tells
+``recip_method="auto"`` whether the kernels take a k grid.
 """
 
 from __future__ import annotations
@@ -66,6 +67,31 @@ def sf_bwd_zq_plain(cxT, sxT, cyT, syT, abar, bbar):
     return cxy.T @ abar + sxy.T @ bbar
 
 
+def _refusal(named, ky: int, kz2: int, n: int):
+    """Why the structure-factor kernels cannot take float inputs ``named``,
+    (name, dtype, device) triples, at Ky, 2Kz and N: (exception class,
+    message), or None.  It reads types, devices and sizes only."""
+    for name, dtype, device in named:
+        if torch.device(device).type != "cuda" or dtype != torch.float32:
+            return TypeError, (f"structure-factor kernel: {name} must be a "
+                               f"float32 CUDA tensor (got {dtype} on "
+                               f"{device}); the plain version serves other "
+                               f"types")
+    max_ky, max_kz2, _ = native.limits("cf_sf_limits", 3)
+    if ky > max_ky or kz2 > max_kz2 or n < 1:
+        return ValueError, (f"structure-factor kernel: needs Ky <= {max_ky}, "
+                            f"2Kz <= {max_kz2} and N >= 1 (got Ky {ky}, 2Kz "
+                            f"{kz2}, N {n})")
+    return None
+
+
+def kernels_take_grid(ky: int, kz2: int) -> bool:
+    """Whether the three kernels take a k grid of Ky and 2Kz (f32 tables
+    on the card of at least one atom); reads the built library's
+    limits."""
+    return _refusal((), ky, kz2, 1) is None
+
+
 def _check(cxT, sxT, cyT, syT, zq=None, abar=None, bbar=None):
     """Raise unless every input is what the kernels take; returns
     (Kx, Ky, 2Kz, N)."""
@@ -74,12 +100,11 @@ def _check(cxT, sxT, cyT, syT, zq=None, abar=None, bbar=None):
     named = [("cxT", cxT), ("sxT", sxT), ("cyT", cyT), ("syT", syT)]
     named += [(k, t) for k, t in (("zq", zq), ("abar", abar), ("bbar", bbar))
               if t is not None]
+    kz2 = (zq if zq is not None else abar).shape[1]
+    refusal = _refusal([(k, t.dtype, t.device) for k, t in named], ky, kz2, n)
+    if refusal is not None:
+        raise refusal[0](refusal[1])
     for name, t in named:
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise TypeError(f"structure-factor kernel: {name} must be a "
-                            f"float32 CUDA tensor (got {t.dtype} on "
-                            f"{t.device}); the plain version serves other "
-                            f"types")
         if not t.is_contiguous():
             raise ValueError(f"structure-factor kernel: {name} must be "
                              f"contiguous")
@@ -89,18 +114,12 @@ def _check(cxT, sxT, cyT, syT, zq=None, abar=None, bbar=None):
     if sxT.shape != (kx, n) or cyT.shape != (ky, n) or syT.shape != (ky, n):
         raise ValueError("structure-factor kernel: the phase tables must be "
                          "cxT/sxT [Kx, N] and cyT/syT [Ky, N]")
-    kz2 = (zq if zq is not None else abar).shape[1]
     if zq is not None and zq.shape != (n, kz2):
         raise ValueError("structure-factor kernel: zq must be [N, 2Kz]")
     for t in (abar, bbar):
         if t is not None and t.shape != (kx * ky, kz2):
             raise ValueError("structure-factor kernel: abar/bbar must be "
                              "[Kx*Ky, 2Kz]")
-    max_ky, max_kz2, _ = native.limits("cf_sf_limits", 3)
-    if ky > max_ky or kz2 > max_kz2 or n < 1:
-        raise ValueError(f"structure-factor kernel: needs Ky <= {max_ky}, "
-                         f"2Kz <= {max_kz2} and N >= 1 (got Ky {ky}, 2Kz "
-                         f"{kz2}, N {n})")
     return kx, ky, kz2, n
 
 

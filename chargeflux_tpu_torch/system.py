@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .rows import RowPlan, row_plan
 from .topology import MoleculeTemplate, TemplateSet, detect_templates
 
 
@@ -167,6 +168,40 @@ class ChargeFluxSystem:
     water_ub0: torch.Tensor    # [W]
     box: torch.Tensor          # [3] edge lengths (zeros when non-periodic)
     spec: StaticSpec
+    # fixed-order plans of the remainder rows (those no template covers),
+    # made once at construction: the flux terms' atoms (bonds, angles,
+    # waters, in that order) and the exclusion pairs' atoms; None when
+    # every row is templated
+    flux_plan: Optional[RowPlan] = dataclasses.field(init=False,
+                                                     compare=False)
+    excl_plan: Optional[RowPlan] = dataclasses.field(init=False,
+                                                     compare=False)
+    # the route of the direct walk and the PME spread, fixed when the
+    # system is built from its type and device: "cuda" (the hand-written
+    # kernels, which are f32 only) for f32 on the card, else "plain" (their
+    # plain versions: f64, or the CPU)
+    kernel_route: str = dataclasses.field(init=False, compare=False)
+
+    def __post_init__(self):
+        spec, dev = self.spec, self.q0.device
+
+        def tail(tset, kind, rows):
+            start = tset.covered(kind, rows.shape[0]) if tset is not None \
+                else 0
+            return rows[start:].reshape(-1).cpu().numpy()
+
+        flux = np.concatenate([
+            tail(spec.flux_template, kind, getattr(self, name))
+            for kind, name in (("bonds", "bond_idx"), ("angles", "angle_idx"),
+                               ("waters", "water_idx"))])
+        excl = tail(spec.excl_template, "exclusions", self.exclusions)
+        object.__setattr__(self, "flux_plan",
+                           row_plan(flux, dev) if flux.size else None)
+        object.__setattr__(self, "excl_plan",
+                           row_plan(excl, dev) if excl.size else None)
+        object.__setattr__(self, "kernel_route", "cuda" if (
+            dev.type == "cuda" and self.q0.dtype == torch.float32)
+            else "plain")
 
     @property
     def n_atoms(self) -> int:
@@ -177,15 +212,15 @@ class ChargeFluxSystem:
         return self.exclusions.shape[0]
 
     def astype(self, dtype) -> "ChargeFluxSystem":
-        """Cast all float tensors to ``dtype`` (index tensors untouched)."""
+        """Cast all float tensors to ``dtype`` (index tensors untouched);
+        the cast system records its own ``kernel_route``."""
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(dtype)
-            for f in dataclasses.fields(self)
-            if f.name != "spec" and getattr(self, f.name).is_floating_point()})
+            f: getattr(self, f).to(dtype) for f in ARRAY_FIELDS
+            if getattr(self, f).is_floating_point()})
 
 
 ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(ChargeFluxSystem)
-                     if f.name != "spec")
+                     if f.init and f.name != "spec")
 _INDEX_FIELDS = ("exclusions", "bond_idx", "angle_idx", "water_idx")
 
 

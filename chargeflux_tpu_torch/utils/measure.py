@@ -81,6 +81,10 @@ def kernel_bound(name: str, **dims) -> dict:
       distance tests of pairs beyond the cutoff are not); bytes: six float
       and one id column per slot in, dE/dx and dE/dq per slot out, the
       27-cell neighbor and image tables and one energy per cell.
+    binning (n_atoms, n_slots): the cell binning of a neighbor rebuild
+      (``cells.build_cell_list_full``), no flops counted: the positions in
+      (3 floats per atom), the slots (one int per slot), the inverse slots
+      (one per atom) and the overflow count out.
     """
     d = dims
     if name in ("spread_fwd", "spread_bwd"):
@@ -106,6 +110,9 @@ def kernel_bound(name: str, **dims) -> dict:
         flops = d["n_pairs"] * (51 + 4 * (d["ncoef"] - 1))
         nbytes = (F32 * (11 * d["n_slots"] + d["n_cells"] * (1 + 27 + 81)
                          + 3 + d["ncoef"]))
+    elif name == "binning":
+        flops = 0
+        nbytes = F32 * (3 * d["n_atoms"] + d["n_slots"] + d["n_atoms"] + 1)
     else:
         raise ValueError(f"no bound for kernel {name!r}")
     t_ops, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -334,8 +341,12 @@ def profile(system, state, rebuild_every, masses, bonded):
             init_nb(state.positions)
         b.record()
         torch.cuda.synchronize()
+        bound = kernel_bound("binning", n_atoms=state.positions.shape[0],
+                             n_slots=state.nb.slots.numel())
         print(f"neighbor rebuild: {a.elapsed_time(b) / 5:.3f} ms (CUDA "
-              f"events, mean of 5)", flush=True)
+              f"events, mean of 5); the binning's bound "
+              f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: "
+              f"{bound['bytes']} bytes)", flush=True)
 
     for label, acts in (("CUDA only", [ProfilerActivity.CUDA]),
                         ("CPU+CUDA", [ProfilerActivity.CPU,

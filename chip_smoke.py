@@ -26,7 +26,9 @@ dense + classical-Ewald path (``bench.py 216``).  Phases, in order:
    shapes and at a 4k box's (n_side 11, kmax 13^3), on the real tables
    and the real cotangents dE_rec/dA, dE_rec/dB;
 4. / 4b. energy_and_forces at the start positions of each path: kernel
-   path against the plain path in f32 and in f64 on the card;
+   path against the plain path in f32 and in f64 on the card, and the
+   f64 system on its own route (it records the plain versions when it is
+   built) against plain f64 within 1e-12;
 5. the 30k path: 240 burn-in steps on a capacity-1.35 twin (velocities
    rescaled to 300 K per rebuild chunk), capacity re-provisioned from the
    measured occupancy, then 200 NVE steps with neighbor reuse;
@@ -203,8 +205,13 @@ def check_energy(system, x, phase):
 
     e_k, f_k = energy_and_forces(x, system)
     e_p, f_p = energy_and_forces(x, system, plain=True)
-    e_64, f_64 = energy_and_forces(x.double(), system.astype(torch.float64),
-                                   plain=True)
+    sys_64 = system.astype(torch.float64)
+    e_64, f_64 = energy_and_forces(x.double(), sys_64, plain=True)
+    # the f64 system on its own route: built in f64, it records the plain
+    # versions (the kernels are f32 only)
+    e_64g, f_64g = energy_and_forces(x.double(), sys_64)
+    d_gate = max(abs(float(e_64g - e_64)) / abs(float(e_64)),
+                 float((f_64g - f_64).abs().max() / f_64.abs().max()))
     with torch.no_grad():
         scale = sum(abs(float(v)) for v in
                     energy_components(x.double(), system.astype(torch.float64),
@@ -220,12 +227,18 @@ def check_energy(system, x, phase):
     print(f"phase {phase} energy_and_forces: E_kernel={float(e_k):.6f} "
           f"E_plain={float(e_p):.6f} E_plain_f64={float(e_64):.6f} "
           f"|dE|/sum|E_c|: vs plain {d_p:.3e} vs f64 {d_64:.3e}; "
-          f"force rms rel: vs plain {fr_p:.3e} vs f64 {fr_64:.3e}",
-          flush=True)
+          f"force rms rel: vs plain {fr_p:.3e} vs f64 {fr_64:.3e}; f64 "
+          f"system on its route ({sys_64.kernel_route}) vs plain f64 "
+          f"{d_gate:.3e}", flush=True)
     if not (torch.isfinite(f_k).all() and math.isfinite(float(e_k))):
         fail("non-finite energy or forces at the start positions")
     if d_p > 1e-5 or fr_p > 1e-4 or fr_64 > 1e-4 or d_64 > 1e-5:
         fail("kernel path disagrees with the plain path")
+    if system.kernel_route != "cuda" or sys_64.kernel_route != "plain":
+        fail("the f32 system on the card must record the kernels' route "
+             "and the f64 one the plain route")
+    if not d_gate <= 1e-12:
+        fail("the f64 system on its route is not the plain f64 path")
 
 
 def run_md(force, system0, x, masses, box):

@@ -17,7 +17,7 @@ from chargeflux_tpu_torch.charges import effective_charges
 from chargeflux_tpu_torch.energy import resolve_recip_method
 from chargeflux_tpu_torch.models import water_box
 
-from torch_helpers import jax_water, rel_err
+from torch_helpers import fake_kernel_limits, jax_water, rel_err
 
 jewald = importlib.import_module("chargeflux_tpu.ewald")
 
@@ -110,10 +110,12 @@ def test_kernel_route_refuses_f64(box216):
     ("cell", 11, "cpu", torch.float64, "xla"),
 ])
 def test_auto_resolves_as_the_jax_package(direct, n_side, device, dtype,
-                                           want):
+                                           want, monkeypatch):
     """energy.py:282-299 of the JAX package, with a CUDA device in f32
     standing where JAX has the TPU in f32.  (torch.device("cuda") needs no
-    card.)"""
+    card; the structure-factor kernels' k-grid limits, which "auto" also
+    asks, are the compiled-in values.)"""
+    fake_kernel_limits(monkeypatch)
     force, _, _, box = water_box(n_side=n_side, cutoff=0.9)
     spec = force.create_system(box=box, direct_method=direct,
                                device="cpu").spec

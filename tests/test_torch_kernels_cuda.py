@@ -17,9 +17,12 @@ from chargeflux_tpu_torch.energy import energy_and_forces, energy_components
 from chargeflux_tpu_torch.models import water_box
 from chargeflux_tpu_torch.neighbors import build_neighbor_state
 from chargeflux_tpu_torch.ops import direct_walk as dw
+from chargeflux_tpu_torch.ops import native
 from chargeflux_tpu_torch.ops import pme_spread as ps
 from chargeflux_tpu_torch.ops import structure_factor as sf
 from chargeflux_tpu_torch.utils.measure import dense_path
+
+from torch_helpers import untemplated
 
 pytestmark = pytest.mark.cuda
 
@@ -76,25 +79,19 @@ SPREAD_EDGES = [
     ("rows-77-order4", 4, 7, 8, 77, 4, 32, "random", False),
     ("wyp8-order4", 4, 20, 8, 704, 4, 64, "cells", False),
     ("wyp24-order4", 4, 9, 24, 352, 4, 64, "cells", False),
+    ("order16", 4, 20, 24, 128, 16, 64, "cells", False),
+    ("limits-wx36-wyp32-order5", 4, 36, 32, 130, 5, 32, "random", False),
 ]
 
 
-@pytest.mark.parametrize("case", SPREAD_EDGES,
-                         ids=[c[0] for c in SPREAD_EDGES])
-def test_spread_fwd_kernel_edge_cases(case):
-    """The forward kernel's z windows at their edges, against the plain
-    version within 1e-6 of max (phase 3's tolerance) and two launches
-    bitwise equal: zorg uniform in [0, Gz) (wide windows that wrap, several
-    window tiles, Gz 16 below the 32-column tile), every zorg in 57-63
-    (every window wraps), a column whose rows are all sentinel slots
-    (q = 0), rows not a multiple of the 64-row segment (100; 77, which
-    also takes the single-word copies), Wyp 8 and 24, order 4 and 8.
-    "cells" lays the rows out z-cell-major like the main path (88 slots a
-    cell, a third of them sentinel: q = 0, zorg 57), each row's x weights
-    on ``order`` consecutive x, so each block's x rows see their own
-    subset of the rows.  Seeded NumPy inputs."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+def _edge_inputs(case):
+    """Seeded NumPy inputs of one SPREAD_EDGES case on the card: (qwlxt,
+    wlyt, wzt, zorg, offsets, pad).  "cells" lays the rows out
+    z-cell-major like the main path (88 slots a cell, a third of them
+    sentinel: q = 0, zorg 57, and w_y zero outside column 0, as a sentinel
+    at the origin has support only in the cy = 0 columns), each row's x
+    weights on ``order`` consecutive x, so each block's x rows see their
+    own subset of the rows."""
     name, n_col, wx, wyp, rows, order, gz, layout, empty = case
     rng = np.random.default_rng(sum(map(ord, name)))
     qwlxt = rng.standard_normal((n_col, wx, rows))
@@ -114,6 +111,7 @@ def test_spread_fwd_kernel_edge_cases(case):
         qwlxt = np.where(sentinel | (xs < sx) | (xs >= sx + order), 0.0,
                          qwlxt)
         zorg = np.where(sentinel, 57 % gz, zorg)
+        wlyt[1:] = np.where(sentinel[1:], 0.0, wlyt[1:])
     if empty:
         qwlxt[1] = 0.0
         zorg[1] = 57
@@ -124,12 +122,65 @@ def test_spread_fwd_kernel_edge_cases(case):
     dev = torch.device("cuda", 0)
     args = [torch.tensor(a, dtype=torch.float32, device=dev)
             for a in (qwlxt, wlyt, wzt)]
-    args += [torch.tensor(zorg, dtype=torch.int32, device=dev), offsets, pad]
+    return (*args, torch.tensor(zorg, dtype=torch.int32, device=dev), offsets,
+            pad)
+
+
+@pytest.mark.parametrize("case", SPREAD_EDGES,
+                         ids=[c[0] for c in SPREAD_EDGES])
+def test_spread_fwd_kernel_edge_cases(case):
+    """The forward kernel's z windows at their edges, against the plain
+    version within 1e-6 of max (phase 3's tolerance) and two launches
+    bitwise equal: zorg uniform in [0, Gz) (wide windows that wrap, several
+    window tiles, Gz 16 below the 32-column tile), every zorg in 57-63
+    (every window wraps), a column whose rows are all sentinel slots
+    (q = 0), rows not a multiple of the 64-row segment (100; 77 and 130,
+    which also take the single-word copies), Wyp 8, 24 and 32, order 4, 5,
+    8 and 16, Wx up to its limit 36 (:func:`_edge_inputs`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    args = _edge_inputs(case)
     k1, k2 = ps.spread_fwd(*args), ps.spread_fwd(*args)
     plain = ps.spread_fwd_plain(*args)
-    assert k1.shape == plain.shape == pad
+    assert k1.shape == plain.shape == args[5]
     assert torch.equal(k1, k2)
     assert _max_rel(k1, plain) <= 1e-6
+
+
+@pytest.mark.parametrize("case", SPREAD_EDGES,
+                         ids=[c[0] for c in SPREAD_EDGES])
+def test_spread_bwd_kernel_edge_cases(case):
+    """The backward kernel on the forward's edge cases (dense random w_y
+    in the "random" layouts: no support to exploit; windows wider than a
+    32-column tile; a column of sentinel rows; rows whose q w_x and w_y
+    are all zero, which the kernel skips) for a seeded mesh cotangent:
+    each output within 2e-5 of its max of the plain version (phase 3's
+    tolerance), two launches bitwise equal, and every output element
+    written: a direct ``cf_spread_bwd`` call into outputs filled with NaN
+    gives the wrapper's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    qw, wy, wz, zo, offsets, pad = _edge_inputs(case)
+    rng = np.random.default_rng(len(case[0]))
+    ct = torch.tensor(rng.standard_normal(pad), dtype=torch.float32,
+                      device=qw.device)
+    k1 = ps.spread_bwd(qw, wy, wz, zo, offsets, ct)
+    k2 = ps.spread_bwd(qw, wy, wz, zo, offsets, ct)
+    plain = ps.spread_bwd_plain(qw, wy, wz, zo, offsets, ct)
+    outs = [torch.full_like(t, float("nan")) for t in (qw, wy, wz)]
+    n_col, wx, rows = qw.shape
+    err = native.library().cf_spread_bwd(
+        *(t.data_ptr() for t in (qw, wy, wz, zo,
+                                 ps._offsets_tensor(offsets, qw.device), ct,
+                                 *outs)),
+        n_col, wx, wy.shape[1], wz.shape[1], rows, pad[1], pad[2],
+        native.stream_ptr(qw))
+    native.check(err, "cf_spread_bwd")
+    torch.cuda.synchronize()
+    for u, v, w, o in zip(k1, k2, plain, outs):
+        assert u.shape == w.shape
+        assert torch.equal(u, v) and torch.equal(u, o)
+        assert _max_rel(u, w) <= 2e-5
 
 
 def test_spread_fwd_refuses_gz_below_8():
@@ -143,6 +194,21 @@ def test_spread_fwd_refuses_gz_below_8():
              ((0,), (0,)), (4, 8, 4)]
     with pytest.raises(ValueError, match="Gz >= 8"):
         ps.spread_fwd(*args)
+
+
+def test_spread_wx_past_the_backward_limit():
+    """Wx 40: the forward kernel, which has no Wx limit, launches and
+    matches its plain version; the backward kernel's tile holds every x,
+    so it refuses Wx > 36 before launching, as the wrapper says."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    case = ("wx-40", 4, 40, 24, 128, 8, 64, "random", False)
+    args = _edge_inputs(case)
+    out = ps.spread_fwd(*args)
+    assert _max_rel(out, ps.spread_fwd_plain(*args)) <= 1e-6
+    ct = torch.ones(args[5], device=out.device)
+    with pytest.raises(ValueError, match="Wx <= 36"):
+        ps.spread_bwd(*args[:5], ct)
 
 
 def test_direct_walk_kernel_matches_plain_and_repeats_bitwise(setup):
@@ -299,3 +365,62 @@ def test_dense_path_kernel_route_matches_plain():
         scale = sum(abs(float(v)) for v in energy_components(
             x, system, plain=True).values())
     assert abs(float(e_k - e_p)) <= 1e-5 * scale
+
+
+def test_f64_on_the_card_takes_the_plain_versions(setup):
+    """An f64 cell + SPME system on the card records the plain route when
+    it is built (the f32 one the kernels'), so the walk and the spread run
+    their plain versions (no kernel launches), and energy_and_forces
+    equals the plain=True path within 1e-12 relative."""
+    s = setup
+    sys64 = s["system"].astype(torch.float64)
+    assert s["system"].kernel_route == "cuda"
+    assert sys64.kernel_route == "plain"
+    x = s["x"].double()
+    ops.reset_launch_counts()
+    e, f = energy_and_forces(x, sys64)
+    assert not any(ops.launch_counts().values())
+    e_p, f_p = energy_and_forces(x, sys64, plain=True)
+    assert torch.isfinite(f).all() and bool(torch.isfinite(e))
+    assert abs(float(e - e_p)) <= 1e-12 * abs(float(e_p))
+    assert float((f - f_p).abs().max()) <= 1e-12 * float(f_p.abs().max())
+
+
+def test_remainder_nve_runs_repeat_bitwise(setup):
+    """A water box whose flux, exclusion and bonded terms all take the
+    remainder path (no templates): two 20-step NVE runs on the card give
+    the same bits, and the kernels ran in them.  The box starts from the
+    unrelaxed lattice, so its atoms outrun the PME slack within 8 steps:
+    the neighbor state is rebuilt every 4."""
+    import dataclasses
+
+    from chargeflux_tpu_torch.integrate import (init_state_nb,
+                                                make_nb_energy_fn,
+                                                nve_trajectory_nb)
+    from chargeflux_tpu_torch.models import water_bonded_params
+    from chargeflux_tpu_torch.utils.measure import DT_PS
+
+    s = setup
+    system = untemplated(s["system"])
+    x = s["x"]
+    n_w = x.shape[0] // 3
+    bonded = dataclasses.replace(
+        water_bonded_params(n_w, box=system.box.cpu().numpy(),
+                            device=x.device), template=None)
+    assert system.flux_plan is not None and system.excl_plan is not None
+    assert bonded.plan is not None
+    masses = torch.tensor([15.999, 1.008, 1.008] * n_w, device=x.device)
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
+        s0 = init_state_nb(x, torch.zeros_like(x), e_fn, init_nb)
+        final, es = nve_trajectory_nb(s0, e_fn, init_nb, masses, DT_PS, 20,
+                                      rebuild_every=4)
+        torch.cuda.synchronize()
+        assert all(ops.launch_counts()[k] > 0
+                   for k in ("spread_fwd", "spread_bwd", "direct_walk"))
+        runs.append((final.positions, final.velocities, final.forces, es))
+    assert torch.isfinite(runs[0][3]).all()
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)

@@ -11,6 +11,8 @@ from chargeflux_tpu_torch.cells import suggest_capacity
 from chargeflux_tpu_torch.models import water_bonded_params, water_box
 from chargeflux_tpu_torch.utils import measure
 
+from torch_helpers import fake_kernel_limits
+
 torch.set_num_threads(2)
 
 
@@ -53,12 +55,13 @@ def test_burn_in_small_box():
     assert abs(t - 300.0) < 1e-3 * 300.0
 
 
-def test_dense_path_is_bench_216():
+def test_dense_path_is_bench_216(monkeypatch):
     """648 atoms in a 1.8642 nm box, dense, alpha 3.2427 and kmax (7, 7, 7)
     (1183 half-space k-vectors): "auto" takes the structure-factor kernel
     on a CUDA card in f32 and the plain factorized product here."""
     from chargeflux_tpu_torch.energy import resolve_recip_method
 
+    fake_kernel_limits(monkeypatch)
     _, x, m, box, bonded, system = measure.dense_path(torch.device("cpu"))
     spec = system.spec
     assert x.shape == (648, 3) and m.shape == (648,)
@@ -131,6 +134,16 @@ def test_kernel_bound_structure_factor_and_walk():
     assert walk["bytes"] == 4 * (11 * 88 + 109 + 3 + 13)
     with pytest.raises(ValueError):
         measure.kernel_bound("fft", n=1)
+
+
+def test_kernel_bound_binning_at_the_30k_shapes():
+    """The binning moves the positions in and the slots, inverse slots and
+    overflow count out: 31,944 atoms, 8^3 cells of capacity 88, 691,332
+    bytes, 0.2064 us at 3.35 TB/s; it does no flops worth counting."""
+    b = measure.kernel_bound("binning", n_atoms=31944, n_slots=512 * 88)
+    assert b["bytes"] == 4 * (3 * 31944 + 512 * 88 + 31944 + 1) == 691332
+    assert b["flops"] == 0 and b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(691332 / 3.35e12 * 1e3)
 
 
 def test_pairs_within_cutoff_is_the_brute_force_count():

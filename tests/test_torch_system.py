@@ -24,7 +24,7 @@ from chargeflux_tpu_torch.ops.erfc import erf_over_r_coeffs, erfc_fast
 from chargeflux_tpu_torch.system import ARRAY_FIELDS, system_from_arrays
 from chargeflux_tpu_torch.utils import max_cell_occupancy
 
-from torch_helpers import JAX_DTYPE, water_systems
+from torch_helpers import jax_dtype, water_systems
 
 torch.set_num_threads(2)
 
@@ -48,7 +48,7 @@ def test_builder_spec_and_arrays_match_jax(name, dtype):
     assert np.array_equal(pos_t, pos_j) and np.array_equal(m_t, m_j)
     assert np.array_equal(box_t, box_j)
     st = f_t.create_system(box=box_t, dtype=dtype, device="cpu", **kw)
-    sj = f_j.create_system(box=box_j, dtype=JAX_DTYPE[dtype], **kw)
+    sj = f_j.create_system(box=box_j, dtype=jax_dtype(dtype), **kw)
     assert dataclasses.asdict(st.spec) == dataclasses.asdict(sj.spec)
     for field in ARRAY_FIELDS:
         a, b = getattr(st, field).numpy(), np.asarray(getattr(sj, field))

@@ -1,20 +1,43 @@
-"""Shared pieces of the PyTorch-port parity tests (tests/test_torch_*.py):
-systems built by both packages from one builder, converted through NumPy."""
+"""Shared pieces of the PyTorch-port tests (tests/test_torch_*.py):
+systems built by both packages from one builder, converted through NumPy.
+JAX is imported only inside the helpers that build a JAX system, so that
+tests/test_torch_kernels_cuda.py, which runs where JAX is not installed,
+can use the others."""
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
 
-import jax.numpy as jnp
 import numpy as np
 import torch
 
-from chargeflux_tpu.models import water_box as jax_water_box
 from chargeflux_tpu_torch.cells import CellBlocks
 from chargeflux_tpu_torch.system import ARRAY_FIELDS, system_from_arrays
 
-JAX_DTYPE = {torch.float32: jnp.float32, torch.float64: jnp.float64}
+# The kernels' compile-time limits, as ``ops.native.limits`` reads them
+# from the built library: kMaxWy, kMaxOrder, kMaxWx (pme_spread.cu);
+# kMaxCoef, threads per block (direct_walk.cu); kMaxKy, kMaxKz2, the
+# forward's atom chunk (structure_factor.cu).  Building needs nvcc, so
+# tests that ask for them without a card use these values.
+KERNEL_LIMITS = {"cf_spread_limits": (32, 16, 36),
+                 "cf_walk_limits": (16, 1024),
+                 "cf_sf_limits": (64, 128, 64)}
+
+
+def fake_kernel_limits(monkeypatch):
+    """Make ``native.limits`` return :data:`KERNEL_LIMITS` (no build)."""
+    from chargeflux_tpu_torch.ops import native
+
+    monkeypatch.setattr(native, "limits",
+                        lambda name, count=2: KERNEL_LIMITS[name][:count])
+
+
+def jax_dtype(dtype):
+    """The JAX float type of a torch float type."""
+    import jax.numpy as jnp
+
+    return {torch.float32: jnp.float32, torch.float64: jnp.float64}[dtype]
 
 
 def port_system(jsys, dtype=torch.float64):
@@ -28,6 +51,8 @@ def port_system(jsys, dtype=torch.float64):
 def jax_water(n_side, cutoff, dtype=torch.float64, pbc=True, **kw):
     """(jax_system, port_system, positions float64 [N, 3], masses) from the
     JAX builder's water box; ``kw`` goes to ``create_system``."""
+    from chargeflux_tpu.models import water_box as jax_water_box
+
     force, pos, masses, box = jax_water_box(n_side=n_side, flux="bond_angle",
                                             cutoff=cutoff)
     if not pbc:
@@ -35,7 +60,7 @@ def jax_water(n_side, cutoff, dtype=torch.float64, pbc=True, **kw):
         box = None
     with warnings.catch_warnings():   # small boxes: cutoff > half the box
         warnings.simplefilter("ignore")
-        jsys = force.create_system(box=box, dtype=JAX_DTYPE[dtype], **kw)
+        jsys = force.create_system(box=box, dtype=jax_dtype(dtype), **kw)
     return jsys, port_system(jsys, dtype), pos, masses
 
 
@@ -53,3 +78,14 @@ def port_blocks(jblocks, dtype):
 def rel_err(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-300))
+
+
+def untemplated(system):
+    """The same port system with no flux or exclusion template: every term
+    row takes the remainder path."""
+    arrays = {f: getattr(system, f).cpu().numpy() for f in ARRAY_FIELDS}
+    spec = {f.name: getattr(system.spec, f.name)
+            for f in dataclasses.fields(system.spec)}
+    spec.update(flux_template=None, excl_template=None)
+    return system_from_arrays(arrays, spec, device=system.q0.device,
+                              dtype=system.q0.dtype)
