@@ -5,9 +5,13 @@ Counterpart of ``chargeflux_tpu.cells._concat_fused_walk``.  Both
 versions return ``(e, g, dq)``: the direct-space energy, dE/dx as
 [3, gx, gy, gz, cap] and dE/dq as [gx, gy, gz, cap] on the block layout.
 The plain version is the JAX package's half-shell walk (self cell with
-i < j by atom id plus 13 rolled neighbor slabs, j-side sums rolled back);
-the kernel (``csrc/direct_walk.cu``) walks the full 27-cell shell, one
-thread per i slot, so that no output is written by two threads.
+i < j by atom id plus 13 rolled neighbor slabs, j-side sums rolled back).
+The kernel (``csrc/direct_walk.cu``) walks the full 27-cell shell, one
+block per i-cell, so that no output is written by two threads: it stages
+the neighbor tiles compacted (sentinel slots and every atom beyond the
+cutoff of the bounding box of the cell's real atoms dropped), lets each
+thread list the staged atoms within the cutoff of its own i atom, and
+evaluates the pair terms from those lists, every sum in a fixed order.
 
 :func:`direct_walk` runs the plain version on a CPU tensor and the kernel
 on a CUDA tensor, or raises (f64 on the card raises: the kernel is f32
@@ -138,11 +142,11 @@ def _refusal(named, shape, alpha: float, cutoff: float):
                                f"{device}); the f64 walk on the card is the "
                                f"plain version")
     gx, gy, gz, cap = shape
-    max_coef, max_threads = native.limits("cf_walk_limits")
-    if (cap > max_threads or len(erf_over_r_coeffs(alpha, cutoff)) > max_coef
+    max_coef, max_cap = native.limits("cf_walk_limits")
+    if (cap > max_cap or len(erf_over_r_coeffs(alpha, cutoff)) > max_coef
             or min(gx, gy, gz) < 3):
         return ValueError, (f"direct walk kernel: needs capacity <= "
-                            f"{max_threads} and >= 3 cells per axis")
+                            f"{max_cap} and >= 3 cells per axis")
     return None
 
 

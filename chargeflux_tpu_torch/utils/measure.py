@@ -282,6 +282,43 @@ def spread_inputs(x, system):
         return pme.column_spread_inputs(b, ids, system), b, ids
 
 
+def drifted_blocks(system, state, e_fn, masses, n_steps: int):
+    """The walk's arguments after ``n_steps`` NVE steps from ``state`` on
+    its neighbor state, with no rebuild: the blocks are gathered with the
+    slots and the wrap frozen at the last rebuild, so atoms have left their
+    cells' nominal bounds, as on every step between two rebuilds.  Returns
+    (walk_args, info): the arguments of ``ops.direct_walk.direct_walk`` and
+    the count of real atoms outside their cell's nominal bounds with the
+    largest displacement since the rebuild."""
+    from .. import cells
+    from ..charges import effective_charges
+    from ..integrate import nve_step_nb
+
+    nb = state.nb
+    for _ in range(n_steps):
+        state = nve_step_nb(state, e_fn, masses, DT_PS)
+    if not torch.isfinite(state.potential):
+        raise RuntimeError("drifted_blocks: the neighbor state went stale")
+    x = state.positions
+    spec = system.spec
+    with torch.no_grad():
+        b = cells.blockify(x, effective_charges(x, system), system, nb.slots,
+                           nb.inv_slot, wrap=nb.wrap)
+        ids = nb.slots.reshape(b.x.shape).to(torch.int32).contiguous()
+        outside = torch.zeros_like(ids, dtype=torch.bool)
+        for k, col in enumerate((b.x, b.y, b.z)):
+            n = spec.cell_grid[k]
+            edge = system.box[k] / n
+            shape = [1, 1, 1, 1]
+            shape[k] = n
+            lo = (torch.arange(n, device=x.device) * edge).view(shape)
+            outside |= (col < lo) | (col >= lo + edge)
+        info = dict(outside=int((outside & (ids < system.n_atoms)).sum()),
+                    moved=float((x - nb.x_ref).norm(dim=-1).max()))
+    return (*b, ids, system.box, system.n_atoms, spec.alpha,
+            spec.cutoff), info
+
+
 def union_length(intervals) -> float:
     """Length of the union of (start, end) intervals, in their unit."""
     total, cur_s, cur_e = 0.0, None, None

@@ -31,7 +31,11 @@ dense + classical-Ewald path (``bench.py 216``).  Phases, in order:
    built) against plain f64 within 1e-12;
 5. the 30k path: 240 burn-in steps on a capacity-1.35 twin (velocities
    rescaled to 300 K per rebuild chunk), capacity re-provisioned from the
-   measured occupancy, then 200 NVE steps with neighbor reuse;
+   measured occupancy; the walk kernel once more against its plain
+   version (phase 3's tolerances, bitwise repeat) on the blocks of the
+   burned-in state after all but one step of a rebuild interval on one
+   neighbor state, where atoms have left their cells' nominal bounds;
+   then 200 NVE steps with neighbor reuse;
 5b. the 216 path: 200 NVE steps from the lattice at rest;
    in 5 and 5b the launch counts are reset just before the 200 steps and
    each kernel of that path must have launched;
@@ -69,6 +73,7 @@ KERNELS = {
     "sf_bwd_zq": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:172", "216"),
 }
 N_STEPS = 200
+WALK_TOLS = (1e-5, 1e-4, 1e-4)  # the walk's energy, dE/dx and dE/dq
 
 
 def fail(msg: str):
@@ -81,40 +86,50 @@ def max_rel(a, b) -> float:
                  / b.double().abs().max().clamp_min(1e-300))
 
 
-def compare(name, kern, plain, tols, where, bound, library=None):
+def agree(name, kern, plain, tols, where):
     """One kernel against its plain version on the same inputs: max |diff| /
     max |plain| of each output within its tolerance (one for all outputs,
-    or a tuple), two launches bitwise equal, and the median ms per call
-    of the kernel, the plain version and the ``library`` yardstick (if
-    any) in turns (:func:`interleaved_ms`), beside the kernel's ``bound``
+    or a tuple) and two launches bitwise equal, or the script fails;
+    returns (the relative errors, the largest absolute one)."""
+    import torch
+
+    out_k, out_k2, out_p = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(u, v) for u, v in zip(out_k, out_k2))
+    errs = [max_rel(u, v) for u, v in zip(out_k, out_p)]
+    abs_err = max(float((u.double() - v.double()).abs().max())
+                  for u, v in zip(out_k, out_p))
+    if not isinstance(tols, tuple):
+        tols = (tols,) * len(errs)
+    print(f"{where} kernel {name}: rel_err={['%.3e' % e for e in errs]} "
+          f"(limits {list(tols)}) max_abs_err={abs_err:.4e} "
+          f"bitwise_repeat={bitwise}", flush=True)
+    if any(not e <= t for e, t in zip(errs, tols)):
+        fail(f"{name} disagrees with its plain version ({where}): {errs}")
+    if not bitwise:
+        fail(f"{name}: two launches on the same inputs differ ({where})")
+    return errs, abs_err
+
+
+def compare(name, kern, plain, tols, where, bound, library=None):
+    """:func:`agree`, then the median ms per call of the kernel, the plain
+    version and the ``library`` yardstick (if any) in turns
+    (:func:`interleaved_ms`), beside the kernel's ``bound``
     (``utils.measure.kernel_bound``); returns the kernel's JSON fields."""
     import torch
 
     from chargeflux_tpu_torch.utils.measure import interleaved_ms
 
     with torch.no_grad():
-        out_k, out_k2, out_p = kern(), kern(), plain()
-        torch.cuda.synchronize()
-        bitwise = all(torch.equal(u, v) for u, v in zip(out_k, out_k2))
-        errs = [max_rel(u, v) for u, v in zip(out_k, out_p)]
-        abs_err = max(float((u.double() - v.double()).abs().max())
-                      for u, v in zip(out_k, out_p))
+        errs, abs_err = agree(name, kern, plain, tols, where)
         times = interleaved_ms((kern, plain) + ((library,) if library else ()))
     ms, plain_ms = times[:2]
     library_ms = times[2] if library else None
-    if not isinstance(tols, tuple):
-        tols = (tols,) * len(errs)
     lib = "none" if library_ms is None else f"{library_ms:.4f}"
-    print(f"{where} kernel {name}: rel_err={['%.3e' % e for e in errs]} "
-          f"(limits {list(tols)}) max_abs_err={abs_err:.4e} "
-          f"bitwise_repeat={bitwise} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+    print(f"{where} kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms={lib} bound_ms={bound['bound_ms']:.6f} "
           f"({bound['bound_by']}: {bound['flops']} flops, {bound['bytes']} "
           f"bytes) bound_share={bound['bound_ms'] / ms:.4f}", flush=True)
-    if any(e > t for e, t in zip(errs, tols)):
-        fail(f"{name} disagrees with its plain version ({where}): {errs}")
-    if not bitwise:
-        fail(f"{name}: two launches on the same inputs differ ({where})")
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **bound,
             "bound_share": bound["bound_ms"] / ms}
@@ -180,8 +195,7 @@ def check_kernels(system, x, results):
                        lambda: (torch.bmm(a2.transpose(1, 2), dp),
                                 torch.bmm(dp, wz_dense.transpose(1, 2)))),
         "direct_walk": (lambda: dw.direct_walk(*walk_args),
-                        lambda: dw.direct_walk_plain(*walk_args),
-                        (1e-5, 1e-4, 1e-4),
+                        lambda: dw.direct_walk_plain(*walk_args), WALK_TOLS,
                         kernel_bound("direct_walk", n_pairs=n_pairs,
                                      n_slots=b.x.numel(),
                                      n_cells=math.prod(spec.cell_grid),
@@ -250,7 +264,9 @@ def run_md(force, system0, x, masses, box):
                                                 make_nb_energy_fn,
                                                 nve_trajectory_nb)
     from chargeflux_tpu_torch.models import water_bonded_params
-    from chargeflux_tpu_torch.utils.measure import DT_PS, burn_in
+    from chargeflux_tpu_torch.ops import direct_walk as dw
+    from chargeflux_tpu_torch.utils.measure import (DT_PS, burn_in,
+                                                    drifted_blocks)
 
     bonded = water_bonded_params(x.shape[0] // 3, box=box, device=x.device)
     system, s1, rebuild_every, info = burn_in(force, system0, x, masses, box,
@@ -261,6 +277,17 @@ def run_md(force, system0, x, masses, box):
           f"{info['occupancy']} -> capacity {system.spec.cell_capacity}; "
           f"vmax {info['vmax']:.2f} nm/ps -> rebuild_every {rebuild_every}",
           flush=True)
+
+    walk_args, info = drifted_blocks(system, s1, e_fn, masses,
+                                     rebuild_every - 1)
+    where = (f"phase 5 blocks after {rebuild_every - 1} steps on one "
+             f"neighbor state ({info['outside']} atoms outside their cells' "
+             f"nominal bounds, moved up to {info['moved']:.4f} nm)")
+    if info["outside"] == 0:
+        fail("no atom left its cell's nominal bounds: nothing drifted")
+    with torch.no_grad():
+        agree("direct_walk", lambda: dw.direct_walk(*walk_args),
+              lambda: dw.direct_walk_plain(*walk_args), WALK_TOLS, where)
 
     n_steps = N_STEPS
     torch.cuda.synchronize()

@@ -22,7 +22,7 @@ from chargeflux_tpu_torch.ops import pme_spread as ps
 from chargeflux_tpu_torch.ops import structure_factor as sf
 from chargeflux_tpu_torch.utils.measure import dense_path
 
-from torch_helpers import untemplated
+from torch_helpers import lattice_blocks, untemplated
 
 pytestmark = pytest.mark.cuda
 
@@ -222,6 +222,89 @@ def test_direct_walk_kernel_matches_plain_and_repeats_bitwise(setup):
         assert torch.equal(u, v)
     assert abs(float(k1[0] - p[0])) <= 1e-5 * abs(float(p[0]))
     assert _max_rel(k1[1], p[1]) <= 1e-4 and _max_rel(k1[2], p[2]) <= 1e-4
+
+
+# (id, grid, capacity, atoms per cell (cycled over the cells), cell edge,
+#  lattice sites per side, scattered slots, (shift, drift)); cutoff 0.65
+WALK_EDGES = [
+    ("grid-3-3-3", (3, 3, 3), 40, [27, 30, 22], 0.7, None, False, None),
+    ("grid-3-4-5", (3, 4, 5), 40, [27, 30, 22, 35], 0.7, None, False, None),
+    ("cap-8", (4, 3, 3), 8, [5, 8, 3], 0.7, None, False, None),
+    ("cap-33", (3, 3, 3), 33, [33, 20, 27], 0.7, None, False, None),
+    ("cap-88", (4, 4, 4), 88, [62, 70, 55], 0.7, None, False, None),
+    ("cap-160", (3, 3, 3), 160, [125, 160, 40], 0.7, 6, False, None),
+    ("cap-1024", (3, 3, 3), 1024, [600, 729, 500], 0.7, 9, False, None),
+    ("empty-cell", (3, 3, 4), 40, [27, 0, 30, 0, 0], 0.7, None, False, None),
+    ("no-sentinel", (3, 3, 3), 27, [27], 0.7, None, False, None),
+    ("scattered-sentinels", (3, 3, 4), 64, [27, 9, 64, 1, 40], 0.7, None,
+     True, None),
+    ("dense-lists-overflow", (3, 3, 3), 88, [88], 0.66, 5, False, None),
+    ("drifted", (4, 3, 3), 88, [62, 70, 55, 1], 0.7, None, True,
+     ((0.08, -0.06, 0.05), 0.01)),
+]
+
+
+@pytest.mark.parametrize("case", WALK_EDGES, ids=[c[0] for c in WALK_EDGES])
+def test_direct_walk_kernel_edge_cases(case):
+    """The walk kernel where its bookkeeping has edges, on hand-made
+    blocks (``torch_helpers.lattice_blocks``): 3 cells per axis and a
+    non-cubic grid; capacities of a quarter warp, a warp and one slot, the
+    main path's 88, 160 (the large instantiation with several thread
+    groups) and 1024 (one thread group, lists of 32 that fill dozens of
+    times); cells with no atom, with no
+    sentinel, with sentinels scattered among the real slots; a dense box
+    at a cell edge just over the cutoff, whose lists of 64 overflow; atoms
+    moved out of their cells' nominal bounds (all by one vector, each by
+    a little more).  Energy within 1e-5 and
+    dE/dx, dE/dq within 1e-4 of their max of the plain version; the
+    wrapper twice and a direct ``cf_direct_walk`` call into outputs filled
+    with NaN give the same bits, so every slot is written; sentinel slots
+    hold exactly 0; the 16-coefficient instantiation agrees on the
+    polynomial padded with zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    _, grid, cap, counts, edge, per_side, scattered, moved = case
+    shift, drift = moved or ((0.0, 0.0, 0.0), 0.0)
+    dev = torch.device("cuda", 0)
+    *cols, ids, box, n_atoms = lattice_blocks(
+        grid, cap, counts, edge, seed=sum(map(ord, case[0])),
+        dtype=torch.float32, device=dev, scattered=scattered, drift=drift,
+        shift=shift, per_side=per_side)
+    alpha, cutoff = 3.4, 0.65
+    args = (*cols, ids, box, n_atoms, alpha, cutoff)
+    k1, k2 = dw.direct_walk(*args), dw.direct_walk(*args)
+    p = dw.direct_walk_plain(*args)
+    n_cells = grid[0] * grid[1] * grid[2]
+    nbr, img = dw._tables(tuple(grid), dev)
+    coef = dw._coef_tensor(alpha, cutoff, dev)
+    e_part = torch.full((n_cells,), float("nan"), device=dev)
+    g = torch.full((3, *ids.shape), float("nan"), device=dev)
+    dq = torch.full(ids.shape, float("nan"), device=dev)
+    err = native.library().cf_direct_walk(
+        *(t.data_ptr() for t in (*cols, ids, nbr, img, box, coef)),
+        coef.numel(), 2.0 / (cutoff * cutoff), cutoff * cutoff, n_atoms,
+        n_cells, cap, e_part.data_ptr(), g.data_ptr(), dq.data_ptr(),
+        native.stream_ptr(ids))
+    native.check(err, "cf_direct_walk")
+    torch.cuda.synchronize()
+    for u, v, w in zip(k1, k2, (torch.sum(e_part), g, dq)):
+        assert torch.equal(u, v) and torch.equal(u, w)
+    assert abs(float(k1[0] - p[0])) <= 1e-5 * abs(float(p[0]))
+    assert _max_rel(k1[1], p[1]) <= 1e-4 and _max_rel(k1[2], p[2]) <= 1e-4
+    sentinel = ids >= n_atoms
+    assert not k1[1][:, sentinel].any() and not k1[2][sentinel].any()
+    # the same polynomial zero-padded to 16 coefficients takes the
+    # kernel's 16-coefficient instantiation: the same result to roundoff
+    coef16 = torch.cat([coef, coef.new_zeros(16 - coef.numel())])
+    err = native.library().cf_direct_walk(
+        *(t.data_ptr() for t in (*cols, ids, nbr, img, box, coef16)), 16,
+        2.0 / (cutoff * cutoff), cutoff * cutoff, n_atoms, n_cells, cap,
+        e_part.data_ptr(), g.data_ptr(), dq.data_ptr(),
+        native.stream_ptr(ids))
+    native.check(err, "cf_direct_walk")
+    torch.cuda.synchronize()
+    assert abs(float(torch.sum(e_part) - k1[0])) <= 1e-6 * abs(float(k1[0]))
+    assert _max_rel(g, k1[1]) <= 1e-6 and _max_rel(dq, k1[2]) <= 1e-6
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(setup):

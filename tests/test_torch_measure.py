@@ -187,3 +187,37 @@ def test_spread_inputs_small_box():
     torch.testing.assert_close(wzt.sum(1), torch.ones_like(q_rows),
                                rtol=0, atol=1e-5)
     assert len(offsets[0]) == 9 and pad_xy[2] == system.spec.pme_grid[2]
+
+
+def test_drifted_blocks_small_box():
+    """Five NVE steps at n_side 7 on one neighbor state: the blocks keep
+    the rebuild's slots while the atoms move, the plain walk on them gives
+    the energy's direct-space walk at the moved positions, and no rebuild
+    happened (the slots are the start state's)."""
+    from chargeflux_tpu_torch import cells
+    from chargeflux_tpu_torch.integrate import init_state_nb, make_nb_energy_fn
+    from chargeflux_tpu_torch.ops.direct_walk import direct_walk_plain
+
+    force, pos, masses, box = water_box(n_side=7, flux="bond_angle",
+                                        cutoff=0.65)
+    system = measure.build_system(
+        force, box, suggest_capacity(pos, box, (3, 3, 3), margin=1.2),
+        torch.device("cpu"), dtype=torch.float64, grid=(3, 3, 3))
+    x = torch.tensor(pos, dtype=torch.float64)
+    m = torch.tensor(masses, dtype=torch.float64)
+    bonded = water_bonded_params(len(masses) // 3, box=box,
+                                 dtype=torch.float64, device="cpu")
+    e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
+    state = init_state_nb(x, torch.zeros_like(x), e_fn, init_nb)
+    args, info = measure.drifted_blocks(system, state, e_fn, m, 5)
+    assert torch.equal(args[6].reshape(-1), state.nb.slots.reshape(-1))
+    assert info["moved"] > 0.0 and info["outside"] >= 0
+    blocks0 = cells.blockify(x, args[3].new_zeros(len(x)), system,
+                             state.nb.slots, state.nb.inv_slot,
+                             wrap=state.nb.wrap)
+    real = args[6] < system.n_atoms
+    moved = (args[0] - blocks0.x)[real].abs().max()
+    assert 0.0 < float(moved) <= info["moved"]
+    e, g, dq = direct_walk_plain(*args)
+    assert torch.isfinite(e) and torch.isfinite(g).all()
+    assert not g[:, ~real].any() and not dq[~real].any()

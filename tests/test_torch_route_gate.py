@@ -67,6 +67,8 @@ def test_spread_gate(limits, case):
 WALK = [
     ("f32-card-30k", F32, CUDA, (8, 8, 8, 88), 0.72, None),
     ("f64-card", F64, CUDA, (8, 8, 8, 88), 0.72, TypeError),
+    ("cap-1", F32, CUDA, (3, 3, 3, 1), 0.72, None),
+    ("grid-3-4-5", F32, CUDA, (3, 4, 5, 97), 0.72, None),
     ("cap-1024", F32, CUDA, (3, 3, 3, 1024), 0.72, None),
     ("cap-1025", F32, CUDA, (3, 3, 3, 1025), 0.72, ValueError),
     ("two-cells", F32, CUDA, (8, 2, 8, 88), 0.72, ValueError),

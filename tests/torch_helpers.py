@@ -17,7 +17,7 @@ from chargeflux_tpu_torch.system import ARRAY_FIELDS, system_from_arrays
 
 # The kernels' compile-time limits, as ``ops.native.limits`` reads them
 # from the built library: kMaxWy, kMaxOrder, kMaxWx (pme_spread.cu);
-# kMaxCoef, threads per block (direct_walk.cu); kMaxKy, kMaxKz2, the
+# kMaxCoef, kMaxCap (direct_walk.cu); kMaxKy, kMaxKz2, the
 # forward's atom chunk (structure_factor.cu).  Building needs nvcc, so
 # tests that ask for them without a card use these values.
 KERNEL_LIMITS = {"cf_spread_limits": (32, 16, 36),
@@ -89,3 +89,55 @@ def untemplated(system):
     spec.update(flux_template=None, excl_template=None)
     return system_from_arrays(arrays, spec, device=system.q0.device,
                               dtype=system.q0.dtype)
+
+
+def lattice_blocks(grid, cap, counts, edge, seed, dtype=torch.float64,
+                   device="cpu", scattered=False, drift=0.0,
+                   shift=(0.0, 0.0, 0.0), per_side=None):
+    """Cell blocks made by hand, for the walk's tests: (x, y, z, q, hs,
+    se, ids, box, n_atoms), the blocks [gx, gy, gz, cap], ids int32 with
+    sentinel n_atoms, box [3] = grid * edge.  Cell c holds ``counts[c %
+    len(counts)]`` atoms on a jittered ``per_side``^3 lattice inside its
+    nominal bounds (so no two atoms come closer than 0.4 of the lattice
+    step); then all atoms are moved by ``shift`` and each by up to
+    ``drift`` per axis more, which takes atoms out of those bounds while
+    they stay in their cell's block, as positions do between two neighbor
+    rebuilds.  Charges are positive, so the energy's terms do not cancel.
+    The atoms fill the first slots of their cell, or with ``scattered`` a
+    random subset of the slots; every other slot is a sentinel holding
+    zeros."""
+    rng = np.random.default_rng(seed)
+    gx, gy, gz = grid
+    n_cells = gx * gy * gz
+    counts = [counts[c % len(counts)] for c in range(n_cells)]
+    if per_side is None:
+        per_side = int(np.ceil(max(counts) ** (1.0 / 3.0) - 1e-9))
+    assert max(counts) <= min(cap, per_side ** 3)
+    step = edge / per_side
+    sites = np.stack(np.meshgrid(*[np.arange(per_side)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+    cols = np.zeros((6, n_cells, cap))
+    n_atoms = sum(counts)
+    ids = np.full((n_cells, cap), n_atoms, np.int32)
+    first = 0
+    for c, n in enumerate(counts):
+        origin = np.array([c // (gy * gz), (c // gz) % gy, c % gz]) * edge
+        pick = rng.permutation(len(sites))[:n]
+        pos = origin + (sites[pick] + 0.5
+                        + rng.uniform(-0.3, 0.3, (n, 3))) * step
+        pos += np.asarray(shift) + rng.uniform(-drift, drift, (n, 3))
+        slots = (np.sort(rng.permutation(cap)[:n]) if scattered
+                 else np.arange(n))
+        cols[:3, c, slots] = pos.T
+        cols[3, c, slots] = rng.uniform(0.2, 0.8, n)
+        cols[4, c, slots] = rng.uniform(0.2, 0.3, n) * step
+        cols[5, c, slots] = rng.uniform(0.5, 1.5, n)
+        ids[c, slots] = first + np.arange(n)
+        first += n
+    shape = (gx, gy, gz, cap)
+    blocks = [torch.tensor(a.reshape(shape), dtype=dtype, device=device)
+              for a in cols]
+    box = torch.tensor([gx * edge, gy * edge, gz * edge], dtype=dtype,
+                       device=device)
+    return (*blocks, torch.tensor(ids.reshape(shape), device=device), box,
+            n_atoms)
