@@ -1,7 +1,7 @@
 // Classical-Ewald structure factors, forward and backward, for sm_90a.
 //
 // Replaces chargeflux_tpu/ops/pallas_recip.py (make_structure_factor_fn):
-//   sf_fwd_kernel + sf_sum_kernel  replace _fwd_impl / _fwd_kernel
+//   sf_fwd_kernel                  replaces _fwd_impl / _fwd_kernel
 //                                  (pallas_call at :145);
 //   sf_bwd_tables_kernel           replaces the _bwd_tables_kernel call of
 //                                  _bwd_impl (:157);
@@ -24,11 +24,70 @@
 // or a fixed-order reduction, so two launches give equal bits.  f32 FMA on
 // the CUDA cores only: TF32 would be the twin of the TPU bf16 demotion.
 //
-// Forward.  One block per (kx, chunk of kChunk atoms) forms the chunk's
-// cxy/sxy rows for that kx in shared memory once, stages the chunk's zq
-// rows, and each thread owns (ky, c) outputs of A and B over the chunk; the
-// per-chunk partials [2, chunks, Kx*Ky, 2Kz] are then summed in chunk order
-// by sf_sum_kernel (one thread per output).
+// Forward, as first written: one block per (kx, chunk of 64 atoms), a
+// thread one (ky, c) output at a time over the chunk (a dependent chain of
+// 2 FMAs with 3 scalar shared loads per atom), the per-chunk partials
+// [2, N/64, Kx*Ky, 2Kz] (8 MB at 4k) summed by a second kernel: 0.0076 ms
+// at 216, 0.0395 at 4k, 1.9x behind one matmul there.
+//
+// Forward, now: one launch, no scratch.  A skinny GEMM with a long K (the
+// atoms), so the split is over K.  The grid is (kx, ky group, atom split),
+// launched as thread block clusters of the splits of one tile.  A block
+// owns the output tile [y_rows, 2Kz] of one kx for both A and B and sums
+// it over the atoms of its split in registers, chunk after chunk of
+// kFwdChunk atoms in order; there is no per-chunk partial.  The chunk's
+// cx/sx (one row), cy/sy (the tile's rows) and zq rows land in shared
+// memory by cp.async (16-byte copies of the tables where N and the
+// pointers allow, 8-byte pairs of zq where 2Kz is even; narrower
+// otherwise), double-buffered: chunk i+1 is in flight while chunk i is
+// formed into (cxy, sxy) pairs [atom][2 y_rows] and consumed.  A thread
+// owns 2 ky rows x 4 columns of A and of B, 16 independent accumulators,
+// and reads one float4 of (cxy, sxy) pairs and one float4 of zq per atom,
+// four atoms' operands before the first FMA: 2 vector loads per 16 FMAs.
+// zq rows are padded to ceil4(2Kz) columns, zero, in shared memory only.
+// Where a tile has fewer micro-tiles than the block may have threads,
+// j_split threads share each: thread js sums the atoms js, js + j_split,
+// ... of every chunk, and the threads' sums are added in js order through
+// shared memory.  At the end every block of the cluster holds its split's
+// tile in its shared memory; after a cluster barrier each block folds a
+// share of the tile's float4s, reading all blocks' copies through
+// distributed shared memory in rank order s = 0 .. S-1, and writes A and
+// B.  So there is no partial in global memory, no fence, no counter and no
+// float atomic, and a CUDA graph can replay the launch as it is.
+// The plan (ky rows per block, j_split, S <= 8 and the atoms per split)
+// comes from the shapes alone (ops/structure_factor.py, plan_forward: a
+// fixed block target and the constants below, which cf_sf_limits hands
+// it), never from the card, so the bits are the same on any card.
+// -Xptxas -v: 61 registers, no spills.  Launches (block target 132):
+//   216 (Kx 7, Ky 13, 2Kz 26, N 648): 6 rows x 3 groups, j_split 12, 8
+//        splits of 84 atoms: 168 blocks of 256 threads, 49,152 B of
+//        shared memory, one chunk each; ~10 warps per SM.
+//   4k (13, 25, 50, 3993): 14 rows x 2 groups, j_split 2, 8 splits of 500:
+//        208 blocks of 192 threads, 98,304 B, 4 chunks each; ~9 warps per
+//        SM.
+//   the limits (Kx 4, Ky 63, 2Kz 126, N 1000): 14 rows x 5 groups, 8 splits
+//        of 128: 160 blocks of 224 threads, 176,128 B (one block per SM).
+// Measured (H100 80GB HBM3 at 700 W, CUDA graphs of 20 calls): 0.0063 ms
+// at 216 (one matmul 0.0083), 0.0327 at 4k (matmul 0.0206).  Predicted
+// 0.004-0.006 and 0.012-0.022.  One-off builds with parts cut out (not
+// kept in this source), 216 / 4k: launch and prologue alone 0.0024 /
+// 0.0030, + the copies 0.0033 / 0.0126, + the forming 0.0036 / 0.0164, + the FMA loop 0.0042 / 0.0298, + the two sums 0.0064
+// / 0.0327; with N 3992 (16-byte table copies, not 4-byte) the copies
+// take 0.0061 of 4k's 0.0096.  At 216 it is the latency of one chunk
+// behind a launch.  At 4k no one part bounds it: the copies (cp.async,
+// which the load/store unit handles lane by lane), the forming, the shared
+// loads and the FMAs run one after the other in a block, and at 1-2
+// blocks of 6 warps per SM nothing overlaps them; 512 or 1024 threads a
+// block, 4-row micro-tiles and 2 or 8 atoms a batch changed nothing.
+// What would: the contiguous zq span and row-aligned table spans by bulk
+// (TMA) copies from a producer warp, and a 4 x 8 micro-tile (half the
+// shared loads per FMA) with more chunks in flight.  Earlier variants of
+// this redesign, in order: partials in global memory folded by the tile's
+// last block after an integer ticket, a thread folding one output at a
+// time, took 0.0160 / 0.0575 ms (the fold's dependent L2 round trips); the
+// same with float4 folds, eight loads in flight, 0.0082 / 0.0327; the
+// cluster fold with j_split 0.0068 / 0.0355; then batched operand loads
+// and chunks of 128 atoms for the figures above.
 //
 // Backward, as first written: one thread per atom, 64 per block, Abar/Bbar
 // streamed one kx slab [Ky, 2Kz] at a time through shared memory.  At 4k
@@ -90,89 +149,30 @@
 // in a short kernel: 13 slabs per block, a few warps per scheduler, the
 // FMA loop at 3-4x its issue time, and ~0.008 ms of launch and prologue.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
+namespace coop = cooperative_groups;
+
 constexpr int kMaxKy = 64;      // Ky = 2 kmax_y - 1 bound (kmax_y <= 32)
 constexpr int kMaxKz2 = 128;    // 2Kz = 2 (2 kmax_z - 1) bound (kmax_z <= 32)
-constexpr int kChunk = 64;      // atoms per forward block
-constexpr int kFwdThreads = 256;
+constexpr int kFwdChunk = 128;  // atoms per staged forward chunk
+constexpr int kFwdThreads = 256;     // most threads of a forward block
+constexpr int kFwdMaxSplits = 8;     // blocks of a cluster (the portable most)
+constexpr int kFwdMaxRows = 32;      // most ky rows of a block's tile
+// ky rows (an even count) x columns of A and of B per thread
+constexpr int kFwdRows = 2, kFwdCols = 4;
+constexpr int kFwdMaxJSplit = 16;    // most threads that share a micro-tile
+constexpr int kFwdBatch = 4;         // atoms whose operands load together
 constexpr int kTile = 16;       // atoms per backward block
 constexpr int kRows = 2;        // ky rows of one atom per tables thread
 constexpr int kZqPer = 2, kZqCols = 2;  // atoms x dzq columns per zq thread
 
 __host__ __device__ constexpr int ceil4(int v) { return (v + 3) & ~3; }
-
-__global__ void sf_fwd_kernel(const float* __restrict__ cxT,
-                              const float* __restrict__ sxT,
-                              const float* __restrict__ cyT,
-                              const float* __restrict__ syT,
-                              const float* __restrict__ zq,
-                              float* __restrict__ partial, int kx, int ky,
-                              int kz2, int n) {
-  extern __shared__ float smem[];
-  float* cxy = smem;                 // [ky][kChunk]
-  float* sxy = cxy + ky * kChunk;    // [ky][kChunk]
-  float* zs = sxy + ky * kChunk;     // [kChunk][kz2]
-  const int x = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const int n0 = chunk * kChunk;
-  const int cnt = min(kChunk, n - n0);
-
-  for (int i = threadIdx.x; i < ky * kChunk; i += blockDim.x) {
-    const int y = i / kChunk;
-    const int j = i % kChunk;
-    float c = 0.0f, s = 0.0f;
-    if (j < cnt) {
-      const size_t a = (size_t)n0 + j;
-      const float cx = cxT[(size_t)x * n + a], sx = sxT[(size_t)x * n + a];
-      const float cy = cyT[(size_t)y * n + a], sy = syT[(size_t)y * n + a];
-      c = cx * cy - sx * sy;
-      s = sx * cy + cx * sy;
-    }
-    cxy[i] = c;
-    sxy[i] = s;
-  }
-  for (int i = threadIdx.x; i < cnt * kz2; i += blockDim.x)
-    zs[i] = zq[(size_t)n0 * kz2 + i];
-  __syncthreads();
-
-  const size_t kxy = (size_t)kx * ky;
-  float* pa = partial + ((size_t)chunk * kxy + (size_t)x * ky) * kz2;
-  float* pb = partial + ((size_t)(gridDim.y + chunk) * kxy + (size_t)x * ky)
-                            * kz2;
-  for (int o = threadIdx.x; o < ky * kz2; o += blockDim.x) {
-    const int y = o / kz2;
-    const int c = o % kz2;
-    const float* cr = cxy + y * kChunk;
-    const float* sr = sxy + y * kChunk;
-    float a = 0.0f, b = 0.0f;
-    for (int j = 0; j < cnt; ++j) {
-      const float z = zs[j * kz2 + c];
-      a = fmaf(cr[j], z, a);
-      b = fmaf(sr[j], z, b);
-    }
-    pa[o] = a;
-    pb[o] = b;
-  }
-}
-
-// out = sum over chunks, in chunk order, of partial [2, n_chunks, m].
-__global__ void sf_sum_kernel(const float* __restrict__ partial,
-                              float* __restrict__ a, float* __restrict__ b,
-                              int n_chunks, int m) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 2 * m) return;
-  const int which = i / m;
-  const int idx = i % m;
-  const float* p = partial + (size_t)which * n_chunks * m + idx;
-  float acc = 0.0f;
-  for (int k = 0; k < n_chunks; ++k) acc += p[(size_t)k * m];
-  (which ? b : a)[idx] = acc;
-}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -186,6 +186,21 @@ __device__ __forceinline__ void cp_async8(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
                "l"(src)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// W consecutive floats (both sides 4 W-byte aligned) as one copy.
+template <int W>
+__device__ __forceinline__ void cp_async_w(float* dst, const float* src) {
+  if constexpr (W == 4) cp_async16(dst, src);
+  else if constexpr (W == 2) cp_async8(dst, src);
+  else cp_async4(dst, src);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -209,20 +224,291 @@ __device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
   for (int i = 0; i < N; ++i) out[i] = f[i];
 }
 
-// f(y, c) for the elements threadIdx.x, + blockDim.x, ... of a [rows, cols]
-// array in row order, without a division per element.
+// Where a thread starts and how it steps through a [rows, cols] array in
+// row order, blockDim.x elements at a time, without a division per element.
+struct Stride2d {
+  int y, c, dy, dc, cols;
+};
+
+__device__ __forceinline__ Stride2d make_stride(int cols) {
+  return {(int)threadIdx.x / cols, (int)threadIdx.x % cols,
+          (int)blockDim.x / cols, (int)blockDim.x % cols, cols};
+}
+
+// f(y, c) for the elements threadIdx.x, + blockDim.x, ... of the first
+// ``rows`` rows.
 template <typename F>
-__device__ __forceinline__ void strided_2d(int rows, int cols, F f) {
-  const int dy = blockDim.x / cols, dc = blockDim.x % cols;
-  for (int y = threadIdx.x / cols, c = threadIdx.x % cols; y < rows;) {
+__device__ __forceinline__ void for_strided(Stride2d st, int rows, F f) {
+  for (int y = st.y, c = st.c; y < rows;) {
     f(y, c);
-    y += dy;
-    c += dc;
-    if (c >= cols) {
-      c -= cols;
+    y += st.dy;
+    c += st.dc;
+    if (c >= st.cols) {
+      c -= st.cols;
       ++y;
     }
   }
+}
+
+template <typename F>
+__device__ __forceinline__ void strided_2d(int rows, int cols, F f) {
+  for_strided(make_stride(cols), rows, f);
+}
+
+// Shared memory of the forward kernel, in floats.  While the chunks run:
+// two chunk stages, each cx, sx [kFwdChunk], cy then sy
+// [y_rows][kFwdChunk] and zq [kFwdChunk][kzp]; then the formed (cxy, sxy)
+// pairs [kFwdChunk][pair_w].  After them, over the same memory: the block's
+// tile [2][y_rows][kzp], then its threads' accumulators [4][threads] float4.
+struct FwdSmem {
+  int y_rows, kzp, j_split;
+  __host__ __device__ int owners() const {
+    return y_rows / kFwdRows * (kzp / kFwdCols);
+  }
+  // 2 y_rows floats a row, padded to an odd count of float4: the lanes of a
+  // warp (one atom each) store their pair two to a bank, not y_rows / 2
+  __host__ __device__ int pair_w() const { return 4 * ((y_rows / 2) | 1); }
+  __host__ __device__ int ys() const { return 2 * kFwdChunk; }
+  __host__ __device__ int zs() const { return ys() + 2 * y_rows * kFwdChunk; }
+  __host__ __device__ int stage() const { return zs() + kFwdChunk * kzp; }
+  __host__ __device__ int tile() const { return 2 * y_rows * kzp; }
+  __host__ __device__ int floats() const {
+    const int chunks = 2 * stage() + kFwdChunk * pair_w();
+    const int sums = tile() + 2 * kFwdRows * kFwdCols * owners() * j_split;
+    return chunks > sums ? chunks : sums;
+  }
+};
+
+// ``rows`` table rows of the chunk's cnt atoms, src rows ``stride`` apart,
+// into rows of kFwdChunk floats, W floats a copy (cnt is a multiple of W).
+template <int W>
+__device__ __forceinline__ void copy_table_rows(float* dst, const float* src,
+                                                size_t stride, int rows,
+                                                int cnt) {
+  constexpr int kVecs = kFwdChunk / W;
+  for (int i = threadIdx.x; i < rows * kVecs; i += blockDim.x) {
+    const int r = i / kVecs, j = i % kVecs * W;
+    if (j < cnt)
+      cp_async_w<W>(dst + r * kFwdChunk + j, src + (size_t)r * stride + j);
+  }
+}
+
+// The tables of one forward chunk: cx/sx of kx = x and the tile's ``rows``
+// cy/sy rows from y0, for the cnt atoms from n0.
+template <int W>
+__device__ __forceinline__ void load_fwd_tables(
+    float* st, FwdSmem sm, const float* __restrict__ cxT,
+    const float* __restrict__ sxT, const float* __restrict__ cyT,
+    const float* __restrict__ syT, int x, int y0, int rows, int n, int n0,
+    int cnt) {
+  const size_t xo = (size_t)x * n + n0, yo = (size_t)y0 * n + n0;
+  copy_table_rows<W>(st, cxT + xo, 0, 1, cnt);
+  copy_table_rows<W>(st + kFwdChunk, sxT + xo, 0, 1, cnt);
+  copy_table_rows<W>(st + sm.ys(), cyT + yo, n, rows, cnt);
+  copy_table_rows<W>(st + sm.ys() + sm.y_rows * kFwdChunk, syT + yo, n, rows,
+                     cnt);
+}
+
+// Start the copy of one forward chunk into the stage at st, as one cp.async
+// group.  wt, wz: floats per copy of the tables and of zq (copy_width);
+// zst: make_stride(kz2 / wz), made once.
+__device__ __forceinline__ void load_fwd_chunk(
+    float* st, FwdSmem sm, const float* __restrict__ cxT,
+    const float* __restrict__ sxT, const float* __restrict__ cyT,
+    const float* __restrict__ syT, const float* __restrict__ zq, int x,
+    int y0, int rows, int kz2, int n, int n0, int cnt, int wt, int wz,
+    Stride2d zst) {
+  if (wt == 4)
+    load_fwd_tables<4>(st, sm, cxT, sxT, cyT, syT, x, y0, rows, n, n0, cnt);
+  else if (wt == 2)
+    load_fwd_tables<2>(st, sm, cxT, sxT, cyT, syT, x, y0, rows, n, n0, cnt);
+  else
+    load_fwd_tables<1>(st, sm, cxT, sxT, cyT, syT, x, y0, rows, n, n0, cnt);
+  float* zs = st + sm.zs();
+  const float* src = zq + (size_t)n0 * kz2;
+  if (wz == 2)
+    for_strided(zst, cnt, [&](int j, int h) {
+      cp_async8(zs + j * sm.kzp + 2 * h, src + (size_t)j * kz2 + 2 * h);
+    });
+  else
+    for_strided(zst, cnt, [&](int j, int c) {
+      cp_async4(zs + j * sm.kzp + c, src + (size_t)j * kz2 + c);
+    });
+  cp_async_commit();
+}
+
+// One atom's terms of a micro-tile: cs holds (cxy, sxy) of its rows, two
+// rows a float4; zv its zq columns.
+__device__ __forceinline__ void fwd_fma(const float (&cs)[kFwdRows / 2][4],
+                                        const float (&zv)[kFwdCols],
+                                        float (&a)[kFwdRows][kFwdCols],
+                                        float (&b)[kFwdRows][kFwdCols]) {
+#pragma unroll
+  for (int r = 0; r < kFwdRows; ++r)
+#pragma unroll
+    for (int k = 0; k < kFwdCols; ++k) {
+      a[r][k] = fmaf(cs[r / 2][2 * (r % 2)], zv[k], a[r][k]);
+      b[r][k] = fmaf(cs[r / 2][2 * (r % 2) + 1], zv[k], b[r][k]);
+    }
+}
+
+// Grid (kx, ky groups of y_rows rows, n_splits atom ranges of split_len),
+// launched as clusters of the n_splits blocks of one tile.  A block's
+// owners() micro-tiles are each held by j_split threads, thread js of them
+// summing the atoms js, js + j_split, ... of every chunk.
+__global__ void __launch_bounds__(kFwdThreads)
+sf_fwd_kernel(const float* __restrict__ cxT, const float* __restrict__ sxT,
+              const float* __restrict__ cyT, const float* __restrict__ syT,
+              const float* __restrict__ zq, float* __restrict__ a_out,
+              float* __restrict__ b_out, int kx, int ky, int kz2, int n,
+              int y_rows, int j_split, int split_len, int wt, int wz) {
+  extern __shared__ __align__(16) float fwd_smem[];
+  coop::cluster_group cluster = coop::this_cluster();
+  const int kzp = ceil4(kz2);
+  const FwdSmem sm{y_rows, kzp, j_split};
+  const int pair_w = sm.pair_w();
+  float* pairs = fwd_smem + 2 * sm.stage();  // [kFwdChunk][pair_w]
+  const int t = threadIdx.x;
+  const int x = blockIdx.x;
+  const int y0 = blockIdx.y * y_rows;
+  const int rows = min(y_rows, ky - y0);     // the tile's real rows
+  const int col_groups = kzp / kFwdCols;
+  const int owners = sm.owners();
+  const int n_live = owners * j_split;       // threads with a micro-tile
+  const int js = t / owners, own = t % owners;
+  const int rg = own / col_groups, cg = own % col_groups;
+  const bool live = t < n_live;
+  const int lo = blockIdx.z * split_len;
+  const int hi = min(n, lo + split_len);
+  const int n_chunks = (hi - lo + kFwdChunk - 1) / kFwdChunk;
+  const Stride2d zst = make_stride(kz2 / wz);
+
+  // what no copy and no forming writes: the pair rows past ``rows`` and
+  // the zq columns past kz2 of both stages
+  for (int i = t; i < kFwdChunk * pair_w; i += blockDim.x) pairs[i] = 0.0f;
+  for (int i = t; i < 2 * kFwdChunk; i += blockDim.x) {
+    float* row = fwd_smem + i / kFwdChunk * sm.stage() + sm.zs() +
+                 i % kFwdChunk * kzp;
+    for (int c = kz2; c < kzp; ++c) row[c] = 0.0f;
+  }
+
+  float a[kFwdRows][kFwdCols] = {}, b[kFwdRows][kFwdCols] = {};
+  load_fwd_chunk(fwd_smem, sm, cxT, sxT, cyT, syT, zq, x, y0, rows, kz2, n,
+                 lo, min(kFwdChunk, hi - lo), wt, wz, zst);
+  for (int i = 0; i < n_chunks; ++i) {
+    const int n0 = lo + i * kFwdChunk;
+    const int cnt = min(kFwdChunk, hi - n0);
+    // chunk i has landed; every thread is past chunk i - 1
+    cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < n_chunks)
+      load_fwd_chunk(fwd_smem + ((i + 1) & 1) * sm.stage(), sm, cxT, sxT,
+                     cyT, syT, zq, x, y0, rows, kz2, n, n0 + kFwdChunk,
+                     min(kFwdChunk, hi - n0 - kFwdChunk), wt, wz, zst);
+    const float* st = fwd_smem + (i & 1) * sm.stage();
+    const float* ys = st + sm.ys();
+    for (int e = t; e < rows * kFwdChunk; e += blockDim.x) {
+      const int y = e / kFwdChunk, j = e % kFwdChunk;
+      if (j < cnt) {
+        const float cx = st[j], sx = st[kFwdChunk + j];
+        const float cy = ys[y * kFwdChunk + j];
+        const float sy = ys[(y_rows + y) * kFwdChunk + j];
+        *reinterpret_cast<float2*>(pairs + j * pair_w + 2 * y) =
+            make_float2(cx * cy - sx * sy, sx * cy + cx * sy);
+      }
+    }
+    __syncthreads();
+    if (live) {
+      const float* pr = pairs + 2 * kFwdRows * rg;
+      const float* zr = st + sm.zs() + kFwdCols * cg;
+      // kFwdBatch atoms a turn, their operands loaded before the first
+      // FMA needs one (a branch per atom would put each load's latency in
+      // front of its 16 FMAs)
+      int j = js;
+      for (; j + (kFwdBatch - 1) * j_split < cnt; j += kFwdBatch * j_split) {
+        float cs[kFwdBatch][kFwdRows / 2][4], zv[kFwdBatch][kFwdCols];
+#pragma unroll
+        for (int u = 0; u < kFwdBatch; ++u) {
+          const int ju = j + u * j_split;
+#pragma unroll
+          for (int h = 0; h < kFwdRows / 2; ++h)
+            load_vec(pr + ju * pair_w + 4 * h, cs[u][h]);
+          load_vec(zr + ju * kzp, zv[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kFwdBatch; ++u)
+          fwd_fma(cs[u], zv[u], a, b);
+      }
+      for (; j < cnt; j += j_split) {
+        float cs[kFwdRows / 2][4], zv[kFwdCols];  // (c, s) of two rows each
+#pragma unroll
+        for (int h = 0; h < kFwdRows / 2; ++h)
+          load_vec(pr + j * pair_w + 4 * h, cs[h]);
+        load_vec(zr + j * kzp, zv);
+        fwd_fma(cs, zv, a, b);
+      }
+    }
+  }
+
+  // The block's tile [2][y_rows][kzp] (A rows, then B rows): each
+  // micro-tile row summed over its j_split threads in js order.  The
+  // accumulators of pad rows and columns are zero.
+  float* tile = fwd_smem;
+  float4* sums = reinterpret_cast<float4*>(fwd_smem + sm.tile());
+  __syncthreads();  // every thread is past the stages
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < kFwdRows; ++r) {
+      sums[(2 * r) * n_live + t] =
+          make_float4(a[r][0], a[r][1], a[r][2], a[r][3]);
+      sums[(2 * r + 1) * n_live + t] =
+          make_float4(b[r][0], b[r][1], b[r][2], b[r][3]);
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < 2 * kFwdRows * owners; i += blockDim.x) {
+    const int q = i / owners, o = i % owners;  // q = 2 r + (0 for A, 1 for B)
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int k = 0; k < j_split; ++k) {
+      const float4 u = sums[q * n_live + k * owners + o];
+      acc.x += u.x;
+      acc.y += u.y;
+      acc.z += u.z;
+      acc.w += u.w;
+    }
+    const int row = (q & 1) * y_rows + kFwdRows * (o / col_groups) + (q >> 1);
+    *reinterpret_cast<float4*>(tile + row * kzp +
+                               kFwdCols * (o % col_groups)) = acc;
+  }
+
+  // The cluster's blocks hold the tile's n_splits partial sums in their
+  // shared memory.  Each folds a share of the tile's float4s, reading all
+  // blocks' in rank order s = 0 .. n_splits - 1, and writes A and B.
+  cluster.sync();
+  const int n_splits = gridDim.z;
+  const size_t slab = (size_t)ky * kz2;      // A or B of one kx
+  for (int v = blockIdx.z * blockDim.x + t; v < 2 * y_rows * col_groups;
+       v += n_splits * blockDim.x) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 8
+    for (int k = 0; k < n_splits; ++k) {
+      const float4 u = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(tile, k))[v];
+      acc.x += u.x;
+      acc.y += u.y;
+      acc.z += u.z;
+      acc.w += u.w;
+    }
+    const int y = v / col_groups % y_rows, c0 = v % col_groups * kFwdCols;
+    if (y >= rows) continue;
+    float* out = (v < y_rows * col_groups ? a_out : b_out) + x * slab +
+                 (size_t)(y0 + y) * kz2 + c0;
+    const float vals[kFwdCols] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int k = 0; k < kFwdCols; ++k)
+      if (c0 + k < kz2) out[k] = vals[k];
+  }
+  cluster.sync();  // no block leaves while another reads its tile
 }
 
 // Shared memory of one kx slab buffer: Abar, Bbar [rows][kzp], then the
@@ -486,44 +772,90 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// Floats per cp.async copy, at most ``widest``, of rows of ``len`` floats
+// that start at multiples of ``len`` from pointers whose bits are or-ed in
+// ``ptr_bits``.
+int copy_width(uintptr_t ptr_bits, int len, int widest) {
+  for (int w = widest; w > 1; w /= 2)
+    if (len % w == 0 && (ptr_bits & (sizeof(float) * w - 1)) == 0) return w;
+  return 1;
+}
+
+uintptr_t bits(const float* p) { return reinterpret_cast<uintptr_t>(p); }
+
 // abar/bbar rows copy as 8-byte pairs (see load_slab)
 bool pairs_ok(const float* abar, const float* bbar, int kz2) {
-  return kz2 % 2 == 0 &&
-         ((reinterpret_cast<uintptr_t>(abar) |
-           reinterpret_cast<uintptr_t>(bbar)) & 7) == 0;
+  return copy_width(bits(abar) | bits(bbar), kz2, 2) == 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-int cf_sf_limits(int* max_ky, int* max_kz2, int* chunk) {
+// Ky and 2Kz bounds of the three kernels; then everything the forward's
+// launch plan is made from: its atom chunk, most threads per block, most
+// splits, most ky rows per block, the micro-tile's rows and columns and the
+// most threads that share one.
+int cf_sf_limits(int* max_ky, int* max_kz2, int* fwd_chunk, int* fwd_threads,
+                 int* fwd_splits, int* fwd_rows, int* fwd_tile_rows,
+                 int* fwd_tile_cols, int* fwd_j_split) {
   *max_ky = kMaxKy;
   *max_kz2 = kMaxKz2;
-  *chunk = kChunk;
+  *fwd_chunk = kFwdChunk;
+  *fwd_threads = kFwdThreads;
+  *fwd_splits = kFwdMaxSplits;
+  *fwd_rows = kFwdMaxRows;
+  *fwd_tile_rows = kFwdRows;
+  *fwd_tile_cols = kFwdCols;
+  *fwd_j_split = kFwdMaxJSplit;
   return 0;
 }
 
-// Forward: partial [2, ceil(n / kChunk), kx*ky, kz2] is scratch, a and b
-// [kx*ky, kz2] the outputs, all allocated by the caller.
+// Forward: a and b [kx*ky, kz2] are the outputs.  The launch plan (see
+// sf_fwd_kernel): blocks own y_rows ky rows (even), each of their
+// micro-tiles j_split threads (at most kFwdMaxJSplit, all within
+// kFwdThreads; y_rows within kFwdMaxRows, which keeps the shared memory
+// under the card's 227 KB), and
+// one of n_splits atom ranges of split_len atoms (a multiple of 4; the last
+// range may be short, none is empty; 1, 2, 4 or 8 of them, one cluster).
 int cf_sf_fwd(const float* cxT, const float* sxT, const float* cyT,
-              const float* syT, const float* zq, float* partial, float* a,
-              float* b, int kx, int ky, int kz2, int n, void* stream) {
+              const float* syT, const float* zq, float* a, float* b, int kx,
+              int ky, int kz2, int n, int y_rows, int j_split, int n_splits,
+              int split_len, void* stream) {
   if (bad_shape(kx, ky, kz2, n)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (n + kChunk - 1) / kChunk;
-  const size_t smem = sizeof(float) * ((size_t)2 * ky * kChunk +
-                                       (size_t)kChunk * kz2);
+  if (y_rows < kFwdRows || y_rows % kFwdRows != 0 || y_rows > kFwdMaxRows ||
+      j_split < 1 || j_split > kFwdMaxJSplit)
+    return (int)cudaErrorInvalidValue;
+  const FwdSmem sm{y_rows, ceil4(kz2), j_split};
+  const int y_groups = (ky + y_rows - 1) / y_rows;
+  if ((long long)sm.owners() * j_split > kFwdThreads || y_groups > 65535 ||
+      n_splits < 1 || n_splits > kFwdMaxSplits ||
+      (n_splits & (n_splits - 1)) != 0 || split_len < 4 ||
+      split_len % 4 != 0 || (long long)(n_splits - 1) * split_len >= n ||
+      (long long)n_splits * split_len < n)
+    return (int)cudaErrorInvalidValue;
+  const int threads = (sm.owners() * j_split + 31) / 32 * 32;
+  const size_t smem = sizeof(float) * sm.floats();
   cudaError_t e = allow_smem(sf_fwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  sf_fwd_kernel<<<dim3(kx, n_chunks), kFwdThreads, smem, s>>>(
-      cxT, sxT, cyT, syT, zq, partial, kx, ky, kz2, n);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int m = kx * ky * kz2;
-  sf_sum_kernel<<<(2 * m + 255) / 256, 256, 0, s>>>(partial, a, b, n_chunks,
-                                                     m);
-  return (int)cudaGetLastError();
+  const int wt =
+      copy_width(bits(cxT) | bits(sxT) | bits(cyT) | bits(syT), n, 4);
+  const int wz = copy_width(bits(zq), kz2, 2);
+  cudaLaunchAttribute cluster = {};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = n_splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kx, y_groups, n_splits);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, sf_fwd_kernel, cxT, sxT, cyT, syT, zq,
+                                 a, b, kx, ky, kz2, n, y_rows, j_split,
+                                 split_len, wt, wz);
 }
 
 // Backward, phase tables: dcx/dsx [kx, n] and dcy/dsy [ky, n] are outputs.

@@ -24,7 +24,8 @@ plane, weighted 1/2 at kx == 0 and 0 at the origin:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +50,39 @@ def kvector_grid(kmax: Tuple[int, int, int]):
     return nx, ny, nz, np.where(origin, 0.0, w)
 
 
+class KGridTensors(NamedTuple):
+    """:func:`kvector_grid` as tensors of one type on one device: the
+    per-axis indices ``n`` and their squares ``sq`` ([Kx], [Ky], [Kz] each)
+    and the weights ``w`` [Kx*Ky, Kz]."""
+    n: tuple
+    sq: tuple
+    w: torch.Tensor
+
+
+@lru_cache(maxsize=16)
+def _kgrid_cached(kmax, dtype, device) -> KGridTensors:
+    axes = kvector_grid(kmax)
+
+    def put(v):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+
+    return KGridTensors(tuple(put(v) for v in axes[:3]),
+                        tuple(put(v * v) for v in axes[:3]),
+                        put(axes[3].reshape(-1, len(axes[2]))))
+
+
+def kgrid_tensors(kmax, dtype, device) -> KGridTensors:
+    """The k grid's constant tensors, copied to ``device`` once per (kmax,
+    dtype, device) and kept (the 16 last used): an energy evaluation makes
+    no host-to-device copy for them.  They are shared: do not write to
+    them.  The first call for a key does copy, so make it before a CUDA
+    graph capture of the evaluation, not inside one."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:   # one key per card
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _kgrid_cached(tuple(int(k) for k in kmax), dtype, device)
+
+
 def phase_tables(positions, box, kmax):
     """(cx, sx, cy, sy, cz, sz), each [N, K_axis]: cos and sin of
     2 pi f n per axis.  The fractional coordinates are wrapped into [0, 1)
@@ -58,8 +92,7 @@ def phase_tables(positions, box, kmax):
     frac = frac_coords(positions, box)
     frac = frac - torch.floor(frac).detach()
     out = []
-    for axis, n in enumerate(kvector_grid(kmax)[:3]):
-        nk = torch.as_tensor(n, dtype=dtype, device=dev)
+    for axis, nk in enumerate(kgrid_tensors(kmax, dtype, dev).n):
         ph = 2.0 * math.pi * frac[:, axis:axis + 1] * nk[None, :]
         out += [torch.cos(ph), torch.sin(ph)]
     return tuple(out)
@@ -105,17 +138,14 @@ def structure_factors(positions, q, box, kmax, method: str = "xla",
 def reciprocal_energy_from_sf(s_cos, s_sin, box, alpha: float, kmax):
     """E_rec from assembled structure factors (orthorhombic box)."""
     dtype, dev = s_cos.dtype, s_cos.device
-    nx, ny, nz, w = kvector_grid(kmax)
+    grid = kgrid_tensors(kmax, dtype, dev)
+    sqx, sqy, sqz = grid.sq
     g = torch.diagonal(reciprocal_metric(box, dtype))  # (2 pi / L)^2
-
-    def sq(v):
-        return torch.as_tensor(v * v, dtype=dtype, device=dev)
-
-    k2 = (g[0] * sq(nx)[:, None, None] + g[1] * sq(ny)[None, :, None]
-          + g[2] * sq(nz)[None, None, :]).reshape(len(nx) * len(ny), len(nz))
+    k2 = (g[0] * sqx[:, None, None] + g[1] * sqy[None, :, None]
+          + g[2] * sqz[None, None, :]).reshape(grid.w.shape)
     k2_safe = torch.where(k2 > 0, k2, 1.0)
     eak = torch.exp(-k2_safe * (0.25 / (alpha * alpha))) / k2_safe
-    wk = torch.as_tensor(w.reshape(k2.shape), dtype=dtype, device=dev) * eak
+    wk = grid.w * eak
     const = 4.0 * math.pi * ONE_4PI_EPS0 / box_volume(box)
     return const * torch.sum(wk * (s_cos * s_cos + s_sin * s_sin))
 

@@ -91,12 +91,12 @@ def library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cf_spread_limits.argtypes = [ctypes.POINTER(i)] * 3
         lib.cf_walk_limits.argtypes = [ctypes.POINTER(i)] * 2
-        lib.cf_sf_limits.argtypes = [ctypes.POINTER(i)] * 3
+        lib.cf_sf_limits.argtypes = [ctypes.POINTER(i)] * 9
         lib.cf_spread_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.cf_spread_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.cf_direct_walk.argtypes = ([p] * 11 + [i, f, f, i, i, i]
                                        + [p] * 3 + [p])
-        lib.cf_sf_fwd.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.cf_sf_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.cf_sf_bwd_tables.argtypes = [p] * 11 + [i] * 4 + [p]
         lib.cf_sf_bwd_zq.argtypes = [p] * 7 + [i] * 4 + [p]
         for fn in (lib.cf_spread_limits, lib.cf_walk_limits,

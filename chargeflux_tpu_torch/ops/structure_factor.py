@@ -19,9 +19,17 @@ reference the kernels are checked against on the card).  The TPU layout
 padding (Ky to a multiple of 8, N to a multiple of 128) is not carried
 over: every shape is taken as it is.  :func:`kernels_take_grid` tells
 ``recip_method="auto"`` whether the kernels take a k grid.
+
+The forward kernel is one launch whose grid, thread use and sum order
+:func:`plan_forward` fixes from the shapes alone (a :class:`ForwardPlan`);
+:func:`split_ranges` and :func:`thread_atoms` spell out which atoms each
+block and thread sums, and in what order, so the order can be replayed
+without a card.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +37,97 @@ from . import native
 
 #: Kernel launches since the last reset, per wrapper.
 LAUNCHES = {"sf_fwd": 0, "sf_bwd_tables": 0, "sf_bwd_zq": 0}
+
+#: Blocks the forward launch aims for: it cuts the ky rows into groups and
+#: the atoms into splits until it has them, where the shapes allow.  A
+#: constant, not the card's SM count, so the sum order (and so the bits)
+#: follows from the shapes alone.
+FWD_BLOCK_TARGET = 132
+
+
+class ForwardLimits(NamedTuple):
+    """What the built forward kernel gives its launch plan
+    (``cf_sf_limits`` after the Ky and 2Kz bounds): atoms per staged chunk,
+    most threads per block, most blocks of a cluster (a power of two), most
+    ky rows per block, the ky rows and columns of A and of B that one
+    thread owns, and the most threads that share such a micro-tile."""
+    chunk: int
+    max_threads: int
+    max_splits: int
+    max_rows: int
+    tile_rows: int
+    tile_cols: int
+    max_j_split: int
+
+
+def forward_limits() -> ForwardLimits:
+    """The built library's :class:`ForwardLimits`."""
+    return ForwardLimits(*native.limits("cf_sf_limits", 9)[2:])
+
+
+class ForwardPlan(NamedTuple):
+    """Launch plan of the forward kernel: the grid is (Kx, ``y_groups``,
+    ``n_splits``).  A block owns ``y_rows`` ky rows (the last group may
+    hold fewer) and the atoms of one split, ``split_len`` each (the last
+    may hold fewer).  It stages them ``chunk`` at a time; each of its
+    micro-tiles is summed by ``j_split`` threads, thread js taking the
+    atoms js, js + j_split, ... of every chunk in order.  The threads'
+    sums are added in js order, then the splits' in split order."""
+    y_rows: int
+    y_groups: int
+    j_split: int
+    n_splits: int
+    split_len: int
+    chunk: int
+
+    def blocks(self, kx: int) -> int:
+        """Blocks of the launch."""
+        return kx * self.y_groups * self.n_splits
+
+
+def plan_forward(kx: int, ky: int, kz2: int, n: int, limits: ForwardLimits,
+                 block_target: int = FWD_BLOCK_TARGET) -> ForwardPlan:
+    """The forward's plan from the shapes alone, for a kernel built with
+    ``limits``.  The ky rows go to the fewest equal groups that keep a
+    block's rows within ``max_rows`` and its micro-tiles within
+    ``max_threads``, and to more while Kx x groups x ``max_splits`` blocks
+    stay under ``block_target``; the atoms to the fewest splits (a power of
+    two, none empty, each a multiple of 4 atoms) that reach the target;
+    spare threads of a block split its chunks' atoms among them.  The
+    wrapper plans at :data:`FWD_BLOCK_TARGET`."""
+    chunk, max_threads, max_splits, max_rows, rows, cols, max_j = limits
+    row_groups, col_groups = -(-ky // rows), -(-kz2 // cols)
+    groups = -(-row_groups // max(1, min(max_threads // col_groups,
+                                         max_rows // rows)))
+    while True:
+        y_rows = rows * -(-row_groups // groups)
+        y_groups = -(-ky // y_rows)
+        if (kx * y_groups * max_splits >= block_target
+                or groups >= row_groups):
+            break
+        groups += 1
+    n_splits, split_len = 1, -(-n // 4) * 4
+    while n_splits < max_splits and kx * y_groups * n_splits < block_target:
+        length = -(-n // (4 * 2 * n_splits)) * 4
+        if (2 * n_splits - 1) * length >= n:    # a split would be empty
+            break
+        n_splits, split_len = 2 * n_splits, length
+    owners = y_rows // rows * col_groups
+    j_split = max(1, min(max_j, max_threads // owners))
+    return ForwardPlan(y_rows, y_groups, j_split, n_splits, split_len, chunk)
+
+
+def split_ranges(plan: ForwardPlan, n: int):
+    """[(lo, hi)] atom range of each split of ``plan``, in fold order."""
+    return [(s * plan.split_len, min(n, (s + 1) * plan.split_len))
+            for s in range(plan.n_splits)]
+
+
+def thread_atoms(plan: ForwardPlan, lo: int, hi: int, js: int):
+    """The atoms of the split [lo, hi) that thread ``js`` of a micro-tile
+    sums, in the order it sums them."""
+    return [a for c0 in range(lo, hi, plan.chunk)
+            for a in range(c0 + js, min(c0 + plan.chunk, hi), plan.j_split)]
 
 
 def xy_tables(cxT, sxT, cyT, syT):
@@ -77,7 +176,7 @@ def _refusal(named, ky: int, kz2: int, n: int):
                                f"float32 CUDA tensor (got {dtype} on "
                                f"{device}); the plain version serves other "
                                f"types")
-    max_ky, max_kz2, _ = native.limits("cf_sf_limits", 3)
+    max_ky, max_kz2 = native.limits("cf_sf_limits", 9)[:2]
     if ky > max_ky or kz2 > max_kz2 or n < 1:
         return ValueError, (f"structure-factor kernel: needs Ky <= {max_ky}, "
                             f"2Kz <= {max_kz2} and N >= 1 (got Ky {ky}, 2Kz "
@@ -125,19 +224,17 @@ def _check(cxT, sxT, cyT, syT, zq=None, abar=None, bbar=None):
 
 def sf_fwd(cxT, sxT, cyT, syT, zq):
     """Forward contraction: plain version on the CPU, the CUDA kernel on the
-    card."""
+    card (one launch by :func:`plan_forward`'s plan, no scratch)."""
     if cxT.device.type == "cpu":
         return sf_fwd_plain(cxT, sxT, cyT, syT, zq)
     kx, ky, kz2, n = _check(cxT, sxT, cyT, syT, zq=zq)
-    dev = cxT.device
-    n_chunks = -(-n // native.limits("cf_sf_limits", 3)[2])
-    partial = torch.empty((2, n_chunks, kx * ky, kz2), dtype=torch.float32,
-                          device=dev)
-    a = torch.empty((kx * ky, kz2), dtype=torch.float32, device=dev)
+    plan = plan_forward(kx, ky, kz2, n, forward_limits())
+    a = torch.empty((kx * ky, kz2), dtype=torch.float32, device=cxT.device)
     b = torch.empty_like(a)
     err = native.library().cf_sf_fwd(
-        *(t.data_ptr() for t in (cxT, sxT, cyT, syT, zq, partial, a, b)),
-        kx, ky, kz2, n, native.stream_ptr(cxT))
+        *(t.data_ptr() for t in (cxT, sxT, cyT, syT, zq, a, b)), kx, ky, kz2,
+        n, plan.y_rows, plan.j_split, plan.n_splits, plan.split_len,
+        native.stream_ptr(cxT))
     native.check(err, "cf_sf_fwd")
     LAUNCHES["sf_fwd"] += 1
     return a, b

@@ -180,6 +180,37 @@ def dense_path(device):
     return force, x, m, box, bonded, system
 
 
+#: (n_side, cutoff) of the water boxes the structure-factor kernels are
+#: timed at: the 216 path's (Kx 7, Ky 13, 2Kz 26, N 648) and a 4k box's
+#: (kmax 13^3: Kx 13, Ky 25, 2Kz 50, N 3993).
+SF_SHAPES = {"216": (6, 0.9), "4k": (11, 0.8)}
+
+
+def sf_tables(label: str, device):
+    """(tables, system): the structure-factor kernels' inputs (cxT, sxT,
+    cyT, syT, zq) of the ``SF_SHAPES[label]`` water box, from its lattice
+    positions and flux charges, f32 on ``device``, and its dense system."""
+    from .. import ewald
+    from ..charges import effective_charges
+    from ..models import water_box
+
+    n_side, cutoff = SF_SHAPES[label]
+    force, pos, _, box = water_box(n_side=n_side, cutoff=cutoff)
+    system = force.create_system(box=box, dtype=torch.float32,
+                                 direct_method="dense", device=device)
+    x = torch.tensor(pos, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        tabs = ewald.kernel_inputs(x, effective_charges(x, system),
+                                   system.box, system.spec.kmax)
+    return tabs, system
+
+
+def sf_dims(tabs) -> dict:
+    """(kx, ky, kz2, n) of structure-factor tables, by name."""
+    return dict(kx=tabs[0].shape[0], ky=tabs[2].shape[0],
+                kz2=tabs[4].shape[1], n=tabs[0].shape[1])
+
+
 def burn_in(force, system0, x, masses, box, bonded, n_steps: int = 240):
     """The JAX package's bench.py burn-in: NVE from rest on a capacity-1.35
     twin in rebuild chunks, velocities rescaled to 300 K at each chunk

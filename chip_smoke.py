@@ -24,7 +24,8 @@ dense + classical-Ewald path (``bench.py 216``).  Phases, in order:
    rate) and ``bound_share`` = bound / ms;
 3b. the same for the three structure-factor kernels, at the 216 path's
    shapes and at a 4k box's (n_side 11, kmax 13^3), on the real tables
-   and the real cotangents dE_rec/dA, dE_rec/dB;
+   and the real cotangents dE_rec/dA, dE_rec/dB; the forward once more at
+   the kernels' Ky / 2Kz limits (agreement and bitwise repeat only);
 4. / 4b. energy_and_forces at the start positions of each path: kernel
    path against the plain path in f32 and in f64 on the card, and the
    f64 system on its own route (it records the plain versions when it is
@@ -334,28 +335,21 @@ def check_sf_kernels(results):
     import torch
 
     from chargeflux_tpu_torch import ewald
-    from chargeflux_tpu_torch.charges import effective_charges
-    from chargeflux_tpu_torch.models import water_box
     from chargeflux_tpu_torch.ops import structure_factor as sf
-    from chargeflux_tpu_torch.utils.measure import kernel_bound
+    from chargeflux_tpu_torch.utils.measure import (SF_SHAPES, kernel_bound,
+                                                    sf_dims, sf_tables)
 
     dev = torch.device("cuda", 0)
-    for label, n_side, cutoff in (("216", 6, 0.9), ("4k", 11, 0.8)):
-        force, pos, _, box = water_box(n_side=n_side, cutoff=cutoff)
-        system = force.create_system(box=box, dtype=torch.float32,
-                                     direct_method="dense", device=dev)
+    fwd_limits = sf.forward_limits()
+    for label in SF_SHAPES:
+        tabs, system = sf_tables(label, dev)
         spec = system.spec
-        x = torch.tensor(pos, dtype=torch.float32, device=dev)
-        with torch.no_grad():
-            tabs = ewald.kernel_inputs(x, effective_charges(x, system),
-                                       system.box, spec.kmax)
         a, b = (t.requires_grad_(True) for t in sf.sf_fwd_plain(*tabs))
         e = ewald.reciprocal_energy_from_sf(
             *ewald.assemble(a, b, tabs[4].shape[1] // 2), system.box,
             spec.alpha, spec.kmax)
         abar, bbar = (t.contiguous() for t in torch.autograd.grad(e, (a, b)))
-        dims = dict(kx=tabs[0].shape[0], ky=tabs[2].shape[0],
-                    kz2=tabs[4].shape[1], n=tabs[0].shape[1])
+        dims = sf_dims(tabs)
         shape = "Kx {kx} Ky {ky} 2Kz {kz2} N {n}".format(**dims)
         with torch.no_grad():
             # the yardsticks' operands: [cxy; sxy] [2 Kx Ky, N] and its
@@ -381,11 +375,28 @@ def check_sf_kernels(results):
             fields = compare(name, kern, plain, tol,
                              f"phase 3b at the {label} shapes ({shape})",
                              kernel_bound(name, **dims), library)
+            if name == "sf_fwd":
+                plan = sf.plan_forward(*dims.values(), fwd_limits)
+                print(f"phase 3b sf_fwd launch at the {label} shapes: "
+                      f"{plan.blocks(dims['kx'])} blocks, {plan}", flush=True)
             if label == "216":
                 results[name] = kernel_entry(name, fields)
             else:
                 results[name].update(
                     {f"{k}_4k": v for k, v in fields.items()})
+
+    # the forward at the kernels' Ky / 2Kz limits (kmax 32: the ky rows in
+    # groups, the largest shared memory a block asks for), on seeded random
+    # tables: agreement and bitwise repeat only
+    kx, ky, kz2, n = 4, 63, 126, 1000
+    g = torch.Generator(dev).manual_seed(63126)
+    tabs = [torch.rand(shape, device=dev, generator=g) * 2.0 - 1.0
+            for shape in ((kx, n), (kx, n), (ky, n), (ky, n), (n, kz2))]
+    with torch.no_grad():
+        agree("sf_fwd", lambda: sf.sf_fwd(*tabs),
+              lambda: sf.sf_fwd_plain(*tabs), 1e-5,
+              f"phase 3b at the limit shapes (Kx {kx} Ky {ky} 2Kz {kz2} N "
+              f"{n}; {sf.plan_forward(kx, ky, kz2, n, fwd_limits)})")
 
 
 def run_dense_md(x, masses, bonded, system):

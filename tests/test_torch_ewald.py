@@ -122,3 +122,85 @@ def test_auto_resolves_as_the_jax_package(direct, n_side, device, dtype,
     assert resolve_recip_method(spec, dtype, torch.device(device)) == want
     pinned = dataclasses.replace(spec, recip_method="pme")
     assert resolve_recip_method(pinned, dtype, torch.device(device)) == "pme"
+
+
+def _reciprocal_energy_uncached(positions, q, box, alpha, kmax, method):
+    """reciprocal_energy as it was before the k grid's tensors were kept:
+    every constant built from the NumPy grid inside the call."""
+    import math
+
+    from chargeflux_tpu_torch.ops.structure_factor import (structure_factor,
+                                                           xy_tables)
+    from chargeflux_tpu_torch.pairs import (box_volume, frac_coords,
+                                            reciprocal_metric)
+    from chargeflux_tpu_torch.units import ONE_4PI_EPS0
+
+    dtype = positions.dtype
+    nx, ny, nz, w = ewald.kvector_grid(kmax)
+    frac = frac_coords(positions, box)
+    frac = frac - torch.floor(frac).detach()
+    tabs = []
+    for axis, n in enumerate((nx, ny, nz)):
+        ph = (2.0 * math.pi * frac[:, axis:axis + 1]
+              * torch.as_tensor(n, dtype=dtype)[None, :])
+        tabs += [torch.cos(ph), torch.sin(ph)]
+    cx, sx, cy, sy, cz, sz = tabs
+    cz_sz = torch.cat([cz, sz], dim=1)
+    if method == "pallas":
+        a, b = structure_factor(cx.T.contiguous(), sx.T.contiguous(),
+                                cy.T.contiguous(), sy.T.contiguous(),
+                                (q[:, None] * cz_sz).contiguous())
+    else:
+        cxy, sxy = xy_tables(cx.T, sx.T, cy.T, sy.T)
+        a, b = (cxy * q) @ cz_sz, (sxy * q) @ cz_sz
+    s_cos, s_sin = ewald.assemble(a, b, len(nz))
+    g = torch.diagonal(reciprocal_metric(box, dtype))
+
+    def sq(v):
+        return torch.as_tensor(v * v, dtype=dtype)
+
+    k2 = (g[0] * sq(nx)[:, None, None] + g[1] * sq(ny)[None, :, None]
+          + g[2] * sq(nz)[None, None, :]).reshape(len(nx) * len(ny), len(nz))
+    k2_safe = torch.where(k2 > 0, k2, 1.0)
+    eak = torch.exp(-k2_safe * (0.25 / (alpha * alpha))) / k2_safe
+    wk = torch.as_tensor(w.reshape(k2.shape), dtype=dtype) * eak
+    const = 4.0 * math.pi * ONE_4PI_EPS0 / box_volume(box)
+    return const * torch.sum(wk * (s_cos * s_cos + s_sin * s_sin))
+
+
+@pytest.mark.parametrize("dtype, method", [(torch.float64, "xla"),
+                                           (torch.float32, "xla"),
+                                           (torch.float32, "pallas")],
+                         ids=["f64-xla", "f32-xla", "f32-pallas"])
+def test_kept_k_grid_tensors_change_no_bit(dtype, method, monkeypatch):
+    """reciprocal_energy with the k grid's tensors kept per (kmax, dtype,
+    device) equals, bit for bit, the form that built them from the NumPy
+    grid in every call, in the energy and in dE/dx, dE/dq on seeded inputs;
+    and only the first call reads the NumPy grid."""
+    rng = np.random.default_rng(11)
+    n, kmax, alpha = 60, (3, 4, 5), 2.7
+    box = torch.tensor([1.7, 1.9, 2.1], dtype=dtype)
+    pos = torch.as_tensor(rng.uniform(-0.5, 2.5, (n, 3))).to(dtype)
+    charge = torch.as_tensor(rng.standard_normal(n)).to(dtype)
+
+    def run(fn, **kw):
+        x = pos.clone().requires_grad_(True)
+        q = charge.clone().requires_grad_(True)
+        e = fn(x, q, box, alpha, kmax, method=method, **kw)
+        return (e.detach(), *torch.autograd.grad(e, (x, q)))
+
+    want = run(_reciprocal_energy_uncached)
+    ewald._kgrid_cached.cache_clear()
+    calls = []
+    grid_fn = ewald.kvector_grid
+    monkeypatch.setattr(ewald, "kvector_grid",
+                        lambda k: calls.append(k) or grid_fn(k))
+    first, second = run(ewald.reciprocal_energy), run(ewald.reciprocal_energy)
+    assert calls == [kmax]
+    for got in (first, second):
+        for u, v in zip(got, want):
+            assert torch.equal(u, v)
+    kept = ewald.kgrid_tensors(kmax, dtype, "cpu")
+    assert kept is ewald.kgrid_tensors(list(kmax), dtype, torch.device("cpu"))
+    assert kept.w.shape == (kmax[0] * (2 * kmax[1] - 1), 2 * kmax[2] - 1)
+    assert all(t.dtype == dtype for t in (*kept.n, *kept.sq, kept.w))

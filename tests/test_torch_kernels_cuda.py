@@ -22,7 +22,7 @@ from chargeflux_tpu_torch.ops import pme_spread as ps
 from chargeflux_tpu_torch.ops import structure_factor as sf
 from chargeflux_tpu_torch.utils.measure import dense_path
 
-from torch_helpers import lattice_blocks, untemplated
+from torch_helpers import KERNEL_LIMITS, lattice_blocks, untemplated
 
 pytestmark = pytest.mark.cuda
 
@@ -415,6 +415,118 @@ def test_structure_factor_backward_kernels_at_tile_edges(kx, ky, kz2, n):
             assert u.shape == w.shape
             assert torch.equal(u, v)
             assert _max_rel(u, w) <= 2e-5
+
+
+def _sf_edge_tables(kx, ky, kz2, n, dev, offset=0):
+    """Seeded random tables in [-1, 1); with ``offset`` each is a view
+    ``offset`` floats into its allocation (contiguous, but its pointer only
+    4-byte aligned)."""
+    g = torch.Generator(dev).manual_seed(1000 * kx + 7 * ky + n)
+
+    def rand(rows, cols):
+        flat = torch.rand(rows * cols + offset, device=dev, generator=g)
+        return (flat * 2.0 - 1.0)[offset:].view(rows, cols)
+
+    return (rand(kx, n), rand(kx, n), rand(ky, n), rand(ky, n),
+            rand(n, kz2))
+
+
+# (id, Kx, Ky, 2Kz, N, pointer offset); Kx 140 and Kx 70 put 140 and 70
+# tiles against the plan's target of 132 blocks: one split and two
+SF_FWD_EDGES = [
+    ("kx1", 1, 13, 26, 100, 0),
+    ("ky1", 4, 1, 10, 33, 0),
+    ("limits-ky63-2kz126", 3, 63, 126, 200, 0),
+    ("limits-ky64-2kz128", 2, 64, 128, 70, 0),
+    ("2kz2", 3, 5, 2, 50, 0),
+    ("n1", 3, 5, 6, 1, 0),
+    ("n5", 7, 13, 26, 5, 0),
+    ("chunk-minus-1", 140, 13, 26, 127, 0),
+    ("chunk-plus-1", 140, 13, 26, 129, 0),
+    ("split-minus-1", 7, 13, 26, 2431, 0),
+    ("split-exact", 7, 13, 26, 2432, 0),
+    ("split-plus-1", 7, 13, 26, 2433, 0),
+    ("one-split-6-chunks", 140, 13, 26, 648, 0),
+    ("one-split-by-tiles", 70, 63, 126, 70, 0),
+    ("two-splits", 70, 13, 26, 648, 0),
+    ("tall-narrow-tile", 20, 63, 6, 900, 0),
+    ("n-even-pairs", 3, 5, 6, 34, 0),
+    ("2kz-odd", 2, 3, 5, 17, 0),
+    ("misaligned-n648", 7, 13, 26, 648, 1),
+    ("misaligned-by-8", 7, 13, 26, 648, 2),
+]
+
+
+@pytest.mark.parametrize("case", SF_FWD_EDGES, ids=[c[0] for c in SF_FWD_EDGES])
+def test_structure_factor_forward_kernel_edge_cases(case):
+    """The forward kernel against its plain version at the edges of its
+    launch plan: Kx 1, Ky 1, the Ky / 2Kz limits (ky rows in groups), 2Kz 2,
+    one atom, fewer atoms than splits could take, one atom under and over
+    a chunk and a split boundary (2432 = 8 splits of 304), plans of one
+    split (a long chunk loop; enough tiles), of two and of eight, the
+    tallest tile a block takes (32 ky rows), copies of 16, 8 and 4 bytes (N a multiple of 4, of 2, odd; odd 2Kz; table
+    pointers off 16-byte alignment).  A and B within 1e-5 of max |plain|;
+    three launches in a row give equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, kx, ky, kz2, n, offset = case
+    dev = torch.device("cuda", 0)
+    tabs = _sf_edge_tables(kx, ky, kz2, n, dev, offset)
+    assert all(t.is_contiguous() for t in tabs)
+    if offset:
+        assert all(t.data_ptr() % 16 != 0 for t in tabs)
+    plan = sf.plan_forward(kx, ky, kz2, n, sf.forward_limits())
+    if name.startswith(("one-split", "chunk-")):
+        assert plan.n_splits == 1
+    if name.startswith("split-"):
+        assert plan.n_splits == 8 and plan.split_len in (304, 308)
+    if name == "two-splits":
+        assert plan.n_splits == 2
+    n0 = ops.launch_counts()["sf_fwd"]
+    k1, k2, k3 = (sf.sf_fwd(*tabs) for _ in range(3))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sf_fwd"] == n0 + 3
+    for u, v, w, want in zip(k1, k2, k3, sf.sf_fwd_plain(*tabs)):
+        assert u.shape == want.shape
+        assert torch.equal(u, v) and torch.equal(u, w)
+        assert _max_rel(u, want) <= 1e-5
+
+
+def test_kernel_limits_table_matches_the_built_library():
+    """The limits the CPU tests plan and gate with (the sum order they
+    replay is the built kernel's only while these agree) are the ones the
+    CUDA sources compile in."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    for name, want in KERNEL_LIMITS.items():
+        assert native.limits(name, len(want)) == want
+
+
+def test_structure_factor_forward_replays_in_a_cuda_graph(sf_inputs):
+    """The wrapper captured into a CUDA graph and replayed three times
+    gives the eager call's bits each time (the launch keeps no state and
+    needs no scratch; the outputs are cleared between replays)."""
+    tabs, _ = sf_inputs
+    eager = sf.sf_fwd(*tabs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sf.sf_fwd(*tabs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sf.sf_fwd(*tabs)
+    for _ in range(3):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for u, v in zip(out, eager):
+            assert torch.equal(u, v)
+    again = sf.sf_fwd(*tabs)
+    for u, v in zip(again, eager):
+        assert torch.equal(u, v)
 
 
 def test_structure_factor_wrappers_refuse_what_the_kernels_do_not_take(

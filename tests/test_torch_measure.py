@@ -221,3 +221,16 @@ def test_drifted_blocks_small_box():
     e, g, dq = direct_walk_plain(*args)
     assert torch.isfinite(e) and torch.isfinite(g).all()
     assert not g[:, ~real].any() and not dq[~real].any()
+
+
+def test_sf_tables_are_the_216_path_shapes():
+    """The tables the structure-factor kernels are timed at, built on the
+    CPU: the 216 path's Kx 7, Ky 13, 2Kz 26, N 648, f32, contiguous, in the
+    kernels' layouts, from a dense system with kmax (7, 7, 7)."""
+    tabs, system = measure.sf_tables("216", torch.device("cpu"))
+    assert measure.sf_dims(tabs) == dict(kx=7, ky=13, kz2=26, n=648)
+    assert system.spec.kmax == (7, 7, 7)
+    assert [tuple(t.shape) for t in tabs] == [(7, 648), (7, 648), (13, 648),
+                                              (13, 648), (648, 26)]
+    assert all(t.dtype == torch.float32 and t.is_contiguous() for t in tabs)
+    assert set(measure.SF_SHAPES) == {"216", "4k"}

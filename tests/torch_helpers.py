@@ -17,12 +17,15 @@ from chargeflux_tpu_torch.system import ARRAY_FIELDS, system_from_arrays
 
 # The kernels' compile-time limits, as ``ops.native.limits`` reads them
 # from the built library: kMaxWy, kMaxOrder, kMaxWx (pme_spread.cu);
-# kMaxCoef, kMaxCap (direct_walk.cu); kMaxKy, kMaxKz2, the
-# forward's atom chunk (structure_factor.cu).  Building needs nvcc, so
-# tests that ask for them without a card use these values.
+# kMaxCoef, kMaxCap (direct_walk.cu); kMaxKy, kMaxKz2 and the forward's
+# plan inputs (``ops.structure_factor.ForwardLimits``: atom chunk, most
+# threads per block, most splits, most ky rows per block, micro-tile rows
+# and columns, most threads per micro-tile; structure_factor.cu).  Building
+# needs nvcc, so tests that ask for them without a card use these values;
+# a test on the card holds this table to the built library.
 KERNEL_LIMITS = {"cf_spread_limits": (32, 16, 36),
                  "cf_walk_limits": (16, 1024),
-                 "cf_sf_limits": (64, 128, 64)}
+                 "cf_sf_limits": (64, 128, 128, 256, 8, 32, 2, 4, 16)}
 
 
 def fake_kernel_limits(monkeypatch):
