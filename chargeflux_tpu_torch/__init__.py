@@ -8,7 +8,8 @@ charges, the fused direct walk (CUDA kernel), the exclusion correction,
 the cell-column PME spread (CUDA kernels, forward and backward), cuFFT),
 the dense periodic route with classical Ewald (CUDA structure-factor
 kernels) and the non-periodic all-pairs route, harmonic water bonds and
-angles, and NVE with neighbor-state reuse.  ROADMAP.md lists what is
+angles, and NVE (with or without neighbor-state reuse), each trajectory
+chunk replayed as one CUDA graph on the card.  ROADMAP.md lists what is
 still to port.
 """
 
@@ -16,14 +17,19 @@ from .system import ChargeFluxSystem, CoulForce, StaticSpec, system_from_arrays
 from .charges import effective_charges
 from .energy import energy_and_forces, energy_components
 from .bonded import BondedParams, bonded_energy
-from .integrate import (init_state_nb, kinetic_energy, make_nb_energy_fn,
-                        nve_step_nb, nve_trajectory_nb)
+from .integrate import (MDState, MDStateNB, init_state, init_state_nb,
+                        kinetic_energy, make_energy_fn, make_nb_energy_fn,
+                        maxwell_velocities, nve_step, nve_step_nb,
+                        nve_trajectory, nve_trajectory_nb, remove_com_motion,
+                        temperature)
 from .units import BOLTZ, ONE_4PI_EPS0
 
 __all__ = [
     "ChargeFluxSystem", "CoulForce", "StaticSpec", "system_from_arrays",
     "effective_charges", "energy_and_forces", "energy_components",
     "BondedParams", "bonded_energy",
-    "init_state_nb", "kinetic_energy", "make_nb_energy_fn", "nve_step_nb",
-    "nve_trajectory_nb", "ONE_4PI_EPS0", "BOLTZ",
+    "MDState", "MDStateNB", "init_state", "init_state_nb", "kinetic_energy",
+    "make_energy_fn", "make_nb_energy_fn", "maxwell_velocities", "nve_step",
+    "nve_step_nb", "nve_trajectory", "nve_trajectory_nb", "remove_com_motion",
+    "temperature", "ONE_4PI_EPS0", "BOLTZ",
 ]

@@ -1,8 +1,8 @@
 """Fixed-capacity cell list for the periodic direct-space sum (torch
 counterpart of ``chargeflux_tpu.cells``).
 
-* Binning (:func:`build_cell_list_full`) is a stable counting sort on the
-  cell id: within a cell, atoms sit in increasing atom id, which is the
+* Binning (:func:`build_cell_list_full`) is a stable sort on the cell
+  id: within a cell, atoms sit in increasing atom id, which is the
   slot layout of the JAX package's one-hot ranking, so the two agree slot
   for slot whenever no cell overflows.  Overflow drops atoms past the
   capacity and is counted (the energy path NaN-poisons on it).
@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .device import constant
 from .ops.direct_walk import direct_walk, direct_walk_plain
 from .pairs import frac_coords
 
@@ -93,8 +94,9 @@ def half_shell_tables(grid):
 
 
 def rank_into_slots(cell: torch.Tensor, n_cells: int, capacity: int):
-    """Place atom i into a slot of cell ``cell[i]`` by a stable counting
-    sort (rank = number of lower-id atoms in the same cell).
+    """Place atom i into a slot of cell ``cell[i]`` by a stable sort (rank
+    = number of lower-id atoms in the same cell).  No step reads a device
+    value on the host, so a CUDA graph can capture it.
 
     Returns (slots [n_cells, capacity] int32 atom ids, sentinel N;
     slot_of [N] int32 flat slot per atom, sentinel n_cells*capacity;
@@ -105,8 +107,9 @@ def rank_into_slots(cell: torch.Tensor, n_cells: int, capacity: int):
     sentinel = n_cells * capacity
     order = torch.sort(cell, stable=True).indices
     sorted_cell = cell[order]
-    counts = torch.bincount(cell, minlength=n_cells)
-    starts = torch.cumsum(counts, 0) - counts
+    # each cell's first sorted position, from the sorted ids themselves
+    # (torch.bincount on the card reads the ids' range back to the host)
+    starts = torch.searchsorted(sorted_cell, torch.arange(n_cells, device=dev))
     rank = torch.arange(n, device=dev) - starts[sorted_cell]
     ok = rank < capacity
     slot = torch.where(ok, sorted_cell * capacity + rank, sentinel)
@@ -127,13 +130,12 @@ def build_cell_list_full(positions: torch.Tensor, box: torch.Tensor, grid,
     [scalar int32]).  Cell indices are computed with the JAX package's
     float ops (fractional coordinate, wrap, scale, truncate, clip)."""
     gx, gy, gz = grid
-    gvec = torch.tensor(grid, dtype=positions.dtype, device=positions.device)
+    dev = positions.device
     frac = frac_coords(positions, box)
     frac = frac - torch.floor(frac)
-    ci = (frac * gvec).to(torch.int32)
+    ci = (frac * constant(grid, positions.dtype, dev)).to(torch.int32)
     ci = torch.minimum(torch.clamp(ci, min=0),
-                       torch.tensor([gx - 1, gy - 1, gz - 1], dtype=torch.int32,
-                                    device=positions.device))
+                       constant((gx - 1, gy - 1, gz - 1), torch.int32, dev))
     cell = ((ci[:, 0] * gy + ci[:, 1]) * gz + ci[:, 2]).long()
     return rank_into_slots(cell, gx * gy * gz, capacity)
 

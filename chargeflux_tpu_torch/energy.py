@@ -45,6 +45,7 @@ import torch
 
 from . import cells
 from .charges import effective_charges
+from .device import constant
 from .ewald import reciprocal_energy, self_energy
 from .ops.erfc import erf_over_r_eval, erfc_fast
 from .ops.structure_factor import kernels_take_grid
@@ -206,14 +207,12 @@ def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
     blocks = cells.blockify(positions, q, system, slots, inv_slot, wrap=wrap)
     ids = slots.reshape(blocks.x.shape)
     e_dir = cells.direct_energy_on_blocks(blocks, ids, system, plain=plain)
-    grid = torch.tensor(spec.cell_grid, dtype=dtype, device=dev)
+    grid = constant(spec.cell_grid, dtype, dev)
     bad = (overflow > 0) | torch.any(plane_widths(system.box) / grid
                                      < spec.cutoff)
     if nb is not None and recip == "pme":
-        h = plane_widths(system.box) / torch.tensor(
-            spec.pme_grid, dtype=dtype, device=dev)
-        budget = torch.min(torch.tensor(
-            spec.pme_slack, dtype=dtype, device=dev) * h)
+        h = plane_widths(system.box) / constant(spec.pme_grid, dtype, dev)
+        budget = torch.min(constant(spec.pme_slack, dtype, dev) * h)
         d = positions.detach() - nb.x_ref
         max_d2 = torch.max(torch.sum(d * d, dim=-1))
         bad = bad | (max_d2 > budget * budget)

@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .device import device_key
 from .ops.structure_factor import structure_factor, xy_tables
 from .pairs import box_volume, frac_coords, reciprocal_metric
 from .units import ONE_4PI_EPS0, SQRT_PI
@@ -59,7 +60,7 @@ class KGridTensors(NamedTuple):
     w: torch.Tensor
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=None)
 def _kgrid_cached(kmax, dtype, device) -> KGridTensors:
     axes = kvector_grid(kmax)
 
@@ -73,14 +74,13 @@ def _kgrid_cached(kmax, dtype, device) -> KGridTensors:
 
 def kgrid_tensors(kmax, dtype, device) -> KGridTensors:
     """The k grid's constant tensors, copied to ``device`` once per (kmax,
-    dtype, device) and kept (the 16 last used): an energy evaluation makes
-    no host-to-device copy for them.  They are shared: do not write to
-    them.  The first call for a key does copy, so make it before a CUDA
-    graph capture of the evaluation, not inside one."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:   # one key per card
-        device = torch.device("cuda", torch.cuda.current_device())
-    return _kgrid_cached(tuple(int(k) for k in kmax), dtype, device)
+    dtype, device) and kept, as ``device.constant`` keeps its tensors: an
+    energy evaluation makes no host-to-device copy for them.  They are
+    shared: do not write to them.  The first call for a key does copy, so
+    make it before a CUDA graph capture of the evaluation, not inside
+    one."""
+    return _kgrid_cached(tuple(int(k) for k in kmax), dtype,
+                         device_key(device))
 
 
 def phase_tables(positions, box, kmax):

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .cells import build_cell_list_full, wrap_offsets
+from .device import constant
 from .pairs import plane_widths
 from .system import box_widths
 
@@ -34,8 +35,7 @@ class NeighborState:
 def skin_radius(system) -> torch.Tensor:
     """Free skin: smallest cell plane spacing minus the cutoff (>= 0)."""
     spec = system.spec
-    grid = torch.tensor(spec.cell_grid, dtype=system.box.dtype,
-                        device=system.box.device)
+    grid = constant(spec.cell_grid, system.box.dtype, system.box.device)
     return torch.clamp(torch.min(plane_widths(system.box) / grid)
                        - spec.cutoff, min=0.0)
 

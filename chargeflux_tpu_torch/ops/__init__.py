@@ -4,10 +4,16 @@ version: ``pme_spread`` (counterpart of ``chargeflux_tpu.ops.pallas_pme``),
 ``direct_walk`` (of the JAX package's fused cell walk), and ``native``,
 which builds and loads them."""
 
+import contextlib
+
 from . import direct_walk, pme_spread, structure_factor
 
-_TABLES = (pme_spread.LAUNCHES, direct_walk.LAUNCHES,
-           structure_factor.LAUNCHES)
+_MODULES = (pme_spread, direct_walk, structure_factor)
+_TABLES = tuple(m.LAUNCHES for m in _MODULES)
+
+#: Per launch counter, the kernel its wrapper launches once per call, as a
+#: profiler trace names it.
+KERNEL_SYMBOLS = {k: v for m in _MODULES for k, v in m.SYMBOLS.items()}
 
 
 def launch_counts() -> dict:
@@ -16,6 +22,32 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
+    _set_counts(dict.fromkeys(launch_counts(), 0))
+
+
+def _set_counts(counts: dict):
     for table in _TABLES:
         for k in table:
-            table[k] = 0
+            table[k] = counts[k]
+
+
+def add_launches(counts: dict):
+    """Add ``counts`` (wrapper name -> launches) to the counts: a CUDA graph
+    replay launches what its capture counted."""
+    _set_counts({k: v + counts.get(k, 0) for k, v in launch_counts().items()})
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """For a CUDA graph capture: the wrappers count at capture, where no
+    kernel runs.  Yields a dict that holds, on exit, the launches counted
+    inside (wrapper name -> launches), and leaves the counts as they were
+    before; each replay then adds that dict with :func:`add_launches`."""
+    before = launch_counts()
+    captured = {}
+    try:
+        yield captured
+    finally:
+        captured.update({k: v - before[k]
+                         for k, v in launch_counts().items()})
+        _set_counts(before)

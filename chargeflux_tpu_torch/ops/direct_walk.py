@@ -26,11 +26,14 @@ from functools import lru_cache
 import torch
 
 from . import native
+from ..device import constant
 from .erfc import erf_over_r_coeffs, erf_over_r_eval
 from ..units import ONE_4PI_EPS0
 
 #: Kernel launches since the last reset.
 LAUNCHES = {"direct_walk": 0}
+#: The kernel it counts, as a profiler trace names it.
+SYMBOLS = {"direct_walk": "direct_walk_kernel"}
 
 
 def _crossing(n: int, d: int, dtype, device):
@@ -115,19 +118,15 @@ def direct_walk_plain(x, y, z, q, hs, se, ids, box, n_atoms: int,
     return e, torch.stack(g), dq
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=None)
 def _tables(grid, device):
+    """The walk's neighbor and image tables, kept per (grid, device) as
+    ``device.constant`` keeps its tensors."""
     from ..cells import full_shell_tables
 
     nbr, img = full_shell_tables(grid)
     return (torch.as_tensor(nbr, device=device).contiguous(),
             torch.as_tensor(img, dtype=torch.int32, device=device).contiguous())
-
-
-@lru_cache(maxsize=16)
-def _coef_tensor(alpha, cutoff, device):
-    return torch.tensor(erf_over_r_coeffs(alpha, cutoff), dtype=torch.float32,
-                        device=device)
 
 
 def _refusal(named, shape, alpha: float, cutoff: float):
@@ -177,7 +176,8 @@ def direct_walk(x, y, z, q, hs, se, ids, box, n_atoms: int, alpha: float,
         raise ValueError("direct walk kernel: ids must be contiguous int32 in "
                          "the block shape, on the device of the blocks")
     gx, gy, gz, cap = shape
-    coef = _coef_tensor(float(alpha), float(cutoff), x.device)
+    coef = constant(erf_over_r_coeffs(float(alpha), float(cutoff)),
+                    torch.float32, x.device)
     n_cells = gx * gy * gz
     nbr, img = _tables((gx, gy, gz), x.device)
     e_part = torch.empty((n_cells,), dtype=torch.float32, device=x.device)

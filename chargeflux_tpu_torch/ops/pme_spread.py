@@ -13,15 +13,18 @@ only).
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import torch
 import torch.nn.functional as F
 
 from . import native
+from ..device import constant
 
 #: Kernel launches since the last reset, per wrapper.
 LAUNCHES = {"spread_fwd": 0, "spread_bwd": 0}
+#: Per wrapper, the kernel it counts, as a profiler trace names it (the
+#: forward's second kernel, the fold, is not counted).
+SYMBOLS = {"spread_fwd": "spread_patch_kernel",
+           "spread_bwd": "spread_bwd_kernel"}
 
 
 def _placements(zorg, order: int, gz: int):
@@ -76,11 +79,6 @@ def spread_bwd_plain(qwlxt, wlyt, wzt, zorg, offsets, ct):
     d_qwlxt = torch.sum(d_a2 * wlyt[:, None, :, :], dim=2)
     d_wlyt = torch.sum(d_a2 * qwlxt[:, :, None, :], dim=1)
     return d_qwlxt, d_wlyt, d_wzt.contiguous()
-
-
-@lru_cache(maxsize=16)
-def _offsets_tensor(offsets, device):
-    return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
 def _refusal(named, wx: int, wyp: int, order: int, gz=None):
@@ -154,7 +152,7 @@ def spread_fwd(qwlxt, wlyt, wzt, zorg, offsets, pad_xy):
     qpad = torch.empty((px, py, gz), dtype=torch.float32, device=dev)
     err = native.library().cf_spread_fwd(
         *(t.data_ptr() for t in (qwlxt, wlyt, wzt, zorg,
-                                 _offsets_tensor(offsets, dev), scratch,
+                                 constant(offsets, torch.int32, dev), scratch,
                                  qpad)),
         n_col, wx, wyp, order, rows, px, py, gz, native.stream_ptr(qwlxt))
     native.check(err, "cf_spread_fwd")
@@ -176,7 +174,7 @@ def spread_bwd(qwlxt, wlyt, wzt, zorg, offsets, ct):
     d_wzt = torch.empty_like(wzt)
     err = native.library().cf_spread_bwd(
         *(t.data_ptr() for t in (qwlxt, wlyt, wzt, zorg,
-                                 _offsets_tensor(offsets, qwlxt.device), ct,
+                                 constant(offsets, torch.int32, qwlxt.device), ct,
                                  d_qwlxt, d_wlyt, d_wzt)),
         n_col, wx, wyp, order, rows, py, gz, native.stream_ptr(qwlxt))
     native.check(err, "cf_spread_bwd")

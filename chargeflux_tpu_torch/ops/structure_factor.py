@@ -37,6 +37,9 @@ from . import native
 
 #: Kernel launches since the last reset, per wrapper.
 LAUNCHES = {"sf_fwd": 0, "sf_bwd_tables": 0, "sf_bwd_zq": 0}
+#: Per wrapper, the kernel it counts, as a profiler trace names it.
+SYMBOLS = {"sf_fwd": "sf_fwd_kernel", "sf_bwd_tables": "sf_bwd_tables_kernel",
+           "sf_bwd_zq": "sf_bwd_zq_kernel"}
 
 #: Blocks the forward launch aims for: it cuts the ky rows into groups and
 #: the atoms into splits until it has them, where the shapes allow.  A

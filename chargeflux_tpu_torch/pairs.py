@@ -96,7 +96,10 @@ def pair_matrix_mask(n: int, exclusions: torch.Tensor) -> torch.Tensor:
     if exclusions.shape[0] > 0:
         p1, p2 = exclusions[:, 0], exclusions[:, 1]
         excl = torch.zeros((n, n), dtype=torch.bool, device=exclusions.device)
-        excl[p1, p2] = True
-        excl[p2, p1] = True
+        # a device tensor of True, not a Python True (which a CUDA index_put
+        # copies from the host on every call)
+        true = torch.ones_like(p1, dtype=torch.bool)
+        excl.index_put_((p1, p2), true)
+        excl.index_put_((p2, p1), true)
         mask = mask & ~excl
     return mask

@@ -21,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .device import constant, device_key
 from .ops.pme_spread import fold_padded_axis, spread_columns
 from .pairs import box_volume
 from .units import ONE_4PI_EPS0
@@ -107,10 +108,12 @@ def _bspline_dft_sq(grid_n: int, order: int) -> np.ndarray:
     return 1.0 / np.maximum(np.abs(denom) ** 2, 1e-300)
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=None)
 def _influence_static(grid, order, dtype, device):
     """Box-independent factors of the influence function: signed integer
-    frequencies, the origin mask and the B-spline/half-space weights."""
+    frequencies, the origin mask and the B-spline/half-space weights
+    (kept per (grid, order, dtype, device), as ``device.constant`` keeps
+    its tensors)."""
     gx, gy, gz = grid
 
     def ifreqs(n):
@@ -141,7 +144,7 @@ def influence_function(grid, box: torch.Tensor, alpha: float, order: int,
         raise NotImplementedError("triclinic PME is not ported yet "
                                   "(ROADMAP.md)")
     fx, fy, fz, origin, static = _influence_static(
-        tuple(grid), order, dtype, box.device)
+        tuple(grid), order, dtype, device_key(box.device))
     two_pi = 2.0 * math.pi
     kx = (two_pi * fx / box[0])[:, None, None]
     ky = (two_pi * fy / box[1])[None, :, None]
@@ -180,7 +183,7 @@ def _cell_patch_weights(coord, n_cells, grid_n, length, extra, cell_axis,
     w = _patch_width(n_cells, grid_n, order, extra)
     shape = [1, 1, 1, 1, 1]
     shape[cell_axis] = n_cells
-    base = torch.as_tensor(org, device=coord.device).to(dtype).reshape(shape)
+    base = constant(org.tolist(), dtype, coord.device).reshape(shape)
     if transposed:
         j = torch.arange(w, device=coord.device).to(dtype).reshape(
             1, 1, w, 1, 1)

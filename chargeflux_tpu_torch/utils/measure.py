@@ -12,14 +12,19 @@ rest, as the JAX package's ``bench.py 216`` does; it has no neighbor state,
 and its "rebuild chunks" are 10 steps.  Run from the root of a checkout;
 each prints the card's name and power limit first.
 
-``profile``: ms/step of the kernel path and of the plain path
-(``plain=True``) from CUDA events, samples in the order kernel, plain,
-plain, kernel, each two rebuild chunks from the same start state; on the
-30k path the ms of one neighbor rebuild (the plain-torch binning).  Then one
-``torch.profiler`` window over the kernel path: the device-busy time
-(union of the device events' intervals), the window's wall time on the
-host clock, and the idle share ``1 - busy / wall`` of that one window,
-once with CUDA activity only and once with CPU and CUDA activity.
+``profile``: ms/step from CUDA events of the kernel path replayed as CUDA
+graphs (each rebuild chunk one replay), of the same run eagerly
+(``graph=False``) and of the plain path's replays (``plain=True``),
+samples in the order graph, eager, plain, plain, eager, graph, each ten
+rebuild chunks from the same start state (the graphs are captured before
+the first sample), then the captured chunk alone, ten replays back to
+back; on the 30k path the ms of one eager neighbor rebuild (the
+plain-torch binning).  Then ``torch.profiler`` windows of two chunks over
+the kernel path: the device-busy time (union of the device events'
+intervals), the window's wall time on the host clock, and the idle share
+``1 - busy / wall`` of that window, over two replays with CUDA activity
+only and with CPU and CUDA activity, and over an eager trajectory (with
+its eager final evaluation).
 
 ``f64``: 200 NVE steps of the f32 kernel path beside 200 of the plain f64
 path from one start state: ms/step, net drift, max and RMS of ``E - E0``.
@@ -350,6 +355,26 @@ def drifted_blocks(system, state, e_fn, masses, n_steps: int):
             spec.cutoff), info
 
 
+def device_events(events) -> list:
+    """The device-side events of a ``torch.profiler`` trace."""
+    return [e for e in events
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+def traced_launches(events) -> dict:
+    """Per launch counter, the device events of its wrapper's kernel
+    (``ops.KERNEL_SYMBOLS``) in a profiler trace."""
+    from .. import ops
+
+    pats = {k: re.compile(rf"\b{sym}\b")
+            for k, sym in ops.KERNEL_SYMBOLS.items()}
+    counts = dict.fromkeys(pats, 0)
+    for e in device_events(events):
+        for k, pat in pats.items():
+            counts[k] += bool(pat.search(e.name))
+    return counts
+
+
 def union_length(intervals) -> float:
     """Length of the union of (start, end) intervals, in their unit."""
     total, cur_s, cur_e = 0.0, None, None
@@ -365,41 +390,98 @@ def union_length(intervals) -> float:
     return total
 
 
-def _timed_run(state, e_fn, init_nb, masses, n_steps, rebuild_every):
+def _timed_run(state, e_fn, init_nb, masses, n_steps, rebuild_every,
+               graph: bool = True):
+    """(ms/step from CUDA events around one trajectory call, its per-step
+    total energies)."""
     from ..integrate import nve_trajectory_nb
 
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     a.record()
     _, es = nve_trajectory_nb(state, e_fn, init_nb, masses, DT_PS, n_steps,
-                              rebuild_every)
+                              rebuild_every, graph=graph)
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n_steps, es
 
 
-def profile(system, state, rebuild_every, masses, bonded):
-    from torch.profiler import ProfilerActivity
+def window(run, n_steps: int, activities) -> dict:
+    """One ``torch.profiler`` window over ``run()``: per step, the host
+    wall time, the device busy time (union of the device events'
+    intervals), the device events, and the idle share ``1 - busy / wall``;
+    with the trace's device events."""
     from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof.events())
+    if not events:
+        return {"events": []}
+    busy = union_length([(e.time_range.start, e.time_range.end)
+                         for e in events]) / 1e3
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) / 1e3
+    return {"events": events, "wall": wall / n_steps, "busy": busy / n_steps,
+            "per_step": len(events) / n_steps, "span": span / n_steps,
+            "idle": 1 - busy / wall, "idle_span": 1 - busy / span}
+
+
+def profile(system, state, rebuild_every, masses, bonded):
+    """ms/step of the kernel path replayed as CUDA graphs, the same run
+    eagerly (``graph=False``) and the plain path's replays; then profiler
+    windows over the replays and over the eager run."""
+    from torch.profiler import ProfilerActivity
 
     from ..integrate import make_nb_energy_fn, nve_trajectory_nb
 
-    n_steps = 2 * rebuild_every
     fns = {p: make_nb_energy_fn(system, bonded=bonded, plain=p)
            for p in (False, True)}
-    times = {False: [], True: []}
-    for plain in (False, True, True, False):
+    n_steps = 10 * rebuild_every
+    variants = {"graph": (False, True), "eager": (False, False),
+                "plain graph": (True, True)}
+    for plain, graph in variants.values():
+        if graph:                       # capture, outside the timed runs
+            _timed_run(state, *fns[plain], masses, rebuild_every,
+                       rebuild_every)
+    times = {v: [] for v in variants}
+    order = list(variants)
+    for name in order + order[::-1]:
+        plain, graph = variants[name]
         ms, es = _timed_run(state, *fns[plain], masses, n_steps,
-                            rebuild_every)
+                            rebuild_every, graph)
         if not torch.isfinite(es).all():
-            raise RuntimeError("timed run NaN-poisoned")
-        times[plain].append(ms)
-    print(f"ms/step over {n_steps} steps (CUDA events, rebuild_every "
-          f"{rebuild_every}, incl. the final consistent-state evaluation): "
-          f"kernel path {['%.3f' % t for t in times[False]]} plain path "
-          f"{['%.3f' % t for t in times[True]]}", flush=True)
+            raise RuntimeError(f"timed run ({name}) NaN-poisoned")
+        times[name].append(ms)
+    print(f"ms/step over {n_steps} steps (CUDA events around the trajectory "
+          f"call, rebuild_every {rebuild_every}, incl. the eager final "
+          f"consistent-state evaluation): "
+          + "; ".join(f"{k} {['%.3f' % t for t in v]}"
+                      for k, v in times.items()), flush=True)
 
     e_fn, init_nb = fns[False]
+    # the captured chunk alone, replayed back to back on the state its
+    # last run left (no copy-in, no final evaluation)
+    chunk = next(c for c in e_fn.nve_chunks.values()
+                 if c.k == rebuild_every and c.graph is not None)
+
+    def replays(count):
+        for _ in range(count):
+            chunk()
+
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    replays(10)
+    b.record()
+    torch.cuda.synchronize()
+    print(f"replays alone: {a.elapsed_time(b) / n_steps:.3f} ms/step (CUDA "
+          f"events around 10 back-to-back replays of the {rebuild_every}-step "
+          f"chunk)", flush=True)
     if state.nb is not None:
         init_nb(state.positions)
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -412,46 +494,41 @@ def profile(system, state, rebuild_every, masses, bonded):
         bound = kernel_bound("binning", n_atoms=state.positions.shape[0],
                              n_slots=state.nb.slots.numel())
         print(f"neighbor rebuild: {a.elapsed_time(b) / 5:.3f} ms (CUDA "
-              f"events, mean of 5); the binning's bound "
+              f"events, mean of 5, eager); the binning's bound "
               f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: "
               f"{bound['bytes']} bytes)", flush=True)
 
-    for label, acts in (("CUDA only", [ProfilerActivity.CUDA]),
-                        ("CPU+CUDA", [ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA])):
-        with torch_profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            nve_trajectory_nb(state, e_fn, init_nb, masses, DT_PS, n_steps,
-                              rebuild_every)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        dev_events = [e for e in prof.events()
-                      if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        if not dev_events:
+    n_win = 2 * rebuild_every
+    cuda = [ProfilerActivity.CUDA]
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    runs = {"two replays": lambda: replays(2),
+            "eager trajectory": lambda: nve_trajectory_nb(
+                state, e_fn, init_nb, masses, DT_PS, n_win, rebuild_every,
+                graph=False)}
+    for label, run, acts in (("two replays, CUDA only", "two replays", cuda),
+                             ("two replays, CPU+CUDA", "two replays", both),
+                             ("eager trajectory incl. its final evaluation, "
+                              "CPU+CUDA", "eager trajectory", both)):
+        w = window(runs[run], n_win, acts)
+        if not w["events"]:
             print(f"profiler window ({label}): no device events recorded",
                   flush=True)
             continue
-        busy = union_length([(e.time_range.start, e.time_range.end)
-                        for e in dev_events]) / 1e3
-        span = (max(e.time_range.end for e in dev_events)
-                - min(e.time_range.start for e in dev_events)) / 1e3
-        print(f"profiler window ({label}), kernel path, {n_steps} steps: "
-              f"wall {wall / n_steps:.3f} ms/step (host clock); device busy "
-              f"{busy / n_steps:.3f} ms/step (union of "
-              f"{len(dev_events) / n_steps:.0f} device events per step); "
-              f"idle share {1 - busy / wall:.3f} of the wall, "
-              f"{1 - busy / span:.3f} of the device span "
-              f"{span / n_steps:.3f} ms/step", flush=True)
+        print(f"profiler window ({label}), kernel path, {n_win} steps: "
+              f"wall {w['wall']:.3f} ms/step "
+              f"(host clock); device busy {w['busy']:.3f} ms/step (union of "
+              f"{w['per_step']:.0f} device events per step); idle share "
+              f"{w['idle']:.3f} of the wall, {w['idle_span']:.3f} of the "
+              f"device span {w['span']:.3f} ms/step", flush=True)
         per_kernel = {}
-        for e in dev_events:
+        for e in w["events"]:
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + (e.time_range.end - e.time_range.start))
         ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])
         # the twelve largest, then the port's own kernels below them
         own = [kv for kv in ranked[12:] if PORT_KERNELS.search(kv[0])]
         for name, us in ranked[:12] + own:
-            print(f"  {us / 1e3 / n_steps:8.4f} ms/step  {name[:100]}",
+            print(f"  {us / 1e3 / n_win:8.4f} ms/step  {name[:100]}",
                   flush=True)
 
 

@@ -38,8 +38,14 @@ dense + classical-Ewald path (``bench.py 216``).  Phases, in order:
    neighbor state, where atoms have left their cells' nominal bounds;
    then 200 NVE steps with neighbor reuse;
 5b. the 216 path: 200 NVE steps from the lattice at rest;
-   in 5 and 5b the launch counts are reset just before the 200 steps and
-   each kernel of that path must have launched;
+   in 5 and 5b a trajectory runs each rebuild chunk as one CUDA graph
+   replay, as a user's does.  Before the 200 steps, the same start state
+   runs two chunks and a remainder chunk eagerly (``graph=False``, under
+   ``set_sync_debug_mode("error")`` once warm) and as replays: per-step
+   energies, final positions and velocities must be bit-equal, and both
+   ms/step are printed.  The launch counts are reset just before the 200
+   steps (whose graphs that check captured) and each kernel of that path
+   must have launched: a replay counts the launches its capture counted;
 6. a JSON line with each kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
@@ -290,6 +296,7 @@ def run_md(force, system0, x, masses, box):
         agree("direct_walk", lambda: dw.direct_walk(*walk_args),
               lambda: dw.direct_walk_plain(*walk_args), WALK_TOLS, where)
 
+    ms_eager, _ = check_chunks("5", s1, e_fn, init_nb, masses, rebuild_every)
     n_steps = N_STEPS
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -304,8 +311,9 @@ def run_md(force, system0, x, masses, box):
     es = es.double().cpu()
     e0 = float(s1.potential) + float(kinetic_energy(s1.velocities, masses))
     drift = float(es[-1]) - e0
-    print(f"phase 5 NVE: {n_steps} steps, {ms:.3f} ms/step (CUDA events, "
-          f"includes the final consistent-state evaluation); total energy "
+    print(f"phase 5 NVE: {n_steps} steps as CUDA graph replays, {ms:.3f} "
+          f"ms/step (CUDA events, includes the eager final consistent-state "
+          f"evaluation); total energy "
           f"{e0:.3f} -> {float(es[-1]):.3f} kJ/mol, drift {drift:.4f} "
           f"kJ/mol ({drift / x.shape[0]:.3e} per atom), max |E - E0| "
           f"{float((es - e0).abs().max()):.4f}; launches {launches}",
@@ -315,7 +323,65 @@ def run_md(force, system0, x, masses, box):
         fail("NVE run produced non-finite energies (NaN poison or blowup)")
     if int(final.nb.overflow) != 0:
         fail("binning overflow in the NVE run")
-    return check_launches(launches, "30k", lambda c: c > 0), ms
+    return check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager
+
+
+def check_chunks(phase, state, e_fn, init_nb, masses, rebuild_every):
+    """The same start state through two rebuild chunks and a remainder
+    chunk (the remainder of N_STEPS, so the counted run that follows finds
+    every graph it replays captured), eagerly (``graph=False``) and as
+    CUDA graph replays: per-step energies, final positions and velocities
+    bit-equal.  The eager run, once warm, runs under
+    ``set_sync_debug_mode("error")``: no step, rebuild or final evaluation
+    reads a device value on the host.  Returns the eager and the replayed
+    ms/step (CUDA events around the trajectory call, which include the
+    eager final consistent-state evaluation)."""
+    import torch
+
+    from chargeflux_tpu_torch.integrate import nve_trajectory_nb
+    from chargeflux_tpu_torch.utils.measure import DT_PS
+
+    rem = N_STEPS % rebuild_every or max(1, rebuild_every // 2)
+    n = 2 * rebuild_every + rem
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def run(graph):
+        a.record()
+        out = nve_trajectory_nb(state, e_fn, init_nb, masses, DT_PS, n,
+                                rebuild_every, graph=graph)
+        b.record()
+        return out
+
+    run(False)                                      # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = run(False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms_eager = a.elapsed_time(b) / n
+    first = run(True)                               # captures, then replays
+    torch.cuda.synchronize()
+    ms_capture = a.elapsed_time(b) / n
+    replay = run(True)
+    torch.cuda.synchronize()
+    ms_graph = a.elapsed_time(b) / n
+    same = all(torch.equal(u, v) for out in (first, replay) for u, v in (
+        (eager[1], out[1]), (eager[0].positions, out[0].positions),
+        (eager[0].velocities, out[0].velocities)))
+    print(f"phase {phase} chunks: {n} steps ({rebuild_every}-step chunks and "
+          f"a {rem}-step remainder), eager (graph=False, under "
+          f"set_sync_debug_mode('error')) {ms_eager:.3f} ms/step, first "
+          f"call (capture + replays) {ms_capture:.3f}, replays "
+          f"{ms_graph:.3f} ms/step (CUDA events, incl. the eager final "
+          f"evaluation); energies, positions and velocities bit-equal: "
+          f"{same}", flush=True)
+    if not torch.isfinite(eager[1]).all():
+        fail(f"phase {phase}: non-finite energies in the chunk check")
+    if not same:
+        fail(f"phase {phase}: graph replays differ from the eager chunks")
+    return ms_eager, ms_graph
 
 
 def check_launches(launches, path, ok):
@@ -414,6 +480,7 @@ def run_dense_md(x, masses, bonded, system):
 
     e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
     s0 = init_state_nb(x, torch.zeros_like(x), e_fn, init_nb)
+    ms_eager, _ = check_chunks("5b", s0, e_fn, init_nb, masses, 10)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -427,16 +494,18 @@ def run_dense_md(x, masses, bonded, system):
     es = es.double().cpu()
     e0 = float(s0.potential)
     drift = float(es[-1]) - e0
-    print(f"phase 5b dense NVE: {N_STEPS} steps of {x.shape[0]} atoms, "
-          f"{ms:.3f} ms/step (CUDA events, includes the final "
-          f"consistent-state evaluation); total energy {e0:.3f} -> "
+    print(f"phase 5b dense NVE: {N_STEPS} steps of {x.shape[0]} atoms as "
+          f"CUDA graph replays, {ms:.3f} ms/step (CUDA events, includes the "
+          f"eager final consistent-state evaluation); total energy "
+          f"{e0:.3f} -> "
           f"{float(es[-1]):.3f} kJ/mol, drift {drift:.4f} kJ/mol, max "
           f"|E - E0| {float((es - e0).abs().max()):.4f}; launches "
           f"{launches}", flush=True)
     if not (torch.isfinite(es).all() and math.isfinite(float(final.potential))
             and torch.isfinite(final.positions).all()):
         fail("dense NVE run produced non-finite energies")
-    return check_launches(launches, "216", lambda c: c == N_STEPS + 1), ms
+    return (check_launches(launches, "216", lambda c: c == N_STEPS + 1), ms,
+            ms_eager)
 
 
 def main():
@@ -487,13 +556,14 @@ def main():
     check_sf_kernels(results)
     check_energy(system, x, "4")
     check_energy(sys_d, x_d, "4b")
-    launches, ms_step = run_md(force, system, x, m, box)
-    launches_d, ms_d = run_dense_md(x_d, m_d, bonded_d, sys_d)
+    launches, ms_step, ms_eager = run_md(force, system, x, m, box)
+    launches_d, ms_d, ms_eager_d = run_dense_md(x_d, m_d, bonded_d, sys_d)
     for name, count in {**launches, **launches_d}.items():
         results[name]["launches"] = count
     print(json.dumps({"kernels": list(results.values()),
-                      "ms_per_step": ms_step, "ms_per_step_216": ms_d}),
-          flush=True)
+                      "ms_per_step": ms_step, "ms_per_step_216": ms_d,
+                      "ms_per_step_eager": ms_eager,
+                      "ms_per_step_216_eager": ms_eager_d}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

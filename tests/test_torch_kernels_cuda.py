@@ -13,6 +13,7 @@ import torch
 
 from chargeflux_tpu_torch import cells, ewald, ops, pme
 from chargeflux_tpu_torch.charges import effective_charges
+from chargeflux_tpu_torch.device import constant
 from chargeflux_tpu_torch.energy import energy_and_forces, energy_components
 from chargeflux_tpu_torch.models import water_box
 from chargeflux_tpu_torch.neighbors import build_neighbor_state
@@ -20,6 +21,7 @@ from chargeflux_tpu_torch.ops import direct_walk as dw
 from chargeflux_tpu_torch.ops import native
 from chargeflux_tpu_torch.ops import pme_spread as ps
 from chargeflux_tpu_torch.ops import structure_factor as sf
+from chargeflux_tpu_torch.ops.erfc import erf_over_r_coeffs
 from chargeflux_tpu_torch.utils.measure import dense_path
 
 from torch_helpers import KERNEL_LIMITS, lattice_blocks, untemplated
@@ -171,7 +173,7 @@ def test_spread_bwd_kernel_edge_cases(case):
     n_col, wx, rows = qw.shape
     err = native.library().cf_spread_bwd(
         *(t.data_ptr() for t in (qw, wy, wz, zo,
-                                 ps._offsets_tensor(offsets, qw.device), ct,
+                                 constant(offsets, torch.int32, qw.device), ct,
                                  *outs)),
         n_col, wx, wy.shape[1], wz.shape[1], rows, pad[1], pad[2],
         native.stream_ptr(qw))
@@ -276,7 +278,7 @@ def test_direct_walk_kernel_edge_cases(case):
     p = dw.direct_walk_plain(*args)
     n_cells = grid[0] * grid[1] * grid[2]
     nbr, img = dw._tables(tuple(grid), dev)
-    coef = dw._coef_tensor(alpha, cutoff, dev)
+    coef = constant(erf_over_r_coeffs(alpha, cutoff), torch.float32, dev)
     e_part = torch.full((n_cells,), float("nan"), device=dev)
     g = torch.full((3, *ids.shape), float("nan"), device=dev)
     dq = torch.full(ids.shape, float("nan"), device=dev)
@@ -619,3 +621,228 @@ def test_remainder_nve_runs_repeat_bitwise(setup):
     assert torch.isfinite(runs[0][3]).all()
     for u, v in zip(*runs):
         assert torch.equal(u, v)
+
+
+# ---------------------------------------------------------------------------
+# trajectory chunks as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def md_paths(setup):
+    """Per path, (system, bonded, start state, masses, rebuild_every): the
+    small cell + SPME box of ``setup`` from its unrelaxed lattice at rest
+    (its atoms outrun the PME slack within 8 steps, so it is rebuilt every
+    4), and the 216 dense + classical-Ewald path from its lattice at rest,
+    10-step chunks."""
+    from chargeflux_tpu_torch.integrate import init_state_nb, make_nb_energy_fn
+    from chargeflux_tpu_torch.models import water_bonded_params
+
+    s = setup
+    x = s["x"]
+    n_w = x.shape[0] // 3
+    bonded = water_bonded_params(n_w, box=s["system"].box.cpu().numpy(),
+                                 device=x.device)
+    masses = torch.tensor([15.999, 1.008, 1.008] * n_w, device=x.device)
+    _, x_d, m_d, _, bonded_d, sys_d = dense_path(x.device)
+    out = {}
+    for name, system, b, xx, m, every in (
+            ("cell", s["system"], bonded, x, masses, 4),
+            ("dense", sys_d, bonded_d, x_d, m_d, 10)):
+        s0 = init_state_nb(xx, torch.zeros_like(xx),
+                           *make_nb_energy_fn(system, bonded=b))
+        out[name] = (system, b, s0, m, every)
+    return out
+
+
+def _trajectory(path, n_steps, graph, e_fns=None, state=None, every=None):
+    from chargeflux_tpu_torch.integrate import (make_nb_energy_fn,
+                                                nve_trajectory_nb)
+    from chargeflux_tpu_torch.utils.measure import DT_PS
+
+    system, bonded, s0, masses, rebuild_every = path
+    e_fn, init_nb = e_fns or make_nb_energy_fn(system, bonded=bonded)
+    return nve_trajectory_nb(state or s0, e_fn, init_nb, masses, DT_PS,
+                             n_steps, every or rebuild_every, graph=graph)
+
+
+def _same_bits(a, b):
+    (fa, ea), (fb, eb) = a, b
+    torch.cuda.synchronize()
+    assert torch.equal(ea, eb)
+    for f in ("positions", "velocities", "forces", "potential"):
+        assert torch.equal(getattr(fa, f), getattr(fb, f)), f
+
+
+#: (path, driver) of the chunk tests: nve_trajectory_nb on both paths, and
+#: nve_trajectory, whose steps on the cell route each bin anew.
+DRIVERS = pytest.mark.parametrize(
+    "name,driver", [("cell", "nb"), ("dense", "nb"), ("cell", "plain"),
+                    ("dense", "plain")],
+    ids=["cell", "dense", "cell-nve_trajectory", "dense-nve_trajectory"])
+
+
+def _energy_fns(path, driver):
+    from chargeflux_tpu_torch.integrate import (make_energy_fn,
+                                                make_nb_energy_fn)
+
+    make = make_nb_energy_fn if driver == "nb" else make_energy_fn
+    return make(path[0], bonded=path[1])
+
+
+def _drive(path, driver, n_steps, graph, fns):
+    """``n_steps`` from the path's start state through nve_trajectory_nb
+    (``fns`` = (e_fn, init_nb)) or nve_trajectory (``fns`` = energy_fn)."""
+    from chargeflux_tpu_torch.integrate import MDState, nve_trajectory
+    from chargeflux_tpu_torch.utils.measure import DT_PS
+
+    if driver == "nb":
+        return _trajectory(path, n_steps, graph, fns)
+    s0, masses = path[2], path[3]
+    state = MDState(s0.positions, s0.velocities, s0.forces, s0.potential)
+    return nve_trajectory(state, fns, masses, DT_PS, n_steps, graph=graph)
+
+
+def _chunk_length(path, driver):
+    from chargeflux_tpu_torch.integrate import STEPS_PER_CHUNK
+
+    return path[4] if driver == "nb" else STEPS_PER_CHUNK
+
+
+@DRIVERS
+def test_chunk_replays_give_the_eager_chunks_bits(md_paths, name, driver):
+    """Two chunks and a remainder chunk: replays (the first call captures,
+    the second replays only) give the per-step energies and the final
+    state of graph=False bit for bit, and finite."""
+    path = md_paths[name]
+    every = _chunk_length(path, driver)
+    n = 2 * every + every // 2 + 1
+    fns = _energy_fns(path, driver)
+    eager = _drive(path, driver, n, False, fns)
+    first = _drive(path, driver, n, True, fns)
+    again = _drive(path, driver, n, True, fns)
+    assert torch.isfinite(eager[1]).all() and eager[1].shape == (n,)
+    e_fn = fns[0] if driver == "nb" else fns
+    assert len(e_fn.nve_chunks) == 2
+    assert all(c.graph is not None for c in e_fn.nve_chunks.values())
+    _same_bits(eager, first)
+    _same_bits(eager, again)
+
+
+@DRIVERS
+def test_a_warm_eager_chunk_makes_no_host_sync(md_paths, name, driver):
+    """Once warm, a whole eager trajectory of two chunks and a remainder
+    runs under ``set_sync_debug_mode("error")``: no step, rebuild or final
+    evaluation reads a device value on the host or copies from it."""
+    path = md_paths[name]
+    n = 2 * _chunk_length(path, driver) + 1
+    fns = _energy_fns(path, driver)
+    _drive(path, driver, n, False, fns)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, es = _drive(path, driver, n, False, fns)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(es).all()
+
+
+def test_maxwell_velocities_are_made_where_the_masses_are(md_paths):
+    """Masses on the card with a CPU generator raise; with a generator of
+    the card, the velocities are made on the card, drift-free."""
+    from chargeflux_tpu_torch.integrate import maxwell_velocities
+
+    masses = md_paths["cell"][3]
+    with pytest.raises(ValueError):
+        maxwell_velocities(masses, 300.0, torch.Generator().manual_seed(1))
+    gen = torch.Generator(masses.device).manual_seed(1)
+    v = maxwell_velocities(masses, 300.0, gen, dtype=torch.float64)
+    assert v.device == masses.device and v.shape == (masses.shape[0], 3)
+    p = torch.sum(masses.double()[:, None] * v, dim=0)
+    assert float(p.abs().max()) <= 1e-10
+
+
+def test_poisons_reach_energy_and_forces_inside_a_replay(md_paths):
+    """Inside a replay, as eagerly: a rebuild interval too long for the
+    unrelaxed box (20 steps; atoms outrun the PME slack within 8) turns the
+    later energies and the last forces to NaN; a capacity below the
+    occupancy (binning overflow) poisons every energy from the first
+    step."""
+    from chargeflux_tpu_torch.models import water_box as water_box_t
+
+    path = md_paths["cell"]
+    for graph in (False, True):
+        fin, es = _trajectory(path, 20, graph, every=20)
+        assert torch.isfinite(es[0]) and torch.isnan(es[-1])
+        assert torch.isnan(fin.forces).all()
+
+    force, _, _, box = water_box_t(n_side=9, cutoff=0.65)
+    small = force.create_system(box=box, dtype=torch.float32,
+                                direct_method="cell", recip_method="pme",
+                                cell_capacity=16, device=path[2].positions.device)
+    tight = (small, *path[1:])
+    for graph in (False, True):
+        fin, es = _trajectory(tight, 6, graph)
+        assert int(fin.nb.overflow) > 0
+        assert torch.isnan(es).all() and torch.isnan(fin.forces).all()
+
+
+def test_a_graph_is_reused_across_calls_with_the_state_changed(md_paths):
+    """The burn-in's pattern: chunk-long calls with the velocities rescaled
+    in between.  Replays of the one captured chunk give the bits of the
+    same calls made eagerly, and no call after the first captures."""
+    import dataclasses
+
+    from chargeflux_tpu_torch.integrate import make_nb_energy_fn
+
+    path = md_paths["cell"]
+    every = path[4]
+    runs = {}
+    for graph in (False, True):
+        e_fns = make_nb_energy_fn(path[0], bonded=path[1])
+        state, out = path[2], []
+        for k in range(4):
+            state, es = _trajectory(path, every, graph, e_fns, state)
+            out.append((state, es))
+            state = dataclasses.replace(
+                state, velocities=state.velocities * (1.0 + 0.05 * k))
+            if graph:
+                chunks = list(e_fns[0].nve_chunks.values())
+                assert len(chunks) == 1
+                if k == 0:
+                    graph0 = chunks[0].graph
+                assert chunks[0].graph is graph0
+        runs[graph] = out
+    for a, b in zip(runs[False], runs[True]):
+        _same_bits(a, b)
+
+
+@pytest.mark.parametrize("name", ["cell", "dense"])
+def test_launch_counts_equal_the_profilers_kernel_counts(md_paths, name):
+    """Over a trajectory whose chunks replay captured graphs (plus the
+    eager final evaluation), each wrapper's count equals the number of its
+    kernel's device events in one torch.profiler window, and is the
+    captured launches per chunk times the replays plus the final
+    evaluation's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chargeflux_tpu_torch.integrate import make_nb_energy_fn
+    from chargeflux_tpu_torch.utils.measure import traced_launches
+
+    path = md_paths[name]
+    every = path[4]
+    e_fns = make_nb_energy_fn(path[0], bonded=path[1])
+    _trajectory(path, 2 * every, True, e_fns)
+    (chunk,) = e_fns[0].nve_chunks.values()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _trajectory(path, 2 * every, True, e_fns)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    traced = traced_launches(prof.events())
+    names = [k for k, c in chunk.captured.items() if c > 0]
+    assert names, "the chunk captured no kernel launch"
+    for k in names:
+        assert counts[k] == 2 * chunk.captured[k] + 1, k
+        assert traced[k] == counts[k], (k, traced, counts)

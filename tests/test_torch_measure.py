@@ -234,3 +234,31 @@ def test_sf_tables_are_the_216_path_shapes():
                                               (13, 648), (648, 26)]
     assert all(t.dtype == torch.float32 and t.is_contiguous() for t in tabs)
     assert set(measure.SF_SHAPES) == {"216", "4k"}
+
+
+def test_traced_launches_counts_each_wrappers_kernel():
+    """The profiler names of the port's kernels map onto the launch
+    counters: the wrapper's counted kernel only (not spread_fwd's fold),
+    device events only."""
+    class Event:
+        def __init__(self, name, device="DeviceType.CUDA"):
+            self.name, self.device_type = name, device
+
+    events = [
+        Event("void (anonymous namespace)::spread_patch_kernel<3>(float "
+              "const*, float const*)"),
+        Event("(anonymous namespace)::spread_fold_kernel(float const*)"),
+        Event("void (anonymous namespace)::spread_bwd_kernel<8, false>(float "
+              "const*)"),
+        Event("void (anonymous namespace)::direct_walk_kernel<13, 384, 2>("
+              "float const*)"),
+        Event("void (anonymous namespace)::direct_walk_kernel<13, 384, 2>("
+              "float const*)", "DeviceType.CPU"),
+        Event("(anonymous namespace)::sf_bwd_tables_kernel(float const*)"),
+        Event("(anonymous namespace)::sf_bwd_tables_kernel(float const*)"),
+        Event("cudaGraphLaunch", "DeviceType.CPU"),
+    ]
+    assert measure.traced_launches(events) == {
+        "spread_fwd": 1, "spread_bwd": 1, "direct_walk": 1, "sf_fwd": 0,
+        "sf_bwd_tables": 2, "sf_bwd_zq": 0}
+    assert len(measure.device_events(events)) == 6
