@@ -8,20 +8,35 @@ charges, the fused direct walk (CUDA kernel), the exclusion correction,
 the cell-column PME spread (CUDA kernels, forward and backward), cuFFT),
 the dense periodic route with classical Ewald (CUDA structure-factor
 kernels) and the non-periodic all-pairs route, harmonic water bonds and
-angles, and NVE (with or without neighbor-state reuse), each trajectory
-chunk replayed as one CUDA graph on the card.  ROADMAP.md lists what is
-still to port.
+angles, and the integrators: NVE, BAOAB Langevin NVT and impulse r-RESPA
+(NVE and NVT), with or without neighbor-state reuse, rigid water by
+SETTLE / RATTLE (``constraints``) and general distance constraints, and
+FIRE minimization.  Each trajectory chunk is replayed as one CUDA graph
+on the card, its noise drawn there from the caller's ``torch.Generator``.
+The water boxes, flexible and rigid, are in ``models``.  ROADMAP.md lists
+what is still to port.
 """
 
 from .system import ChargeFluxSystem, CoulForce, StaticSpec, system_from_arrays
 from .charges import effective_charges
 from .energy import energy_and_forces, energy_components
 from .bonded import BondedParams, bonded_energy
-from .integrate import (MDState, MDStateNB, init_state, init_state_nb,
-                        kinetic_energy, make_energy_fn, make_nb_energy_fn,
-                        maxwell_velocities, nve_step, nve_step_nb,
-                        nve_trajectory, nve_trajectory_nb, remove_com_motion,
-                        temperature)
+from .integrate import (MDState, MDStateNB, baoab_coeffs, baoab_pre_force,
+                        init_state, init_state_nb, kinetic_energy,
+                        langevin_step, langevin_trajectory,
+                        langevin_trajectory_nb, make_energy_fn,
+                        make_nb_energy_fn, make_respa_force_fns,
+                        maxwell_velocities, minimize_fire, nve_step,
+                        nve_step_nb, nve_trajectory, nve_trajectory_nb,
+                        remove_com_motion, respa_langevin_trajectory_nb,
+                        respa_trajectory_nb, temperature)
+from .constraints import (DistanceConstraints, RigidWaterParams,
+                          constraint_residuals, project_positions,
+                          project_velocities, rattle_langevin_trajectory,
+                          rattle_langevin_trajectory_nb,
+                          rattle_nve_trajectory, rattle_verlet_step,
+                          settle_positions)
+from .models import rigid_water_box
 from .units import BOLTZ, ONE_4PI_EPS0
 
 __all__ = [
@@ -31,5 +46,12 @@ __all__ = [
     "MDState", "MDStateNB", "init_state", "init_state_nb", "kinetic_energy",
     "make_energy_fn", "make_nb_energy_fn", "maxwell_velocities", "nve_step",
     "nve_step_nb", "nve_trajectory", "nve_trajectory_nb", "remove_com_motion",
-    "temperature", "ONE_4PI_EPS0", "BOLTZ",
+    "temperature", "baoab_coeffs", "baoab_pre_force", "langevin_step",
+    "langevin_trajectory", "langevin_trajectory_nb", "make_respa_force_fns",
+    "respa_trajectory_nb", "respa_langevin_trajectory_nb", "minimize_fire",
+    "DistanceConstraints", "RigidWaterParams", "constraint_residuals",
+    "project_positions", "project_velocities", "settle_positions",
+    "rattle_verlet_step", "rattle_nve_trajectory",
+    "rattle_langevin_trajectory", "rattle_langevin_trajectory_nb",
+    "rigid_water_box", "ONE_4PI_EPS0", "BOLTZ",
 ]

@@ -1,15 +1,16 @@
-"""Velocity-Verlet NVE (torch counterpart of the NVE trajectories of
-``chargeflux_tpu.integrate``).
+"""Integrators (torch counterpart of ``chargeflux_tpu.integrate``):
+velocity-Verlet NVE, BAOAB Langevin NVT, impulse r-RESPA (NVE and NVT) and
+FIRE minimization.
 
 The JAX package compiles a trajectory chunk into one device program: a
 neighbor rebuild, then ``lax.scan`` over the chunk's steps.  Here a chunk
-is a :class:`NVEChunk`: it works on static buffers (positions, velocities,
-forces, the potential, the chunk's per-step total energies and, on the
-cell route, the neighbor state), and on a CUDA device it is captured once
-into a CUDA graph and replayed, one ``replay()`` per chunk.  ``graph=False``
-runs the same chunk code eagerly on the card (the control the replays are
-held to, bit for bit); on the CPU that code always runs eagerly.  A failed
-capture or replay raises.
+is a :class:`Chunk`: it works on static buffers (the carry: positions,
+velocities, forces and, for r-RESPA, the fast forces apart; the potential,
+the chunk's per-step records and, on the cell route, the neighbor state),
+and on a CUDA device it is captured once into a CUDA graph and replayed,
+one ``replay()`` per chunk.  ``graph=False`` runs the same chunk code
+eagerly on the card (the control the replays are held to, bit for bit); on
+the CPU that code always runs eagerly.  A failed capture or replay raises.
 
 Capture needs an evaluation that makes no host-to-device copy and reads
 no device value on the host: the constants it reads are kept on the
@@ -18,8 +19,25 @@ sorted ids, and each chunk's first capture follows one eager warm-up step
 on the capture's side stream, which fills every cache (constants, cuFFT
 plans, the kernel library).  The graphs are kept on the energy function
 (:func:`chunk_for`) and replayed by every later call with the same energy
-function, masses tensor, dt and chunk length; each call copies the
-caller's state into the static buffers first.
+function, masses tensor, generator, coefficients and chunk length; each
+call copies the caller's state into the static buffers first.
+
+Noise.  The stochastic drivers take a ``torch.Generator`` where the JAX
+package takes a PRNG key, and draw every O-step's normals through
+:func:`normal_noise`.  A generator continues where its last draw left it,
+so the JAX package's ``advance_key`` has no counterpart: to resume, pass
+the same generator on.  One call of 2n steps of
+:func:`langevin_trajectory_nb` equals two calls of n steps with the
+generator carried across, bit for bit (the final state keeps the carry
+forces); ``constraints.rattle_langevin_trajectory_nb`` resumes to
+round-off, as in the JAX package.  A capture registers the generator with
+the graph and restores its state after the warm-up step and the capture,
+so each replay draws the numbers an eager chunk draws from the same
+generator state and advances the generator as far.  A graph belongs to
+the generator it captured: a call with another generator captures anew.
+The normals are torch's, not ``jax.random``'s: the two packages agree in
+distribution, and the tests hold the drivers to the JAX package by handing
+both the same normals.
 
 The kernel wrappers count their launches when they run, so at capture;
 a chunk keeps the capture's counts apart (``ops.captured_launches``) and
@@ -30,12 +48,15 @@ On the cell route the neighbor state is rebuilt at the start of each
 chunk, and in between the energy function's freshness guard NaN-poisons
 energy and forces if an atom moved past skin/2.  The dense route has no
 neighbor state (``nb`` is ``None``): its chunk is the steps alone.  The TPU
-packed [N, 9] carry modes are layout workarounds and are not ported.
+packed-carry modes (``x_into_energy``, ``make_packed_*_chunk``) are layout
+workarounds and are not ported: their counterpart is the chunk itself.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import math
 
 import torch
 
@@ -74,6 +95,13 @@ def temperature(velocities, masses, n_constraints: int = 0) -> torch.Tensor:
     return 2.0 * kinetic_energy(velocities, masses) / (n_dof * BOLTZ)
 
 
+def _check_generator(generator, dev):
+    if device_key(generator.device) != device_key(dev):
+        raise ValueError(f"the generator is on {generator.device}, the "
+                         f"tensors are on {dev}: pass a generator of that "
+                         f"device")
+
+
 def maxwell_velocities(masses, temp: float, generator: torch.Generator,
                        dtype=None, zero_momentum: bool = True) -> torch.Tensor:
     """Maxwell-Boltzmann velocities at ``temp`` K (nm/ps), with the
@@ -88,10 +116,7 @@ def maxwell_velocities(masses, temp: float, generator: torch.Generator,
     stream: the two agree in distribution only."""
     dev = device_key(masses.device if torch.is_tensor(masses)
                      else resolve_device(None))
-    if device_key(generator.device) != dev:
-        raise ValueError(f"the generator is on {generator.device}, the "
-                         f"velocities are made on {dev}: pass a generator "
-                         f"of that device")
+    _check_generator(generator, dev)
     dtype = dtype or torch.get_default_dtype()
     m = torch.as_tensor(masses, device=dev).to(dtype)
     n = m.shape[0]
@@ -209,41 +234,64 @@ def _verlet_nb(e_fn, half, dt, x, v, f, nb):
     return x_new, v_half + f_new * half, f_new, e
 
 
-class NVEChunk:
+# ---------------------------------------------------------------------------
+# Trajectory chunks
+# ---------------------------------------------------------------------------
+
+
+class Chunk:
     """One trajectory chunk on static buffers: a neighbor rebuild where
-    ``rebuild`` gives one, then ``k`` velocity-Verlet steps (the JAX
-    package's ``outer`` of ``make_packed_nve_chunk``).
+    ``rebuild`` gives one, then ``k`` steps (the JAX package's ``outer`` of
+    its packed chunks).
 
-    ``step(x, v, f, nb) -> (x, v, f, potential)`` is one step; the chunk
-    writes its last positions, velocities, forces and potential and its
-    per-step total energies ``es`` [k] into the buffers in place.  With
-    ``graph`` (a CUDA device) the first :meth:`load` captures the chunk
-    into a CUDA graph, after one eager warm-up step on the capture's side
-    stream, and each call replays it."""
+    ``step(carry, nb) -> (carry, potential, record)`` is one step on the
+    carry, a tuple of tensors with the positions first; the chunk writes
+    its last carry and potential and its per-step records ``es`` [k] into
+    the buffers in place.  With ``graph`` (a CUDA device) the first
+    :meth:`load` captures the chunk into a CUDA graph, after one eager
+    warm-up step on the capture's side stream, and each call replays it.
+    ``generator`` is the one the steps draw their noise from (None for the
+    deterministic drivers): the capture registers it with the graph and
+    restores its state after the warm-up step and the capture.  ``keep``
+    holds the objects whose ids are in the chunk's key (see
+    :func:`chunk_for`)."""
 
-    def __init__(self, step, rebuild, masses, k: int, like: torch.Tensor,
-                 graph: bool):
-        self.step, self.rebuild, self.masses, self.k = step, rebuild, masses, k
-        self.x, self.v, self.f = (torch.empty_like(like) for _ in range(3))
+    def __init__(self, step, rebuild, k: int, carry_like, graph: bool,
+                 generator=None, keep=()):
+        self.step, self.rebuild, self.k = step, rebuild, k
+        self.carry = tuple(torch.empty_like(t) for t in carry_like)
+        like = self.carry[0]
         self.potential = like.new_empty(())
         self.es = like.new_empty((k,))
         self.nb = None            # static NeighborState after the first rebuild
+        self.generator, self.keep = generator, keep
         self.want_graph = graph and like.is_cuda
         self.graph = None
         self.captured = {}        # kernel launches of one replay
 
-    def load(self, x, v, f):
+    @property
+    def x(self):
+        return self.carry[0]
+
+    @property
+    def v(self):
+        return self.carry[1]
+
+    @property
+    def f(self):
+        return self.carry[2]
+
+    def load(self, *carry):
         """Copy a state into the static inputs (capturing first, if this
         chunk replays a graph that is not captured yet)."""
         if self.want_graph and self.graph is None:
-            self._copy_in(x, v, f)
+            self._copy_in(carry)
             self._capture()
-        self._copy_in(x, v, f)
+        self._copy_in(carry)
 
-    def _copy_in(self, x, v, f):
-        self.x.copy_(x)
-        self.v.copy_(v)
-        self.f.copy_(f)
+    def _copy_in(self, carry):
+        for buf, t in zip(self.carry, carry):
+            buf.copy_(t)
 
     def __call__(self):
         """Advance the static state by one chunk."""
@@ -256,13 +304,13 @@ class NVEChunk:
     def run(self, n_steps: int | None = None):
         """The chunk's work, eagerly, on the static buffers (``n_steps``
         of its ``k`` steps)."""
-        x, v, f = self.x, self.v, self.f
-        nb = self._rebuild(x) if self.rebuild is not None else None
+        carry = self.carry
+        nb = self._rebuild(carry[0]) if self.rebuild is not None else None
         es = []
         for _ in range(self.k if n_steps is None else n_steps):
-            x, v, f, e = self.step(x, v, f, nb)
-            es.append(e + kinetic_energy(v, self.masses))
-        self._copy_in(x, v, f)
+            carry, e, record = self.step(carry, nb)
+            es.append(record)
+        self._copy_in(carry)
         self.potential.copy_(e)
         self.es[:len(es)].copy_(torch.stack(es))
 
@@ -279,49 +327,99 @@ class NVEChunk:
         return self.nb
 
     def _capture(self):
+        gen = self.generator
+        saved = gen.get_state() if gen is not None else None
         side = torch.cuda.Stream(self.x.device)
         side.wait_stream(torch.cuda.current_stream(self.x.device))
         with torch.cuda.stream(side):
             self.run(n_steps=1)            # fills every cache before capture
         torch.cuda.current_stream(self.x.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with ops.captured_launches() as self.captured:
-            with torch.cuda.graph(graph, stream=side):
-                self.run()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        # A chunk kept on an energy function is in a reference cycle (the
+        # function holds the chunk, whose step holds the function), so a
+        # dropped one waits for the cyclic collector; destroying its graph
+        # while this stream captures would invalidate the capture.  Collect
+        # now, and hold the collector off until the capture ends.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with ops.captured_launches() as self.captured:
+                with torch.cuda.graph(graph, stream=side):
+                    self.run()
+        finally:
+            if collecting:
+                gc.enable()
+        if gen is not None:
+            gen.set_state(saved)
         self.graph = graph
 
 
-def chunk_for(energy_fn, make, key) -> NVEChunk:
+#: The chunk's earlier name, from when its only step was the NVE one.
+NVEChunk = Chunk
+
+
+def chunk_for(energy_fn, make, key) -> Chunk:
     """The chunk ``make()`` builds for ``key``, kept on ``energy_fn`` (in
-    its ``nve_chunks`` attribute) so that later calls replay its graph.  A
-    chunk, its graph and the graph's memory pool live as long as the energy
-    function; a trajectory call uses at most two (its chunk length and its
-    remainder's).  The chunk holds the key's tensors,
-    so their ids in ``key`` stay theirs."""
+    its ``nve_chunks`` attribute, which holds every driver's chunks) so
+    that later calls replay its graph.  A chunk, its graph and the graph's
+    memory pool live as long as the energy function; a trajectory call
+    uses at most two (its chunk length and its remainder's).  The chunk
+    holds the objects whose ids are in ``key`` (masses, generator,
+    constraint parameters), so their ids stay theirs."""
     kept = energy_fn.__dict__.setdefault("nve_chunks", {})
     if key not in kept:
         kept[key] = make()
     return kept[key]
 
 
-def _run_chunks(get_chunk, x, v, f, n_steps: int, k: int):
+def _chunk_getter(owner, graph: bool, like, key, make):
+    """``get_chunk(k)`` for :func:`_run_chunks`: ``make(k)`` eagerly on the
+    CPU or with ``graph=False``, else the chunk kept on ``owner`` for
+    ``key`` and the chunk's length and carry."""
+    def get_chunk(k):
+        if not (graph and like.is_cuda):
+            return make(k)
+        return chunk_for(owner, lambda: make(k), key + (
+            k, tuple(like.shape), like.dtype, like.device))
+    return get_chunk
+
+
+def _run_chunks(get_chunk, carry, n_steps: int, k: int):
     """``n_steps`` in chunks of ``k`` steps, then one chunk of the
     remainder (the JAX package's ``outer`` and ``outer_rem``); returns the
-    last chunk run and the per-step total energies [n_steps]."""
-    es = x.new_empty((n_steps,))
+    last chunk run and the per-step records [n_steps]."""
+    es = carry[0].new_empty((n_steps,))
     n_full, rem = divmod(n_steps, k)
     done, chunk = 0, None
     for length, count in ((k, n_full), (rem, 1 if rem else 0)):
         if count == 0:
             continue
         chunk = get_chunk(length)
-        chunk.load(x, v, f)
+        chunk.load(*carry)
         for _ in range(count):
             chunk()
             es[done:done + length].copy_(chunk.es)
             done += length
-        x, v, f = chunk.x, chunk.v, chunk.f
+        carry = chunk.carry
     return chunk, es
+
+
+def _final_nb(chunk, e_fn, init_nb) -> MDStateNB:
+    """The state a ``*_nb`` driver returns: the last carry's positions,
+    velocities and forces, a fresh neighbor state and the potential
+    evaluated with it (an eager evaluation)."""
+    x_fin = chunk.x.clone()
+    nb = init_nb(x_fin)
+    e_pot, _f, nb = e_fn(x_fin, nb)
+    return MDStateNB(x_fin, chunk.v.clone(), chunk.f.clone(), e_pot, nb)
+
+
+def _require_steps(n_steps: int):
+    if n_steps <= 0:
+        raise ValueError("n_steps must be positive")
 
 
 def nve_trajectory_nb(state: MDStateNB, e_fn, init_nb, masses, dt: float,
@@ -337,29 +435,24 @@ def nve_trajectory_nb(state: MDStateNB, e_fn, init_nb, masses, dt: float,
         return state, state.positions.new_zeros((0,))
     x = state.positions
 
-    def get_chunk(k):
-        def make():
-            half = (0.5 * dt / masses)[:, None]
+    def make(k):
+        half = (0.5 * dt / masses)[:, None]
 
-            def step(x, v, f, nb):
-                return _verlet_nb(e_fn, half, dt, x, v, f, nb)
-            return NVEChunk(step, init_nb, masses, k, x, graph)
+        def step(carry, nb):
+            x, v, f, e = _verlet_nb(e_fn, half, dt, *carry, nb)
+            return (x, v, f), e, e + kinetic_energy(v, masses)
+        return Chunk(step, init_nb, k, (x,) * 3, graph, keep=(masses,))
 
-        if not (graph and x.is_cuda):
-            return make()
-        key = ("nb", init_nb, id(masses), float(dt), k, tuple(x.shape),
-               x.dtype, x.device)
-        return chunk_for(e_fn, make, key)
-
-    chunk, es = _run_chunks(get_chunk, x, state.velocities, state.forces,
+    get_chunk = _chunk_getter(e_fn, graph, x, ("nb", init_nb, id(masses),
+                                               float(dt)), make)
+    chunk, es = _run_chunks(get_chunk, (x, state.velocities, state.forces),
                             n_steps, rebuild_every)
-    x_fin = chunk.x.clone()
-    nb = init_nb(x_fin)
-    e_pot, _f, nb = e_fn(x_fin, nb)
-    return MDStateNB(x_fin, chunk.v.clone(), chunk.f.clone(), e_pot, nb), es
+    return _final_nb(chunk, e_fn, init_nb), es
 
 
-#: Steps per chunk of :func:`nve_trajectory`, which has no rebuild interval.
+#: Steps per chunk of the drivers that have no rebuild interval
+#: (:func:`nve_trajectory`, :func:`langevin_trajectory` and the dense
+#: RATTLE drivers of ``constraints``).
 STEPS_PER_CHUNK = 10
 
 
@@ -374,21 +467,322 @@ def nve_trajectory(state: MDState, energy_fn, masses, dt: float,
         return state, state.positions.new_zeros((0,))
     x = state.positions
 
-    def get_chunk(k):
-        def make():
-            inv_m = (1.0 / masses)[:, None]
+    def make(k):
+        inv_m = (1.0 / masses)[:, None]
 
-            def step(x, v, f, nb):
-                return _verlet(energy_fn, inv_m, dt, x, v, f, nb)
-            return NVEChunk(step, None, masses, k, x, graph)
+        def step(carry, nb):
+            x, v, f, e = _verlet(energy_fn, inv_m, dt, *carry, nb)
+            return (x, v, f), e, e + kinetic_energy(v, masses)
+        return Chunk(step, None, k, (x,) * 3, graph, keep=(masses,))
 
-        if not (graph and x.is_cuda):
-            return make()
-        key = ("plain", id(masses), float(dt), k, tuple(x.shape), x.dtype,
-               x.device)
-        return chunk_for(energy_fn, make, key)
-
-    last, es = _run_chunks(get_chunk, x, state.velocities, state.forces,
+    get_chunk = _chunk_getter(energy_fn, graph, x,
+                              ("plain", id(masses), float(dt)), make)
+    last, es = _run_chunks(get_chunk, (x, state.velocities, state.forces),
                            n_steps, STEPS_PER_CHUNK)
     return MDState(last.x.clone(), last.v.clone(), last.f.clone(),
                    last.potential.clone()), es
+
+
+# ---------------------------------------------------------------------------
+# Langevin (NVT) — BAOAB splitting
+# ---------------------------------------------------------------------------
+
+
+def normal_noise(like: torch.Tensor, generator: torch.Generator):
+    """Standard normals of ``like``'s shape, type and device from
+    ``generator``: every O-step of every driver draws here."""
+    return torch.randn(like.shape, generator=generator, dtype=like.dtype,
+                       device=like.device)
+
+
+def baoab_coeffs(dt: float, friction: float, temperature: float):
+    """(c1, c2) of the O-step, v <- c1 v + c2 sqrt(1/m) noise, as Python
+    floats (the JAX package computes them in the trajectory's type)."""
+    c1 = math.exp(-friction * dt)
+    return c1, math.sqrt((1.0 - c1 * c1) * BOLTZ * temperature)
+
+
+def baoab_pre_force(x, v, f, inv_m, dt, c1, c2, generator):
+    """The B-A-O-A half of one BAOAB step (Leimkuhler-Matthews); the
+    caller evaluates forces at the returned x and applies the final B
+    half-kick.  Shared by every Langevin driver."""
+    v = v + 0.5 * dt * f * inv_m                                    # B
+    x = x + 0.5 * dt * v                                            # A
+    noise = normal_noise(v, generator)
+    v = c1 * v + c2 * torch.sqrt(inv_m) * noise                     # O
+    x = x + 0.5 * dt * v                                            # A
+    return x, v
+
+
+def _baoab_step(force, masses, dt, temperature, friction, generator):
+    """One BAOAB step as a :class:`Chunk` step; ``force(x, nb) -> (energy,
+    forces)``.  Its record is the kinetic energy."""
+    inv_m = (1.0 / masses)[:, None]
+    c1, c2 = baoab_coeffs(dt, friction, temperature)
+
+    def step(carry, nb):
+        x, v = baoab_pre_force(*carry, inv_m, dt, c1, c2, generator)
+        e, f = force(x, nb)
+        v = v + 0.5 * dt * f * inv_m                                # B
+        return (x, v, f), e, kinetic_energy(v, masses)
+    return step
+
+
+def langevin_step(state: MDState, energy_fn, masses, dt: float,
+                  temperature: float, friction: float,
+                  generator: torch.Generator) -> MDState:
+    """One BAOAB Langevin step (Leimkuhler-Matthews splitting).  friction
+    in 1/ps, temperature in K; the O-step draws from ``generator``."""
+    _check_generator(generator, state.positions.device)
+    step = _baoab_step(lambda x, nb: _energy_and_forces(energy_fn, x),
+                       masses, dt, temperature, friction, generator)
+    (x, v, f), e, _ = step((state.positions, state.velocities,
+                            state.forces), None)
+    return MDState(x, v, f, e)
+
+
+def langevin_trajectory(state: MDState, energy_fn, masses, dt: float,
+                        temperature: float, friction: float,
+                        generator: torch.Generator, n_steps: int,
+                        graph: bool = True):
+    """``n_steps`` of BAOAB Langevin; returns (final_state, per-step
+    kinetic energies).  The final state's potential is evaluated at its
+    positions.  The steps run in chunks of :data:`STEPS_PER_CHUNK` (then
+    one of the remainder), each a CUDA graph replay on a CUDA device
+    unless ``graph=False``."""
+    _require_steps(n_steps)
+    x = state.positions
+    _check_generator(generator, x.device)
+
+    def make(k):
+        step = _baoab_step(lambda xx, nb: _energy_and_forces(energy_fn, xx),
+                           masses, dt, temperature, friction, generator)
+        return Chunk(step, None, k, (x,) * 3, graph, generator,
+                     keep=(masses, generator))
+
+    key = ("langevin", id(masses), id(generator), float(dt),
+           float(temperature), float(friction))
+    last, kes = _run_chunks(_chunk_getter(energy_fn, graph, x, key, make),
+                            (x, state.velocities, state.forces), n_steps,
+                            STEPS_PER_CHUNK)
+    x_fin = last.x.clone()
+    with torch.no_grad():
+        e_pot = energy_fn(x_fin)
+    return MDState(x_fin, last.v.clone(), last.f.clone(), e_pot), kes
+
+
+def langevin_trajectory_nb(state: MDStateNB, e_fn, init_nb, masses,
+                           dt: float, temperature: float, friction: float,
+                           generator: torch.Generator, n_steps: int,
+                           rebuild_every: int = 10, graph: bool = True):
+    """``n_steps`` of BAOAB Langevin with the neighbor state rebuilt every
+    ``rebuild_every`` steps (at the start of each chunk; a remainder runs
+    as one shorter chunk, where the JAX package asks for a multiple) — the
+    NVT analog of :func:`nve_trajectory_nb`.  Returns (final_state,
+    per-step kinetic energies).
+
+    Exactly resumable: a second call from the returned state with the
+    same generator continues the trajectory bit for bit (the final state
+    keeps the carry forces the next chunk's first B kick consumes)."""
+    _require_steps(n_steps)
+    x = state.positions
+    _check_generator(generator, x.device)
+
+    def make(k):
+        step = _baoab_step(lambda xx, nb: e_fn(xx, nb)[:2], masses, dt,
+                           temperature, friction, generator)
+        return Chunk(step, init_nb, k, (x,) * 3, graph, generator,
+                     keep=(masses, generator))
+
+    key = ("langevin_nb", init_nb, id(masses), id(generator), float(dt),
+           float(temperature), float(friction))
+    chunk, kes = _run_chunks(_chunk_getter(e_fn, graph, x, key, make),
+                             (x, state.velocities, state.forces), n_steps,
+                             rebuild_every)
+    return _final_nb(chunk, e_fn, init_nb), kes
+
+
+# ---------------------------------------------------------------------------
+# Multi-timestep r-RESPA (impulse / Verlet-I) — bonded inner steps
+# ---------------------------------------------------------------------------
+
+
+def make_respa_force_fns(system, bonded, plain: bool = False):
+    """Split the force field into RESPA tiers: (slow_fn, fast_fn, init_nb).
+
+    ``slow_fn(x, nb) -> (energy, forces, nb)`` is the charge-flux nonbonded
+    tier with neighbor-state reuse and the freshness guard of
+    :func:`make_nb_energy_fn`, evaluated once per outer step; ``fast_fn(x)
+    -> (energy, forces)`` is the harmonic bonded tier, evaluated every
+    inner substep.  ``plain=True`` runs the kernels' plain versions."""
+    slow_fn, init_nb = make_nb_energy_fn(system, bonded=None, plain=plain)
+
+    def fast_fn(x):
+        return _energy_and_forces(lambda xx: bonded_energy(xx, bonded), x)
+
+    return slow_fn, fast_fn, init_nb
+
+
+def _respa_start(state, slow_fn, fast_fn, init_nb):
+    """The RESPA carry at ``state``: x, v, f_slow, f_fast."""
+    nb = init_nb(state.positions)
+    _e, f_slow, _nb = slow_fn(state.positions, nb)
+    _ef, f_fast = fast_fn(state.positions)
+    return state.positions, state.velocities, f_slow, f_fast
+
+
+def _respa_final(chunk, slow_fn, fast_fn, init_nb) -> MDStateNB:
+    """The final state of a RESPA driver: total forces and potential
+    evaluated afresh at the last positions, with a fresh neighbor state."""
+    x = chunk.x.clone()
+    nb = init_nb(x)
+    e_slow, f_slow, nb = slow_fn(x, nb)
+    e_fast, f_fast = fast_fn(x)
+    return MDStateNB(x, chunk.v.clone(), f_slow + f_fast, e_slow + e_fast,
+                     nb)
+
+
+def _respa_outer(slow_fn, inner, masses, dt, n_inner):
+    """One outer RESPA step as a :class:`Chunk` step on the carry (x, v,
+    f_slow, f_fast): a slow half kick, ``n_inner`` substeps
+    ``inner(x, v, f_fast) -> (x, v, f_fast, e_fast)``, the slow force, a
+    slow half kick.  Its record is (e_slow, e_fast of the last substep)."""
+    inv_m = (1.0 / masses)[:, None]
+
+    def step(carry, nb):
+        x, v, f_slow, f_fast = carry
+        v = v + 0.5 * dt * f_slow * inv_m                   # slow kick
+        for _ in range(n_inner):
+            x, v, f_fast, e_fast = inner(x, v, f_fast, inv_m)
+        e_slow, f_slow, _nb = slow_fn(x, nb)
+        v = v + 0.5 * dt * f_slow * inv_m                   # slow kick
+        return (x, v, f_slow, f_fast), e_slow, e_fast
+    return step
+
+
+def _respa_run(state, slow_fn, fast_fn, init_nb, masses, n_steps,
+               rebuild_every, graph, key, make_step, generator=None):
+    """The RESPA drivers' loop: chunks of ``rebuild_every`` outer steps
+    (``make_step()`` gives one, a :class:`Chunk` step) from the carry at
+    ``state``, kept on ``slow_fn`` under ``key``; returns (final state,
+    per-outer-step records)."""
+    _require_steps(n_steps)
+    x = state.positions
+
+    def make(k):
+        return Chunk(make_step(), init_nb, k, (x,) * 4, graph, generator,
+                     keep=(masses, generator, fast_fn))
+
+    get_chunk = _chunk_getter(slow_fn, graph, x, key + (
+        init_nb, id(fast_fn), id(masses), id(generator)), make)
+    chunk, out = _run_chunks(get_chunk,
+                             _respa_start(state, slow_fn, fast_fn, init_nb),
+                             n_steps, rebuild_every)
+    return _respa_final(chunk, slow_fn, fast_fn, init_nb), out
+
+
+def respa_trajectory_nb(state: MDStateNB, slow_fn, fast_fn, init_nb, masses,
+                        dt: float, n_inner: int, n_steps: int,
+                        rebuild_every: int = 10, graph: bool = True):
+    """Impulse r-RESPA NVE trajectory (Verlet-I; Tuckerman-Berne-Martyna):
+    each outer step of ``dt`` kicks with the slow (nonbonded) force for
+    half a step at each end and advances ``n_inner`` velocity-Verlet
+    substeps of ``dt / n_inner`` on the fast (bonded) force in between.
+    ``n_steps`` counts outer steps; the neighbor state is rebuilt every
+    ``rebuild_every`` of them (a remainder runs as one shorter chunk,
+    where the JAX package asks for a multiple), each chunk a CUDA graph
+    replay on a CUDA device unless ``graph=False``.  Returns (final_state,
+    per-outer-step total energies); the final state's forces and potential
+    are evaluated afresh."""
+    dt_in = dt / n_inner
+
+    def make_step():
+        def inner(x, v, f, inv_m):
+            v_half = v + 0.5 * dt_in * f * inv_m
+            x_new = x + dt_in * v_half
+            e_fast, f_new = fast_fn(x_new)
+            return x_new, v_half + 0.5 * dt_in * f_new * inv_m, f_new, e_fast
+
+        outer = _respa_outer(slow_fn, inner, masses, dt, n_inner)
+
+        def step(carry, nb):
+            carry, e_slow, e_fast = outer(carry, nb)
+            return carry, e_slow, (e_slow + e_fast
+                                   + kinetic_energy(carry[1], masses))
+        return step
+
+    return _respa_run(state, slow_fn, fast_fn, init_nb, masses, n_steps,
+                      rebuild_every, graph, ("respa", float(dt), n_inner),
+                      make_step)
+
+
+def respa_langevin_trajectory_nb(state: MDStateNB, slow_fn, fast_fn,
+                                 init_nb, masses, dt: float, n_inner: int,
+                                 temperature: float, friction: float,
+                                 generator: torch.Generator, n_steps: int,
+                                 rebuild_every: int = 10, graph: bool = True):
+    """BAOAB Langevin with impulse slow forces — the NVT analog of
+    :func:`respa_trajectory_nb`: the inner tier runs ``n_inner`` BAOAB
+    substeps of ``dt / n_inner`` on the fast (bonded) force (friction and
+    noise act at the inner timestep), the slow (nonbonded) force kicks at
+    the outer boundaries.  With ``n_inner=1`` this is
+    :func:`langevin_trajectory_nb` (kicks differ only by summation order).
+    Returns (final_state, per-outer-step kinetic energies)."""
+    _check_generator(generator, state.positions.device)
+    dt_in = dt / n_inner
+
+    def make_step():
+        c1, c2 = baoab_coeffs(dt_in, friction, temperature)
+
+        def inner(x, v, f, inv_m):
+            x, v = baoab_pre_force(x, v, f, inv_m, dt_in, c1, c2, generator)
+            e_fast, f_new = fast_fn(x)
+            return x, v + 0.5 * dt_in * f_new * inv_m, f_new, e_fast
+
+        outer = _respa_outer(slow_fn, inner, masses, dt, n_inner)
+
+        def step(carry, nb):
+            carry, e_slow, _e_fast = outer(carry, nb)
+            return carry, e_slow, kinetic_energy(carry[1], masses)
+        return step
+
+    key = ("respa_langevin", float(dt), n_inner, float(temperature),
+           float(friction))
+    return _respa_run(state, slow_fn, fast_fn, init_nb, masses, n_steps,
+                      rebuild_every, graph, key, make_step, generator)
+
+
+# ---------------------------------------------------------------------------
+# FIRE energy minimization
+# ---------------------------------------------------------------------------
+
+
+def minimize_fire(positions, energy_fn, n_steps: int = 200,
+                  dt_start: float = 1e-4, dt_max: float = 1e-3,
+                  alpha_start: float = 0.1):
+    """FIRE (fast inertial relaxation engine) minimization; returns
+    (positions, final_energy).  Eager; its step size, mixing factor and
+    count of downhill steps stay on the device, so no step reads back."""
+    x = positions
+    v = torch.zeros_like(x)
+    dt = torch.full((), dt_start, dtype=x.dtype, device=x.device)
+    alpha = torch.full((), alpha_start, dtype=x.dtype, device=x.device)
+    n_pos = torch.zeros((), dtype=torch.int64, device=x.device)
+    for _ in range(n_steps):
+        _e, f = _energy_and_forces(energy_fn, x)
+        power = torch.sum(f * v)
+        v_norm = torch.sqrt(torch.sum(v * v)) + 1e-30
+        f_norm = torch.sqrt(torch.sum(f * f)) + 1e-30
+        v_mixed = (1.0 - alpha) * v + alpha * (f / f_norm) * v_norm
+        uphill = power < 0.0
+        v_new = torch.where(uphill, 0.0, v_mixed)
+        grow = (~uphill) & (n_pos > 5)
+        n_pos = torch.where(uphill, 0, n_pos + 1)
+        dt = torch.where(grow, torch.clamp(dt * 1.1, max=dt_max),
+                         torch.where(uphill, dt * 0.5, dt))
+        alpha = torch.where(grow, alpha * 0.99,
+                            torch.where(uphill, alpha_start, alpha))
+        v = v_new + dt * f
+        x = x + dt * v
+    with torch.no_grad():
+        return x, energy_fn(x)

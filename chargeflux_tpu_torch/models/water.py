@@ -1,8 +1,9 @@
-"""Flexible 3-site water boxes with charge flux (torch counterpart of
-``chargeflux_tpu.models.water``).
+"""Flexible 3-site water boxes with charge flux, and the rigid box
+(torch counterpart of ``chargeflux_tpu.models.water``).
 
-:func:`water_box` draws from the same NumPy generator in the same order as
-the JAX package, so for equal arguments the positions are bit-identical.
+:func:`water_box` and :func:`rigid_water_box` draw from the same NumPy
+generator in the same order as the JAX package, so for equal arguments the
+positions are bit-identical.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from ..bonded import BondedParams
+from ..constraints import RigidWaterParams
 from ..system import CoulForce
 
 # TIP3P-flavored parameters (charges e, lengths nm, energies kJ/mol).
@@ -85,6 +87,51 @@ def water_bonded_params(n_waters: int, box=None, dtype=torch.float32,
         device=device)
 
 
+def _lattice(n_side, density_spacing, rng, perturb):
+    """One water per lattice site, centers jittered by 0.01 nm."""
+    pos = []
+    for ix in range(n_side):
+        for iy in range(n_side):
+            for iz in range(n_side):
+                center = density_spacing * (np.array([ix, iy, iz]) + 0.5)
+                center += 0.01 * rng.standard_normal(3)
+                pos.append(_one_water(center, rng, perturb=perturb))
+    return np.concatenate(pos, axis=0)
+
+
+def _periodic_force(cutoff, ewald_tol):
+    force = CoulForce()
+    force.setUsesPeriodicBoundaryConditions(True)
+    force.setCutoffDistance(cutoff)
+    force.setEwaldErrorTolerance(ewald_tol)
+    return force
+
+
+def rigid_water_box(n_side: int = 6, cutoff: float = 0.9,
+                    ewald_tol: float = 1e-4, density_spacing: float = 0.3107,
+                    seed: int = 0, dtype=torch.float64, device=None):
+    """Periodic rigid-TIP3P box: exact R_OH / HOH geometry (on the
+    constraint manifold), fixed charges (rigid geometry makes the
+    intramolecular flux constant, so no flux terms), the same LJ and
+    exclusions as the flexible boxes.
+
+    Returns (force, positions [N, 3] float64 NumPy, masses [N], box [3],
+    params), where ``params`` (``constraints.RigidWaterParams``, in
+    ``dtype``, on the card unless ``device`` says otherwise) feeds the
+    RATTLE drivers of :mod:`chargeflux_tpu_torch.constraints`."""
+    rng = np.random.default_rng(seed)
+    force = _periodic_force(cutoff, ewald_tol)
+    n_w = n_side ** 3
+    _build(force, n_w, flux="none")
+    box = np.full(3, n_side * density_spacing)
+    positions = _lattice(n_side, density_spacing, rng, perturb=0.0)
+    masses = np.tile(np.array(WATER_MASSES), n_w)
+    params = RigidWaterParams.create(
+        n_w, d_oh=R_OH, d_hh=float(R_HH), m_o=WATER_MASSES[0],
+        m_h=WATER_MASSES[1], dtype=dtype, device=device)
+    return force, positions, masses, box, params
+
+
 def water_box(n_side: int = 6, flux: str = "bond_angle", cutoff: float = 0.9,
               ewald_tol: float = 1e-4, density_spacing: float = 0.3107,
               seed: int = 0):
@@ -93,20 +140,10 @@ def water_box(n_side: int = 6, flux: str = "bond_angle", cutoff: float = 0.9,
     Returns (force, positions [N, 3] float64 NumPy, masses [N], box [3]).
     """
     rng = np.random.default_rng(seed)
-    force = CoulForce()
-    force.setUsesPeriodicBoundaryConditions(True)
-    force.setCutoffDistance(cutoff)
-    force.setEwaldErrorTolerance(ewald_tol)
+    force = _periodic_force(cutoff, ewald_tol)
     n_w = n_side ** 3
     _build(force, n_w, flux)
     box = np.full(3, n_side * density_spacing)
-    pos = []
-    for ix in range(n_side):
-        for iy in range(n_side):
-            for iz in range(n_side):
-                center = density_spacing * (np.array([ix, iy, iz]) + 0.5)
-                center += 0.01 * rng.standard_normal(3)
-                pos.append(_one_water(center, rng))
-    positions = np.concatenate(pos, axis=0)
+    positions = _lattice(n_side, density_spacing, rng, perturb=0.02)
     masses = np.tile(np.array(WATER_MASSES), n_w)
     return force, positions, masses, box

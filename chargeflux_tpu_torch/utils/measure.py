@@ -1,6 +1,6 @@
-"""Step measurements of the port's NVE paths on one CUDA card.
+"""Step measurements of the port's MD paths on one CUDA card.
 
-    python3 -m chargeflux_tpu_torch.utils.measure profile [--path 216]
+    python3 -m chargeflux_tpu_torch.utils.measure profile [--path 216|rigid|respa]
     python3 -m chargeflux_tpu_torch.utils.measure f64 [--path 216]
 
 ``--path 30k`` (the default) starts from the cell + SPME main path's system
@@ -9,8 +9,14 @@ forced 8^3 cell grid, 64^3 PME mesh at order 8) and the burn-in that
 ``chip_smoke.py`` runs (:func:`burn_in`).  ``--path 216`` starts from the
 dense + classical-Ewald system of :func:`dense_path` at the lattice, at
 rest, as the JAX package's ``bench.py 216`` does; it has no neighbor state,
-and its "rebuild chunks" are 10 steps.  Run from the root of a checkout;
-each prints the card's name and power limit first.
+and its "rebuild chunks" are 10 steps.  ``--path rigid`` is the JAX
+package's ``bench.py rigid`` at the main-path box (:func:`rigid_path`:
+rigid water, fixed charges, RATTLE-BAOAB at 2 fs, 300 K, friction 5/ps
+after a 20/ps burn-in); ``--path respa`` its ``bench.py respa``
+(:func:`respa_path`: flexible water, BAOAB r-RESPA with 4 bonded substeps
+per 2 fs outer step, 300 K, friction 5/ps after 0.2 ps of 0.5 fs
+Langevin).  Run from the root of a checkout; each prints the card's name
+and power limit first.
 
 ``profile``: ms/step from CUDA events of the kernel path replayed as CUDA
 graphs (each rebuild chunk one replay), of the same run eagerly
@@ -24,7 +30,11 @@ the kernel path: the device-busy time (union of the device events'
 intervals), the window's wall time on the host clock, and the idle share
 ``1 - busy / wall`` of that window, over two replays with CUDA activity
 only and with CPU and CUDA activity, and over an eager trajectory (with
-its eager final evaluation).
+its eager final evaluation).  On the rigid path also the device time of
+one step's five constraint projections (two of the positions, three of
+the velocities) and on the RESPA path that of one outer step's bonded
+substeps, each a CUDA graph timed alone, and their share of the step's
+device busy time.
 
 ``f64``: 200 NVE steps of the f32 kernel path beside 200 of the plain f64
 path from one start state: ms/step, net drift, max and RMS of ``E - E0``.
@@ -42,6 +52,10 @@ import time
 import torch
 
 DT_PS = 5e-4              # 0.5 fs, as the JAX package's bench.py
+DT_RIGID = 2e-3           # bench.py rigid's 2 fs step
+N_INNER = 4               # bench.py respa's substeps: 2 fs outer steps
+TEMP = 300.0              # the thermostats' target, K
+FRICTION = 5.0            # production friction, 1/ps (burn-ins: 20)
 KB = 0.00831446261815324  # kJ/mol/K
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): f32 on the
@@ -266,6 +280,133 @@ def burn_in(force, system0, x, masses, box, bonded, n_steps: int = 240):
     return system, state, rebuild_every, info
 
 
+def _reprovision(force, system, positions, margin: float = 1.10):
+    """bench.py's capacity re-provisioning from one relaxed occupancy
+    sample: ``system``, or one with the occupancy times ``margin`` rounded
+    up to 8 slots if that is more."""
+    from .diagnose import max_cell_occupancy
+
+    occ = max_cell_occupancy(positions, system)
+    cap = -(-int(math.ceil(occ * margin)) // 8) * 8
+    if cap <= system.spec.cell_capacity:
+        return system, occ
+    return build_system(force, system.box.cpu().numpy(), cap,
+                        system.box.device, grid=system.spec.cell_grid), occ
+
+
+def rigid_path(device, n_side: int = 22, cutoff: float = 0.72,
+               grid=(8, 8, 8), burn_chunks: int = 200, seed: int = 0):
+    """The JAX package's ``bench.py rigid`` set-up at the main-path box:
+    ``rigid_water_box(n_side=22, cutoff=0.72)`` (31,944 atoms, fixed
+    charges, no bonded terms), f32, forced 8^3 cell grid, SPME.  Maxwell
+    velocities at 300 K, then ``burn_chunks`` rebuild chunks of
+    RATTLE-BAOAB at 2 fs and friction 20/ps on a capacity-1.35 twin with
+    ``rebuild_every`` for 12 nm/ps; the capacity re-provisioned from the
+    relaxed occupancy (margin 1.10) and ``rebuild_every`` taken from the
+    relaxed max speed.  Returns a dict: system, state (evaluated on the
+    system), rebuild_every, masses, params, generator (the one the
+    burn-in drew from, to draw on), e_fns (``make_nb_energy_fn``), info."""
+    from ..cells import suggest_capacity
+    from ..constraints import rattle_langevin_trajectory_nb
+    from ..integrate import init_state_nb, make_nb_energy_fn, maxwell_velocities
+    from ..models import rigid_water_box
+    from ..neighbors import suggest_rebuild_interval
+
+    force, pos, masses, box, params = rigid_water_box(
+        n_side=n_side, cutoff=cutoff, dtype=torch.float32, device=device)
+    cap = suggest_capacity(pos, box, grid, margin=1.1)
+    system = build_system(force, box, cap, device, grid=grid)
+    burn_sys = build_system(force, box, max(cap, suggest_capacity(
+        pos, box, grid, margin=1.35)), device, grid=grid)
+    x = torch.tensor(pos, dtype=torch.float32, device=device)
+    m = torch.tensor(masses, dtype=torch.float32, device=device)
+    e_fn, init_nb = make_nb_energy_fn(burn_sys)
+    hot = suggest_rebuild_interval(burn_sys, DT_RIGID, max_speed=12.0, cap=10)
+    gen = torch.Generator(device).manual_seed(seed)
+    s0 = init_state_nb(x, maxwell_velocities(m, TEMP, gen,
+                                             dtype=torch.float32),
+                       e_fn, init_nb)
+    t0 = time.perf_counter()
+    s_eq, kes = rattle_langevin_trajectory_nb(
+        s0, e_fn, init_nb, m, DT_RIGID, TEMP, 20.0, gen, burn_chunks * hot,
+        params, rebuild_every=hot)
+    if not torch.isfinite(kes).all():
+        raise RuntimeError("rigid burn-in NaN-poisoned")
+    burn_s = time.perf_counter() - t0
+    system, occ = _reprovision(force, system, s_eq.positions)
+    vmax = float(s_eq.velocities.norm(dim=-1).max())
+    rebuild_every = suggest_rebuild_interval(
+        system, DT_RIGID, max_speed=max(4.0, 1.2 * vmax), cap=40)
+    e_fns = make_nb_energy_fn(system)
+    state = init_state_nb(s_eq.positions, s_eq.velocities, *e_fns)
+    return dict(system=system, state=state, rebuild_every=rebuild_every,
+                masses=m, params=params, generator=gen, e_fns=e_fns,
+                info=dict(chunk=hot, steps=burn_chunks * hot,
+                          seconds=burn_s, occupancy=occ, vmax=vmax))
+
+
+def respa_path(device, n_side: int = 22, cutoff: float = 0.72,
+               grid=(8, 8, 8), burn_steps: int = 400, seed: int = 0):
+    """The JAX package's ``bench.py respa`` set-up at the main-path box:
+    flexible ``water_box(n_side=22, flux="bond_angle", cutoff=0.72)`` with
+    ``water_bonded_params``, f32, forced 8^3 cell grid, SPME.  Maxwell
+    velocities at 300 K, then ``burn_steps`` (rounded up to whole chunks)
+    of 0.5 fs BAOAB at friction 20/ps on a capacity-1.35 twin; the
+    capacity re-provisioned from the relaxed occupancy (margin 1.10) and
+    ``rebuild_every`` (outer steps of 2 fs) from the relaxed max speed
+    (times 1.2, at least 8 nm/ps), as for the rigid path: bench.py's flat
+    8 nm/ps bound (every 4 outer steps at 30k) let atoms outrun skin/2,
+    and the freshness guard NaN-poisoned a replayed run on the card.
+    Returns a dict: system, state, bonded,
+    rebuild_every, masses, generator, fns (``make_respa_force_fns``),
+    info."""
+    from ..cells import suggest_capacity
+    from ..integrate import (init_state_nb, langevin_trajectory_nb,
+                             make_nb_energy_fn, make_respa_force_fns,
+                             maxwell_velocities)
+    from ..models import water_bonded_params, water_box
+    from ..neighbors import suggest_rebuild_interval
+
+    force, pos, masses, box = water_box(n_side=n_side, flux="bond_angle",
+                                        cutoff=cutoff)
+    cap = suggest_capacity(pos, box, grid, margin=1.05)
+    system = build_system(force, box, cap, device, grid=grid)
+    burn_sys = build_system(force, box, max(cap, suggest_capacity(
+        pos, box, grid, margin=1.35)), device, grid=grid)
+    x = torch.tensor(pos, dtype=torch.float32, device=device)
+    m = torch.tensor(masses, dtype=torch.float32, device=device)
+    bonded = water_bonded_params(len(masses) // 3, box=box, device=device)
+    e_fn, init_nb = make_nb_energy_fn(burn_sys, bonded=bonded)
+    every_b = suggest_rebuild_interval(burn_sys, DT_PS, max_speed=24.0,
+                                       cap=10)
+    n_burn = -(-burn_steps // every_b) * every_b
+    gen = torch.Generator(device).manual_seed(seed)
+    s0 = init_state_nb(x, maxwell_velocities(m, TEMP, gen,
+                                             dtype=torch.float32),
+                       e_fn, init_nb)
+    t0 = time.perf_counter()
+    s_eq, kes = langevin_trajectory_nb(s0, e_fn, init_nb, m, DT_PS, TEMP,
+                                       20.0, gen, n_burn, every_b)
+    if not torch.isfinite(kes).all():
+        raise RuntimeError("RESPA burn-in NaN-poisoned")
+    burn_s = time.perf_counter() - t0
+    system, occ = _reprovision(force, system, s_eq.positions)
+    fns = make_respa_force_fns(system, bonded)
+    vmax = float(s_eq.velocities.norm(dim=-1).max())
+    rebuild_every = suggest_rebuild_interval(
+        system, DT_PS * N_INNER, max_speed=max(8.0, 1.2 * vmax), cap=40)
+    state = init_state_nb(s_eq.positions, s_eq.velocities, fns[0], fns[2])
+    return dict(system=system, state=state, bonded=bonded,
+                rebuild_every=rebuild_every, masses=m, generator=gen,
+                fns=fns, info=dict(chunk=every_b, steps=n_burn,
+                                   seconds=burn_s, occupancy=occ, vmax=vmax))
+
+
+def ns_per_day(dt_ps: float, ms_per_step: float) -> float:
+    """Simulated ns per day at ``ms_per_step`` for a step of ``dt_ps``."""
+    return dt_ps * 86400.0 / ms_per_step
+
+
 def call_graph(fn):
     """A CUDA graph of GRAPH_REPS back-to-back calls of ``fn``, warmed up
     first on the capture's side stream."""
@@ -390,17 +531,108 @@ def union_length(intervals) -> float:
     return total
 
 
-def _timed_run(state, e_fn, init_nb, masses, n_steps, rebuild_every,
-               graph: bool = True):
-    """(ms/step from CUDA events around one trajectory call, its per-step
-    total energies)."""
-    from ..integrate import nve_trajectory_nb
+def nve_drive(system, state, rebuild_every, masses, bonded):
+    """(drive, owner, init_nb) of an NVE path: ``drive(n_steps, graph,
+    plain)`` runs ``nve_trajectory_nb`` from ``state`` on the kernel path
+    or (``plain``) the plain path's; ``owner`` keeps the kernel path's
+    chunks."""
+    from ..integrate import make_nb_energy_fn, nve_trajectory_nb
 
+    fns = {p: make_nb_energy_fn(system, bonded=bonded, plain=p)
+           for p in (False, True)}
+
+    def drive(n_steps, graph=True, plain=False):
+        return nve_trajectory_nb(state, *fns[plain], masses, DT_PS, n_steps,
+                                 rebuild_every, graph=graph)
+    return drive, fns[False][0], fns[False][1]
+
+
+def rigid_drive(path: dict):
+    """:func:`nve_drive` of the rigid path (:func:`rigid_path`):
+    ``rattle_langevin_trajectory_nb`` at 2 fs, 300 K, friction 5/ps,
+    drawing from the path's generator."""
+    from ..constraints import rattle_langevin_trajectory_nb
+    from ..integrate import make_nb_energy_fn
+
+    fns = {False: path["e_fns"], True: make_nb_energy_fn(path["system"],
+                                                         plain=True)}
+
+    def drive(n_steps, graph=True, plain=False):
+        return rattle_langevin_trajectory_nb(
+            path["state"], *fns[plain], path["masses"], DT_RIGID, TEMP,
+            FRICTION, path["generator"], n_steps, path["params"],
+            path["rebuild_every"], graph=graph)
+    return drive, fns[False][0], fns[False][1]
+
+
+def respa_drive(path: dict):
+    """:func:`nve_drive` of the RESPA path (:func:`respa_path`):
+    ``respa_langevin_trajectory_nb``, 4 substeps of 0.5 fs per outer step,
+    300 K, friction 5/ps, drawing from the path's generator; steps count
+    outer steps."""
+    from ..integrate import make_respa_force_fns, respa_langevin_trajectory_nb
+
+    fns = {False: path["fns"], True: make_respa_force_fns(
+        path["system"], path["bonded"], plain=True)}
+
+    def drive(n_steps, graph=True, plain=False):
+        slow_fn, fast_fn, init_nb = fns[plain]
+        return respa_langevin_trajectory_nb(
+            path["state"], slow_fn, fast_fn, init_nb, path["masses"],
+            DT_PS * N_INNER, N_INNER, TEMP, FRICTION, path["generator"],
+            n_steps, path["rebuild_every"], graph=graph)
+    return drive, fns[False][0], fns[False][2]
+
+
+def projection_work(path: dict):
+    """One rigid step's constraint projections, as the step runs them
+    (velocities, positions, velocities, positions, velocities), at the
+    path's state: the work whose device time :func:`profile` sets beside
+    the step's."""
+    from ..constraints import project_positions, project_velocities
+
+    x, v, params = (path["state"].positions, path["state"].velocities,
+                    path["params"])
+    half = 0.5 * DT_RIGID
+
+    def run():
+        v1 = project_velocities(x, v, params)
+        x1 = project_positions(x, x + half * v1, params)
+        v2 = project_velocities(x1, v1, params)
+        x2 = project_positions(x1, x1 + half * v2, params)
+        return project_velocities(x2, v2, params)
+    return run
+
+
+def substep_work(path: dict):
+    """One RESPA outer step's bonded substeps (BAOAB, the fast force, the
+    fast kick), at the path's state, drawing from the card's default
+    generator."""
+    from ..integrate import baoab_coeffs, baoab_pre_force
+
+    _, fast_fn, _ = path["fns"]
+    x, v = path["state"].positions, path["state"].velocities
+    inv_m = (1.0 / path["masses"])[:, None]
+    f = fast_fn(x)[1]
+    c1, c2 = baoab_coeffs(DT_PS, FRICTION, TEMP)
+
+    def run():
+        xx, vv, ff = x, v, f
+        for _ in range(N_INNER):
+            xx, vv = baoab_pre_force(xx, vv, ff, inv_m, DT_PS, c1, c2, None)
+            ff = fast_fn(xx)[1]
+            vv = vv + 0.5 * DT_PS * ff * inv_m
+        return vv
+    return run
+
+
+def timed(drive, n_steps, graph: bool = True, plain: bool = False):
+    """(ms/step from CUDA events around one ``drive`` call, its per-step
+    records)."""
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     a.record()
-    _, es = nve_trajectory_nb(state, e_fn, init_nb, masses, DT_PS, n_steps,
-                              rebuild_every, graph=graph)
+    _, es = drive(n_steps, graph, plain)
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n_steps, es
@@ -431,29 +663,27 @@ def window(run, n_steps: int, activities) -> dict:
             "idle": 1 - busy / wall, "idle_span": 1 - busy / span}
 
 
-def profile(system, state, rebuild_every, masses, bonded):
+def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
+            parts=None):
     """ms/step of the kernel path replayed as CUDA graphs, the same run
-    eagerly (``graph=False``) and the plain path's replays; then profiler
-    windows over the replays and over the eager run."""
+    eagerly (``graph=False``) and the plain path's replays (``drive`` of
+    :func:`nve_drive` and its kind), with ns/day for a step of ``dt_ps``;
+    then profiler windows over the replays and over the eager run.
+    ``parts`` maps a label to a function whose device time, a CUDA graph
+    timed alone, is set beside the step's device busy time."""
     from torch.profiler import ProfilerActivity
 
-    from ..integrate import make_nb_energy_fn, nve_trajectory_nb
-
-    fns = {p: make_nb_energy_fn(system, bonded=bonded, plain=p)
-           for p in (False, True)}
     n_steps = 10 * rebuild_every
     variants = {"graph": (False, True), "eager": (False, False),
                 "plain graph": (True, True)}
     for plain, graph in variants.values():
         if graph:                       # capture, outside the timed runs
-            _timed_run(state, *fns[plain], masses, rebuild_every,
-                       rebuild_every)
+            timed(drive, rebuild_every, graph, plain)
     times = {v: [] for v in variants}
     order = list(variants)
     for name in order + order[::-1]:
         plain, graph = variants[name]
-        ms, es = _timed_run(state, *fns[plain], masses, n_steps,
-                            rebuild_every, graph)
+        ms, es = timed(drive, n_steps, graph, plain)
         if not torch.isfinite(es).all():
             raise RuntimeError(f"timed run ({name}) NaN-poisoned")
         times[name].append(ms)
@@ -461,12 +691,14 @@ def profile(system, state, rebuild_every, masses, bonded):
           f"call, rebuild_every {rebuild_every}, incl. the eager final "
           f"consistent-state evaluation): "
           + "; ".join(f"{k} {['%.3f' % t for t in v]}"
-                      for k, v in times.items()), flush=True)
+                      for k, v in times.items())
+          + f"; ns/day of the replays "
+          f"{['%.2f' % ns_per_day(dt_ps, t) for t in times['graph']]}",
+          flush=True)
 
-    e_fn, init_nb = fns[False]
     # the captured chunk alone, replayed back to back on the state its
     # last run left (no copy-in, no final evaluation)
-    chunk = next(c for c in e_fn.nve_chunks.values()
+    chunk = next(c for c in owner.nve_chunks.values()
                  if c.k == rebuild_every and c.graph is not None)
 
     def replays(count):
@@ -502,9 +734,8 @@ def profile(system, state, rebuild_every, masses, bonded):
     cuda = [ProfilerActivity.CUDA]
     both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     runs = {"two replays": lambda: replays(2),
-            "eager trajectory": lambda: nve_trajectory_nb(
-                state, e_fn, init_nb, masses, DT_PS, n_win, rebuild_every,
-                graph=False)}
+            "eager trajectory": lambda: drive(n_win, False, False)}
+    busy = None
     for label, run, acts in (("two replays, CUDA only", "two replays", cuda),
                              ("two replays, CPU+CUDA", "two replays", both),
                              ("eager trajectory incl. its final evaluation, "
@@ -514,6 +745,7 @@ def profile(system, state, rebuild_every, masses, bonded):
             print(f"profiler window ({label}): no device events recorded",
                   flush=True)
             continue
+        busy = w["busy"] if busy is None else busy
         print(f"profiler window ({label}), kernel path, {n_win} steps: "
               f"wall {w['wall']:.3f} ms/step "
               f"(host clock); device busy {w['busy']:.3f} ms/step (union of "
@@ -530,10 +762,17 @@ def profile(system, state, rebuild_every, masses, bonded):
         for name, us in ranked[:12] + own:
             print(f"  {us / 1e3 / n_win:8.4f} ms/step  {name[:100]}",
                   flush=True)
+    for label, fn in (parts or {}).items():
+        ms = interleaved_ms([fn])[0]
+        share = "not measured" if busy is None else f"{ms / busy:.3f}"
+        print(f"{label}: {ms:.4f} ms per step (a CUDA graph of "
+              f"{GRAPH_REPS} calls, median of {ROUNDS}); share of the "
+              f"step's device busy time {share}", flush=True)
 
 
 def f64_control(system, state, rebuild_every, masses, box):
-    from ..integrate import init_state_nb, kinetic_energy, make_nb_energy_fn
+    from ..integrate import (init_state_nb, kinetic_energy, make_nb_energy_fn,
+                             nve_trajectory_nb)
     from ..models import water_bonded_params
 
     n = state.positions.shape[0]
@@ -547,7 +786,8 @@ def f64_control(system, state, rebuild_every, masses, box):
         s0 = init_state_nb(state.positions.to(dtype),
                            state.velocities.to(dtype), e_fn, init_nb)
         e0 = float(s0.potential) + float(kinetic_energy(s0.velocities, m))
-        ms, es = _timed_run(s0, e_fn, init_nb, m, 200, rebuild_every)
+        ms, es = timed(lambda n, graph, _plain: nve_trajectory_nb(
+            s0, e_fn, init_nb, m, DT_PS, n, rebuild_every, graph=graph), 200)
         d = es.double().cpu() - e0
         print(f"{label}: 200 steps, {ms:.3f} ms/step (CUDA events); E0 "
               f"{e0:.3f} kJ/mol; drift {float(d[-1]):.4f}; max |E - E0| "
@@ -561,16 +801,20 @@ def f64_control(system, state, rebuild_every, masses, box):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("profile", "f64"))
-    ap.add_argument("--path", choices=("30k", "216"), default="30k")
+    ap.add_argument("--path", choices=("30k", "216", "rigid", "respa"),
+                    default="30k")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: needs a CUDA device")
+    if args.what == "f64" and args.path in ("rigid", "respa"):
+        raise SystemExit("measure f64: NVE paths only (30k, 216)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
+    dt_ps, parts = DT_PS, None
     if args.path == "216":
         from ..integrate import init_state_nb, make_nb_energy_fn
 
@@ -580,6 +824,23 @@ def main(argv=None):
         rebuild_every = 10
         print(f"216 path: {system.n_atoms} atoms, dense, kmax "
               f"{system.spec.kmax}, from the lattice at rest", flush=True)
+    elif args.path in ("rigid", "respa"):
+        path = (rigid_path if args.path == "rigid" else respa_path)(dev)
+        state, rebuild_every = path["state"], path["rebuild_every"]
+        system = path["system"]
+        print(f"{args.path} path: {system.n_atoms} atoms, burned in "
+              f"({path['info']}); capacity {system.spec.cell_capacity}, "
+              f"rebuild_every {rebuild_every}", flush=True)
+        if args.path == "rigid":
+            drive, owner, init_nb = rigid_drive(path)
+            dt_ps = DT_RIGID
+            parts = {"constraint projections (2 positions, 3 velocities)":
+                     projection_work(path)}
+        else:
+            drive, owner, init_nb = respa_drive(path)
+            dt_ps = DT_PS * N_INNER
+            parts = {f"bonded substeps ({N_INNER} BAOAB substeps)":
+                     substep_work(path)}
     else:
         force, x, m, box, bonded, system0 = main_path(dev)
         system, state, rebuild_every, info = burn_in(force, system0, x, m,
@@ -587,10 +848,13 @@ def main(argv=None):
         print(f"burned in: capacity {system.spec.cell_capacity}, "
               f"rebuild_every {rebuild_every}, vmax {info['vmax']:.2f} "
               f"nm/ps", flush=True)
-    if args.what == "profile":
-        profile(system, state, rebuild_every, m, bonded)
-    else:
+    if args.what == "f64":
         f64_control(system, state, rebuild_every, m, box)
+        return
+    if args.path in ("30k", "216"):
+        drive, owner, init_nb = nve_drive(system, state, rebuild_every, m,
+                                          bonded)
+    profile(drive, owner, init_nb, state, rebuild_every, dt_ps, parts)
 
 
 if __name__ == "__main__":

@@ -46,6 +46,23 @@ dense + classical-Ewald path (``bench.py 216``).  Phases, in order:
    ms/step are printed.  The launch counts are reset just before the 200
    steps (whose graphs that check captured) and each kernel of that path
    must have launched: a replay counts the launches its capture counted;
+5c. rigid NVT at the 30k box (the JAX package's ``bench.py rigid``,
+   ``utils.measure.rigid_path``): rigid water, fixed charges,
+   RATTLE-BAOAB at 2 fs after its 20/ps burn-in, then 200 steps at
+   300 K and 5/ps;
+5d. r-RESPA NVT at the 30k box (``bench.py respa``,
+   ``utils.measure.respa_path``): flexible water after 0.2 ps of 0.5 fs
+   Langevin, then 200 outer steps of 2 fs, 4 bonded BAOAB substeps each
+   (the rebuild interval from the relaxed max speed, as for rigid);
+   in 5c and 5d the chunk check runs as in 5 from one generator state
+   (re-seeded before each run: the replays must draw the eager run's
+   normals), and a further call with the generator carried on must draw
+   new ones; over the 200 timed steps (ms/step and ns/day printed, the
+   counts reset before them) the energies must be finite, the spread and
+   walk kernels must have launched, the mean kinetic temperature must be
+   within 10 % of 300 K (rigid: 3N - n_constraints degrees of freedom) and,
+   for rigid water, the largest |constraint residual| at the end at most
+   1e-4 nm^2;
 6. a JSON line with each kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
@@ -80,6 +97,8 @@ KERNELS = {
     "sf_bwd_zq": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:172", "216"),
 }
 N_STEPS = 200
+T_TOL = 0.10          # the NVT phases' mean temperature, relative to 300 K
+RESIDUAL_TOL = 1e-4   # nm^2, the JAX package's f32 constraint tolerance
 WALK_TOLS = (1e-5, 1e-4, 1e-4)  # the walk's energy, dE/dx and dE/dq
 
 
@@ -267,18 +286,16 @@ def run_md(force, system0, x, masses, box):
     import torch
 
     from chargeflux_tpu_torch import ops
-    from chargeflux_tpu_torch.integrate import (kinetic_energy,
-                                                make_nb_energy_fn,
-                                                nve_trajectory_nb)
+    from chargeflux_tpu_torch.integrate import kinetic_energy
     from chargeflux_tpu_torch.models import water_bonded_params
     from chargeflux_tpu_torch.ops import direct_walk as dw
-    from chargeflux_tpu_torch.utils.measure import (DT_PS, burn_in,
-                                                    drifted_blocks)
+    from chargeflux_tpu_torch.utils.measure import (burn_in, drifted_blocks,
+                                                    nve_drive)
 
     bonded = water_bonded_params(x.shape[0] // 3, box=box, device=x.device)
     system, s1, rebuild_every, info = burn_in(force, system0, x, masses, box,
                                               bonded)
-    e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
+    drive, e_fn, _ = nve_drive(system, s1, rebuild_every, masses, bonded)
     print(f"phase 5 burn-in: {info['chunk']}-step chunks, {info['chunks']} "
           f"chunks in {info['seconds']:.1f} s; relaxed peak occupancy "
           f"{info['occupancy']} -> capacity {system.spec.cell_capacity}; "
@@ -296,14 +313,13 @@ def run_md(force, system0, x, masses, box):
         agree("direct_walk", lambda: dw.direct_walk(*walk_args),
               lambda: dw.direct_walk_plain(*walk_args), WALK_TOLS, where)
 
-    ms_eager, _ = check_chunks("5", s1, e_fn, init_nb, masses, rebuild_every)
+    ms_eager, _ = check_chunks("5", drive, rebuild_every)
     n_steps = N_STEPS
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
-    final, es = nve_trajectory_nb(s1, e_fn, init_nb, masses, DT_PS, n_steps,
-                                  rebuild_every)
+    final, es = drive(n_steps, True, False)
     b.record()
     torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -326,29 +342,30 @@ def run_md(force, system0, x, masses, box):
     return check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager
 
 
-def check_chunks(phase, state, e_fn, init_nb, masses, rebuild_every):
+def check_chunks(phase, drive, rebuild_every, gen=None):
     """The same start state through two rebuild chunks and a remainder
     chunk (the remainder of N_STEPS, so the counted run that follows finds
-    every graph it replays captured), eagerly (``graph=False``) and as
-    CUDA graph replays: per-step energies, final positions and velocities
-    bit-equal.  The eager run, once warm, runs under
-    ``set_sync_debug_mode("error")``: no step, rebuild or final evaluation
-    reads a device value on the host.  Returns the eager and the replayed
-    ms/step (CUDA events around the trajectory call, which include the
-    eager final consistent-state evaluation)."""
+    every graph it replays captured) by ``drive(n, graph, plain)`` of
+    ``utils.measure``, eagerly (``graph=False``) and as CUDA graph replays:
+    per-step records, final positions and velocities bit-equal.  The eager
+    run, once warm, runs under ``set_sync_debug_mode("error")``: no step,
+    rebuild or final evaluation reads a device value on the host.  For a
+    stochastic driver (``gen``, the generator it draws from) every run
+    starts from the same generator state (``gen`` re-seeded), and one more
+    call with the generator carried on must draw new noise.  Returns the
+    eager and the replayed ms/step (CUDA events around the trajectory call,
+    which include the eager final consistent-state evaluation)."""
     import torch
-
-    from chargeflux_tpu_torch.integrate import nve_trajectory_nb
-    from chargeflux_tpu_torch.utils.measure import DT_PS
 
     rem = N_STEPS % rebuild_every or max(1, rebuild_every // 2)
     n = 2 * rebuild_every + rem
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
-    def run(graph):
+    def run(graph, seed=29):
+        if gen is not None and seed is not None:
+            gen.manual_seed(seed)
         a.record()
-        out = nve_trajectory_nb(state, e_fn, init_nb, masses, DT_PS, n,
-                                rebuild_every, graph=graph)
+        out = drive(n, graph, False)
         b.record()
         return out
 
@@ -370,18 +387,101 @@ def check_chunks(phase, state, e_fn, init_nb, masses, rebuild_every):
     same = all(torch.equal(u, v) for out in (first, replay) for u, v in (
         (eager[1], out[1]), (eager[0].positions, out[0].positions),
         (eager[0].velocities, out[0].velocities)))
+    fresh = None
+    if gen is not None:
+        fresh = not torch.equal(run(True, seed=None)[1], replay[1])
     print(f"phase {phase} chunks: {n} steps ({rebuild_every}-step chunks and "
-          f"a {rem}-step remainder), eager (graph=False, under "
-          f"set_sync_debug_mode('error')) {ms_eager:.3f} ms/step, first "
-          f"call (capture + replays) {ms_capture:.3f}, replays "
-          f"{ms_graph:.3f} ms/step (CUDA events, incl. the eager final "
-          f"evaluation); energies, positions and velocities bit-equal: "
-          f"{same}", flush=True)
+          f"a {rem}-step remainder){'' if gen is None else ' from one generator state'}, "
+          f"eager (graph=False, under set_sync_debug_mode('error')) "
+          f"{ms_eager:.3f} ms/step, first call (capture + replays) "
+          f"{ms_capture:.3f}, replays {ms_graph:.3f} ms/step (CUDA events, "
+          f"incl. the eager final evaluation); records, positions and "
+          f"velocities bit-equal: {same}"
+          + ("" if gen is None else f"; the generator carried on draws new "
+             f"noise: {fresh}"), flush=True)
     if not torch.isfinite(eager[1]).all():
-        fail(f"phase {phase}: non-finite energies in the chunk check")
+        fail(f"phase {phase}: non-finite records in the chunk check")
     if not same:
         fail(f"phase {phase}: graph replays differ from the eager chunks")
+    if fresh is False:
+        fail(f"phase {phase}: a second call drew the same noise")
     return ms_eager, ms_graph
+
+
+def run_nvt(phase, label, path, drive, dt_ps, params=None):
+    """Phases 5c / 5d: the chunk check, then N_STEPS timed replayed steps
+    with the launch counts reset before them; checks finite energies, the
+    spread and walk kernels' launches, the mean kinetic temperature and,
+    with ``params``, the constraint residual.  Returns (launches, ms/step,
+    eager ms/step)."""
+    import torch
+
+    from chargeflux_tpu_torch import ops
+    from chargeflux_tpu_torch.constraints import constraint_residuals
+    from chargeflux_tpu_torch.units import BOLTZ
+    from chargeflux_tpu_torch.utils.measure import ns_per_day
+
+    every, n_atoms = path["rebuild_every"], path["system"].n_atoms
+    info = path["info"]
+    print(f"phase {phase} {label} burn-in: {info['steps']} steps in "
+          f"{info['chunk']}-step chunks, {info['seconds']:.1f} s; relaxed "
+          f"peak occupancy {info['occupancy']} -> capacity "
+          f"{path['system'].spec.cell_capacity}; rebuild_every {every}",
+          flush=True)
+    ms_eager, _ = check_chunks(phase, drive, every, path["generator"])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    final, kes = drive(N_STEPS, True, False)
+    b.record()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    ms = a.elapsed_time(b) / N_STEPS
+    n_c = 0 if params is None else params.n_constraints
+    temps = 2.0 * kes.double().cpu() / ((3 * n_atoms - n_c) * BOLTZ)
+    t_mean = float(temps.mean())
+    res = (float(constraint_residuals(final.positions, params).abs().max())
+           if params is not None else None)
+    print(f"phase {phase} {label}: {N_STEPS} steps as CUDA graph replays, "
+          f"{ms:.3f} ms/step (CUDA events, incl. the eager final "
+          f"evaluation), {ns_per_day(dt_ps, ms):.2f} ns/day at "
+          f"{dt_ps * 1e3:g} fs; eager {ms_eager:.3f} ms/step; mean "
+          f"temperature {t_mean:.2f} K over the window (3N - {n_c} degrees "
+          f"of freedom); max |constraint residual| "
+          f"{'none' if res is None else '%.3e nm^2' % res}; final potential "
+          f"{float(final.potential):.3f} kJ/mol; launches {launches}",
+          flush=True)
+    if not (torch.isfinite(kes).all() and math.isfinite(
+            float(final.potential)) and torch.isfinite(final.positions).all()):
+        fail(f"phase {phase}: non-finite energies or positions")
+    if not abs(t_mean / 300.0 - 1.0) <= T_TOL:
+        fail(f"phase {phase}: mean temperature {t_mean:.2f} K is not within "
+             f"{T_TOL:.0%} of 300 K")
+    if res is not None and not res <= RESIDUAL_TOL:
+        fail(f"phase {phase}: constraint residual {res:.3e} nm^2 exceeds "
+             f"{RESIDUAL_TOL:g}")
+    return check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager
+
+
+def run_rigid(dev):
+    """Phase 5c: rigid NVT at the 30k box."""
+    from chargeflux_tpu_torch.utils.measure import (DT_RIGID, rigid_drive,
+                                                    rigid_path)
+
+    path = rigid_path(dev)
+    drive, _, _ = rigid_drive(path)
+    return run_nvt("5c", "rigid NVT", path, drive, DT_RIGID, path["params"])
+
+
+def run_respa(dev):
+    """Phase 5d: r-RESPA NVT at the 30k box (steps are outer steps)."""
+    from chargeflux_tpu_torch.utils.measure import (DT_PS, N_INNER,
+                                                    respa_drive, respa_path)
+
+    path = respa_path(dev)
+    drive, _, _ = respa_drive(path)
+    return run_nvt("5d", "RESPA NVT", path, drive, DT_PS * N_INNER)
 
 
 def check_launches(launches, path, ok):
@@ -472,21 +572,18 @@ def run_dense_md(x, masses, bonded, system):
     import torch
 
     from chargeflux_tpu_torch import ops
-    from chargeflux_tpu_torch.integrate import (init_state_nb,
-                                                kinetic_energy,
-                                                make_nb_energy_fn,
-                                                nve_trajectory_nb)
-    from chargeflux_tpu_torch.utils.measure import DT_PS
+    from chargeflux_tpu_torch.integrate import init_state_nb, make_nb_energy_fn
+    from chargeflux_tpu_torch.utils.measure import nve_drive
 
-    e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
-    s0 = init_state_nb(x, torch.zeros_like(x), e_fn, init_nb)
-    ms_eager, _ = check_chunks("5b", s0, e_fn, init_nb, masses, 10)
+    s0 = init_state_nb(x, torch.zeros_like(x),
+                       *make_nb_energy_fn(system, bonded=bonded))
+    drive, _, _ = nve_drive(system, s0, 10, masses, bonded)
+    ms_eager, _ = check_chunks("5b", drive, 10)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
-    final, es = nve_trajectory_nb(s0, e_fn, init_nb, masses, DT_PS, N_STEPS,
-                                  rebuild_every=10)
+    final, es = drive(N_STEPS, True, False)
     b.record()
     torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -558,12 +655,27 @@ def main():
     check_energy(sys_d, x_d, "4b")
     launches, ms_step, ms_eager = run_md(force, system, x, m, box)
     launches_d, ms_d, ms_eager_d = run_dense_md(x_d, m_d, bonded_d, sys_d)
+    launches_r, ms_r, ms_eager_r = run_rigid(dev)
+    launches_m, ms_m, ms_eager_m = run_respa(dev)
     for name, count in {**launches, **launches_d}.items():
         results[name]["launches"] = count
+    for key, counts in (("launches_rigid", launches_r),
+                        ("launches_respa", launches_m)):
+        for name, count in counts.items():
+            results[name][key] = count
+    from chargeflux_tpu_torch.utils.measure import ns_per_day
+
     print(json.dumps({"kernels": list(results.values()),
                       "ms_per_step": ms_step, "ms_per_step_216": ms_d,
                       "ms_per_step_eager": ms_eager,
-                      "ms_per_step_216_eager": ms_eager_d}), flush=True)
+                      "ms_per_step_216_eager": ms_eager_d,
+                      "ms_per_step_rigid": ms_r,
+                      "ms_per_step_rigid_eager": ms_eager_r,
+                      "ns_per_day_rigid": ns_per_day(2e-3, ms_r),
+                      "ms_per_step_respa": ms_m,
+                      "ms_per_step_respa_eager": ms_eager_m,
+                      "ns_per_day_respa": ns_per_day(2e-3, ms_m)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

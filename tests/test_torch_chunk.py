@@ -20,7 +20,7 @@ from chargeflux_tpu.models import water_bonded_params as jax_bonded_params
 from chargeflux_tpu_torch import cells, integrate, ops
 from chargeflux_tpu_torch.models import water_bonded_params
 
-from torch_helpers import jax_water, water_systems
+from torch_helpers import forbid_host_traffic, jax_water, water_systems
 
 jintegrate = importlib.import_module("chargeflux_tpu.integrate")
 
@@ -239,21 +239,6 @@ def test_maxwell_velocities_refuse_a_generator_of_another_device(case):
         integrate.maxwell_velocities(masses, 300.0, gen)
 
 
-_PATCHED = ("tensor", "as_tensor", "bincount")
-_PATCHED_METHODS = ("item", "tolist", "__bool__", "__float__", "__int__")
-
-
-def _forbid_host_traffic(monkeypatch):
-    for name in _PATCHED:
-        def refuse(*a, _name=name, **k):
-            raise AssertionError(f"torch.{_name} inside a chunk")
-        monkeypatch.setattr(torch, name, refuse)
-    for name in _PATCHED_METHODS:
-        def refuse_m(self, *a, _name=name, **k):
-            raise AssertionError(f"Tensor.{_name} inside a chunk")
-        monkeypatch.setattr(torch.Tensor, name, refuse_m)
-
-
 @pytest.mark.parametrize("route", ["cell_nb", "dense_nb", "cell_binning"])
 def test_a_chunk_makes_no_host_copy_and_reads_nothing_back(route,
                                                            monkeypatch):
@@ -284,7 +269,7 @@ def test_a_chunk_makes_no_host_copy_and_reads_nothing_back(route,
     run(1)
     want = run(5)
     with monkeypatch.context() as patch:
-        _forbid_host_traffic(patch)
+        forbid_host_traffic(patch)
         got = run(5)
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0].positions, want[0].positions)

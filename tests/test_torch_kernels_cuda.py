@@ -846,3 +846,220 @@ def test_launch_counts_equal_the_profilers_kernel_counts(md_paths, name):
     for k in names:
         assert counts[k] == 2 * chunk.captured[k] + 1, k
         assert traced[k] == counts[k], (k, traced, counts)
+
+
+# ---------------------------------------------------------------------------
+# stochastic and constrained drivers: noise drawn inside the CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nvt_paths(md_paths):
+    """Per driver, ``run(n_steps, graph, generator, state=None) ->
+    (final_state, records)`` and its chunk length, on the small cell +
+    SPME box of ``setup`` (flexible, from its lattice at rest, 0.5 fs
+    steps) and on a rigid box (rigid_water_box(n_side=9, cutoff=0.6),
+    fixed charges, from rest, 1 fs steps: the lattice start heats fast);
+    rebuilt every 4 steps (RESPA and rigid, whose steps are longer: every
+    2)."""
+    from chargeflux_tpu_torch import constraints as con
+    from chargeflux_tpu_torch import integrate as it
+    from chargeflux_tpu_torch.models import rigid_water_box
+
+    system, bonded, s0, masses, _ = md_paths["cell"]
+    dev = s0.positions.device
+    force, pos, m_r, box, params = rigid_water_box(
+        n_side=9, cutoff=0.6, dtype=torch.float32, device=dev)
+    rsys = force.create_system(box=box, dtype=torch.float32,
+                               direct_method="cell", recip_method="pme",
+                               device=dev)
+    xr = torch.tensor(pos, dtype=torch.float32, device=dev)
+    mr = torch.tensor(m_r, dtype=torch.float32, device=dev)
+    fns = dict(nb=it.make_nb_energy_fn(system, bonded=bonded),
+               plain=it.make_energy_fn(system, bonded=bonded),
+               respa=it.make_respa_force_fns(system, bonded),
+               rnb=it.make_nb_energy_fn(rsys),
+               rplain=it.make_energy_fn(rsys))
+    r0 = it.init_state_nb(xr, torch.zeros_like(xr), *fns["rnb"])
+    dt, t, fr = 5e-4, 300.0, 20.0
+    dt_r = 1e-3
+
+    def plain_state(s):
+        return it.MDState(s.positions, s.velocities, s.forces, s.potential)
+
+    runs = {
+        "langevin_nb": (lambda n, g, gen, s: it.langevin_trajectory_nb(
+            s or s0, *fns["nb"], masses, dt, t, fr, gen, n, 4, graph=g), 4),
+        "langevin": (lambda n, g, gen, s: it.langevin_trajectory(
+            plain_state(s or s0), fns["plain"], masses, dt, t, fr, gen, n,
+            graph=g), it.STEPS_PER_CHUNK),
+        "respa_nb": (lambda n, g, gen, s: it.respa_trajectory_nb(
+            s or s0, *fns["respa"], masses, 2 * dt, 2, n, 2, graph=g), 2),
+        "respa_langevin_nb": (
+            lambda n, g, gen, s: it.respa_langevin_trajectory_nb(
+                s or s0, *fns["respa"], masses, 2 * dt, 2, t, fr, gen, n, 2,
+                graph=g), 2),
+        "rattle_langevin_nb": (
+            lambda n, g, gen, s: con.rattle_langevin_trajectory_nb(
+                s or r0, *fns["rnb"], mr, dt_r, t, fr, gen, n, params, 2,
+                graph=g), 2),
+        "rattle_langevin": (
+            lambda n, g, gen, s: con.rattle_langevin_trajectory(
+                (s or r0).positions, (s or r0).velocities, fns["rplain"], mr,
+                dt_r, t, fr, gen, n, params, graph=g), it.STEPS_PER_CHUNK),
+        "rattle_nve": (lambda n, g, gen, s: con.rattle_nve_trajectory(
+            (s or r0).positions, (s or r0).velocities, fns["rplain"], mr,
+            dt_r, n, params, graph=g), it.STEPS_PER_CHUNK),
+    }
+    owners = dict(langevin_nb=fns["nb"][0], langevin=fns["plain"],
+                  respa_nb=fns["respa"][0], respa_langevin_nb=fns["respa"][0],
+                  rattle_langevin_nb=fns["rnb"][0],
+                  rattle_langevin=fns["rplain"], rattle_nve=fns["rplain"])
+    return dict(runs=runs, owners=owners, params=params, device=dev)
+
+
+NOISY = ["langevin_nb", "langevin", "respa_langevin_nb", "rattle_langevin_nb",
+         "rattle_langevin"]
+NVT_DRIVERS = pytest.mark.parametrize("driver", NOISY + ["respa_nb",
+                                                         "rattle_nve"])
+
+
+def _records(out):
+    """(positions, velocities, records) of an integrate or a constraints
+    driver's result."""
+    final, rec = out
+    if isinstance(final, tuple):
+        return final[0], final[1], rec
+    return final.positions, final.velocities, rec
+
+
+@NVT_DRIVERS
+def test_noise_chunk_replays_give_the_eager_chunks_bits(nvt_paths, driver):
+    """Two chunks and a remainder from one generator state (re-seeded
+    before each run): the replays of the first call (which captures) and
+    of a second call give graph=False's positions, velocities and
+    per-step records bit for bit; the noise is drawn inside the graph
+    (the generator is registered with it), each chunk is one graph."""
+    run, every = nvt_paths["runs"][driver]
+    gen = torch.Generator(nvt_paths["device"])
+    n = 2 * every + 1
+    owner = nvt_paths["owners"][driver]
+    before = set(owner.__dict__.get("nve_chunks", {}))
+    outs = []
+    for graph in (False, True, True):
+        gen.manual_seed(12)
+        outs.append(_records(run(n, graph, gen, None)))
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0][2]).all() and outs[0][2].shape == (n,)
+    new = [c for k, c in owner.nve_chunks.items() if k not in before]
+    assert len(new) == 2 and all(c.graph is not None for c in new)
+    for got in outs[1:]:
+        for u, v in zip(outs[0], got):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("driver", NOISY)
+def test_successive_calls_draw_new_noise_on_the_card(nvt_paths, driver):
+    """Two replayed calls from the same state with the generator carried
+    on draw different normals (their records differ); the generator moved
+    on as far as the eager run moves it."""
+    run, every = nvt_paths["runs"][driver]
+    gen = torch.Generator(nvt_paths["device"]).manual_seed(3)
+    a = _records(run(every, True, gen, None))[2]
+    b = _records(run(every, True, gen, None))[2]
+    offset = gen.get_offset()
+    gen.manual_seed(3)
+    run(every, False, gen, None)
+    run(every, False, gen, None)
+    torch.cuda.synchronize()
+    assert not torch.equal(a, b)
+    assert gen.get_offset() == offset
+
+
+@pytest.mark.parametrize("driver", ["langevin_nb", "rattle_langevin_nb"])
+def test_resume_with_the_generator_carried_on_the_card(nvt_paths, driver):
+    """Replayed, one call of 4 chunks equals two calls of 2 with the
+    generator carried across: bit for bit for langevin_trajectory_nb, to
+    round-off for the rattle driver (it projects the initial velocities
+    of each call again): positions within 1e-5 nm in f32."""
+    run, every = nvt_paths["runs"][driver]
+    gen = torch.Generator(nvt_paths["device"]).manual_seed(8)
+    whole = run(4 * every, True, gen, None)
+    gen.manual_seed(8)
+    half = run(2 * every, True, gen, None)
+    both = run(2 * every, True, gen, half[0])
+    torch.cuda.synchronize()
+    recs = torch.cat([half[1], both[1]])
+    if driver == "langevin_nb":
+        assert torch.equal(recs, whole[1])
+        for f in ("positions", "velocities", "forces"):
+            assert torch.equal(getattr(both[0], f), getattr(whole[0], f)), f
+    else:
+        assert torch.isfinite(recs).all()
+        assert float((both[0].positions - whole[0].positions).abs().max()) \
+            <= 1e-5
+
+
+@NVT_DRIVERS
+def test_a_warm_eager_noise_chunk_makes_no_host_sync(nvt_paths, driver):
+    """Once warm, a whole eager run of two chunks and a remainder (noise,
+    projections, rebuilds, the final evaluation) runs under
+    ``set_sync_debug_mode("error")``."""
+    run, every = nvt_paths["runs"][driver]
+    gen = torch.Generator(nvt_paths["device"]).manual_seed(5)
+    n = 2 * every + 1
+    run(n, False, gen, None)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, rec = _records(run(n, False, gen, None))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(rec).all()
+
+
+def test_a_new_generator_captures_anew(nvt_paths):
+    """A graph belongs to the generator it captured: a call with another
+    generator captures its own chunk, whose replays give that generator's
+    eager bits; the first generator's graph is kept and still replays."""
+    run, every = nvt_paths["runs"]["langevin_nb"]
+    owner = nvt_paths["owners"]["langevin_nb"]
+    dev = nvt_paths["device"]
+    g1, g2 = (torch.Generator(dev).manual_seed(s) for s in (1, 2))
+    run(every, True, g1, None)
+    before = {k: c.graph for k, c in owner.nve_chunks.items()}
+    got = run(every, True, g2, None)[1]
+    new = [c for k, c in owner.nve_chunks.items() if k not in before]
+    assert len(new) == 1 and new[0].generator is g2
+    assert all(owner.nve_chunks[k].graph is g for k, g in before.items())
+    g2.manual_seed(2)
+    want = run(every, False, g2, None)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_a_dropped_chunk_collected_during_a_capture_does_not_break_it(
+        md_paths):
+    """A chunk kept on an energy function sits in a reference cycle, so
+    once dropped its graph waits for the cyclic collector.  With the
+    collector made to run at almost every allocation, a capture that
+    follows such a drop still succeeds (the chunk collects first and holds
+    the collector off while it captures) and replays the eager bits."""
+    import gc
+
+    from chargeflux_tpu_torch.integrate import make_nb_energy_fn
+
+    path = md_paths["dense"]
+    every = path[4]
+    dropped = make_nb_energy_fn(path[0], bonded=path[1])
+    _trajectory(path, every + 1, True, dropped)
+    assert all(c.graph is not None for c in dropped[0].nve_chunks.values())
+    del dropped
+    fns = make_nb_energy_fn(path[0], bonded=path[1])
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        got = _trajectory(path, every + 1, True, fns)
+    finally:
+        gc.set_threshold(*thresholds)
+    _same_bits(_trajectory(path, every + 1, False, fns), got)

@@ -262,3 +262,46 @@ def test_traced_launches_counts_each_wrappers_kernel():
         "spread_fwd": 1, "spread_bwd": 1, "direct_walk": 1, "sf_fwd": 0,
         "sf_bwd_tables": 2, "sf_bwd_zq": 0}
     assert len(measure.device_events(events)) == 6
+
+
+def test_rigid_path_small_box():
+    """rigid_path at n_side 6 (3^3 cells at cutoff 0.5) with two burn-in
+    chunks: a finite state on the returned system, on the constraint
+    manifold within 1e-4 nm^2 (the f32 tolerance), capacity no smaller
+    than the lattice's; its driver takes a remainder on the kernel and the
+    plain paths, and the step's projection work runs."""
+    from chargeflux_tpu_torch.constraints import constraint_residuals
+
+    path = measure.rigid_path(torch.device("cpu"), n_side=6, cutoff=0.5,
+                              grid=(3, 3, 3), burn_chunks=2)
+    state, every = path["state"], path["rebuild_every"]
+    assert path["info"]["steps"] == 2 * path["info"]["chunk"]
+    assert 1 <= every <= 40 and path["system"].spec.cell_grid == (3, 3, 3)
+    assert torch.isfinite(state.potential) and torch.isfinite(
+        state.forces).all()
+    assert float(constraint_residuals(state.positions,
+                                      path["params"]).abs().max()) <= 1e-4
+    drive, owner, init_nb = measure.rigid_drive(path)
+    for plain in (False, True):
+        fin, kes = drive(every + 1, True, plain)
+        assert kes.shape == (every + 1,) and torch.isfinite(kes).all()
+    assert measure.projection_work(path)().shape == state.positions.shape
+    assert measure.ns_per_day(measure.DT_RIGID, 4.0) == pytest.approx(43.2)
+
+
+def test_respa_path_small_box():
+    """respa_path at n_side 6 (3^3 cells at cutoff 0.55) with an 8-step
+    burn-in: a finite state on the returned system; one outer RESPA step
+    on the kernel and the plain paths is finite, and an outer step's
+    bonded substeps run."""
+    path = measure.respa_path(torch.device("cpu"), n_side=6, cutoff=0.55,
+                              grid=(3, 3, 3), burn_steps=8)
+    state = path["state"]
+    assert path["info"]["steps"] >= 8
+    assert torch.isfinite(state.potential) and torch.isfinite(
+        state.forces).all()
+    drive, owner, init_nb = measure.respa_drive(path)
+    for plain in (False, True):
+        fin, kes = drive(1, True, plain)
+        assert kes.shape == (1,) and torch.isfinite(kes).all()
+    assert measure.substep_work(path)().shape == state.positions.shape

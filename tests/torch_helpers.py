@@ -144,3 +144,71 @@ def lattice_blocks(grid, cap, counts, edge, seed, dtype=torch.float64,
                        device=device)
     return (*blocks, torch.tensor(ids.reshape(shape), device=device), box,
             n_atoms)
+
+
+def maxwell_start(pos, masses, seed=11, temp=300.0):
+    """(positions, Maxwell velocities at ``temp`` K from a NumPy seed): both
+    packages get the same numbers."""
+    rng = np.random.default_rng(seed)
+    sig = np.sqrt(0.008314462618 * temp / np.asarray(masses))[:, None]
+    return pos, rng.standard_normal(pos.shape) * sig
+
+
+def jax_chunk_normals(key, n_chunks, rebuild_every, shape, n_inner=1):
+    """The normals a chunked JAX driver draws, in draw order: per chunk
+    ``k, sub = split(k)`` and one key of ``split(sub, rebuild_every)`` per
+    step; a RESPA outer step splits its key once more into ``n_inner``
+    (and uses it whole when ``n_inner`` is 1)."""
+    import jax
+    import jax.numpy as jnp
+
+    out = []
+    k = key
+    for _ in range(n_chunks):
+        k, sub = jax.random.split(k)
+        for kk in jax.random.split(sub, rebuild_every):
+            keys = [kk] if n_inner == 1 else jax.random.split(kk, n_inner)
+            out.extend(np.asarray(jax.random.normal(ki, shape, jnp.float64))
+                       for ki in keys)
+    return out
+
+
+def jax_normals(keys, shape):
+    """``jax.random.normal`` of each key, in f64."""
+    import jax
+    import jax.numpy as jnp
+
+    return [np.asarray(jax.random.normal(k, shape, jnp.float64))
+            for k in keys]
+
+
+def inject_noise(monkeypatch, normals):
+    """Make the port's ``integrate.normal_noise`` hand out ``normals`` in
+    order (the JAX package's, so both draw the same noise)."""
+    from chargeflux_tpu_torch import integrate
+
+    it = iter(normals)
+
+    def given(like, generator):
+        return torch.tensor(next(it)).to(like.dtype)
+
+    monkeypatch.setattr(integrate, "normal_noise", given)
+    return it
+
+
+_PATCHED = ("tensor", "as_tensor", "bincount")
+_PATCHED_METHODS = ("item", "tolist", "__bool__", "__float__", "__int__")
+
+
+def forbid_host_traffic(monkeypatch):
+    """Make ``torch.tensor``, ``torch.as_tensor``, ``torch.bincount`` and the
+    Tensor methods that read a value on the host raise: the CPU stand-in
+    for a CUDA graph capture, which refuses host copies and reads."""
+    for name in _PATCHED:
+        def refuse(*a, _name=name, **k):
+            raise AssertionError(f"torch.{_name} inside a chunk")
+        monkeypatch.setattr(torch, name, refuse)
+    for name in _PATCHED_METHODS:
+        def refuse_m(self, *a, _name=name, **k):
+            raise AssertionError(f"Tensor.{_name} inside a chunk")
+        monkeypatch.setattr(torch.Tensor, name, refuse_m)
