@@ -102,6 +102,14 @@ class BondedParams:
                    angle_theta0=f(angle_theta0), box=f(box), pbc=pbc,
                    template=template)
 
+    def astype(self, dtype) -> "BondedParams":
+        """Cast the float tensors to ``dtype`` (index tensors untouched)."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(dtype)
+            for f in dataclasses.fields(self)
+            if f.init and torch.is_tensor(getattr(self, f.name))
+            and getattr(self, f.name).is_floating_point()})
+
 
 def bonded_energy(positions: torch.Tensor,
                   bonded: BondedParams) -> torch.Tensor:

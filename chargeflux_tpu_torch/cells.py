@@ -24,7 +24,7 @@ import torch
 
 from .device import constant
 from .ops.direct_walk import direct_walk, direct_walk_plain
-from .pairs import frac_coords
+from .pairs import frac_coords, lattice_cart
 
 # Half-shell shift set: (0,0,0) self + 13 lexicographically positive shifts.
 HALF_SHELL = [(0, 0, 0)] + [
@@ -35,11 +35,12 @@ HALF_SHELL = [(0, 0, 0)] + [
 
 
 def wrap_offsets(positions: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
-    """Lattice translation [N, 3] that wraps each position into the box
-    (``positions - wrap_offsets`` lies in [0, L)); orthorhombic boxes."""
+    """Lattice translation [N, 3] that wraps each position into the primary
+    cell (``positions - wrap_offsets`` has fractional coordinates in
+    [0, 1)): ``box * floor(x / box)`` for an orthorhombic box, ``floor(f)
+    @ B`` for a [3, 3] lattice (expanded elementwise)."""
     if box.ndim == 2:
-        raise NotImplementedError("triclinic boxes are not ported yet "
-                                  "(ROADMAP.md)")
+        return lattice_cart(torch.floor(frac_coords(positions, box)), box)
     return box * torch.floor(positions / box)
 
 
@@ -66,8 +67,9 @@ def neighbor_cell_table(grid) -> np.ndarray:
 def full_shell_tables(grid):
     """(nbr [C, 27] int32, image_offsets [C, 27, 3] int8): the
     :func:`neighbor_cell_table` and, per entry, the periodic image offset
-    of the neighbor cell in box units — what the direct-walk kernel
-    reads."""
+    of the neighbor cell in lattice units (the kernel adds ``im[a] * L_a``,
+    or for a [3, 3] box the lattice rows ``im[a] * B[a]``) — what the
+    direct-walk kernel reads."""
     gx, gy, gz = grid
     cx, cy, cz = _cell_coords(grid)
     off = []

@@ -459,9 +459,9 @@ def _rattle_verlet(force, masses, dt, params):
     """One RATTLE velocity-Verlet step as an ``integrate.Chunk`` step;
     ``force(x, nb) -> (energy, forces)``; its record is the total
     energy."""
-    inv_m = (1.0 / masses)[:, None]
 
     def step(carry, nb):
+        inv_m = (1.0 / masses)[:, None]
         x, v, f = carry
         v_half = v + 0.5 * dt * f * inv_m
         x_new = project_positions(x, x + dt * v_half, params)
@@ -490,7 +490,6 @@ def _rattle_baoab(force, masses, dt, temperature, friction, generator,
     and O stage projects the velocities, each A half-drift the positions
     (folding the impulse into the velocities); its record is the kinetic
     energy."""
-    inv_m = (1.0 / masses)[:, None]
     c1, c2 = integrate.baoab_coeffs(dt, friction, temperature)
 
     def a_half(xx, vv):
@@ -498,6 +497,7 @@ def _rattle_baoab(force, masses, dt, temperature, friction, generator,
         return x_new, (x_new - xx) / (0.5 * dt)
 
     def step(carry, nb):
+        inv_m = (1.0 / masses)[:, None]
         xx, vv, ff = carry
         vv = project_velocities(xx, vv + 0.5 * dt * ff * inv_m, params)  # B
         xx, vv = a_half(xx, vv)                                          # A
@@ -511,22 +511,24 @@ def _rattle_baoab(force, masses, dt, temperature, friction, generator,
     return step
 
 
-def _dense_run(x, v, energy_fn, n_steps, graph, key, step, generator=None,
-               keep=()):
+def _dense_run(x, v, energy_fn, masses, n_steps, graph, key, make_step,
+               params, generator=None):
     """The dense RATTLE drivers' loop: chunks of
-    ``integrate.STEPS_PER_CHUNK`` from (x, v, F(x)); returns ((x, v, f,
-    potential at the last positions), per-step records)."""
+    ``integrate.STEPS_PER_CHUNK`` (``make_step(masses, generator)`` gives
+    a step) from (x, v, F(x)); returns ((x, v, f, potential at the last
+    positions), per-step records)."""
     if n_steps <= 0:
         raise ValueError("n_steps must be positive")
     _e0, f0 = integrate._energy_and_forces(energy_fn, x)
 
     def make(k):
-        return integrate.Chunk(step, None, k, (x,) * 3, graph, generator,
-                               keep=keep)
+        return integrate.Chunk(make_step, None, k, (x,) * 3, graph, masses,
+                               generator, keep=(params,))
 
     last, out = integrate._run_chunks(
-        integrate._chunk_getter(energy_fn, graph, x, key, make), (x, v, f0),
-        n_steps, integrate.STEPS_PER_CHUNK)
+        integrate._chunk_getter(energy_fn, graph, x, masses,
+                                key + (id(params),), make), (x, v, f0),
+        n_steps, integrate.STEPS_PER_CHUNK, masses, generator)
     x_fin = last.x.clone()
     with torch.no_grad():
         e_pot = energy_fn(x_fin)
@@ -541,12 +543,13 @@ def rattle_nve_trajectory(x, v, energy_fn, masses, dt: float, n_steps: int,
     the constraint manifold first.  Returns ((x, v, f, potential),
     per-step total energies)."""
     v = project_velocities(x, v, params)
-    step = _rattle_verlet(
-        lambda xx, nb: integrate._energy_and_forces(energy_fn, xx), masses,
-        dt, params)
-    key = ("rattle_nve", id(masses), id(params), float(dt))
-    return _dense_run(x, v, energy_fn, n_steps, graph, key, step,
-                      keep=(masses, params))
+
+    def make_step(m, _generator):
+        return _rattle_verlet(
+            lambda xx, nb: integrate._energy_and_forces(energy_fn, xx), m,
+            dt, params)
+    return _dense_run(x, v, energy_fn, masses, n_steps, graph,
+                      ("rattle_nve", float(dt)), make_step, params)
 
 
 def rattle_langevin_trajectory(x, v, energy_fn, masses, dt: float,
@@ -558,13 +561,14 @@ def rattle_langevin_trajectory(x, v, energy_fn, masses, dt: float,
     Returns ((x, v, f, potential), per-step kinetic energies)."""
     integrate._check_generator(generator, x.device)
     v = project_velocities(x, v, params)
-    step = _rattle_baoab(
-        lambda xx, nb: integrate._energy_and_forces(energy_fn, xx), masses,
-        dt, temperature, friction, generator, params)
-    key = ("rattle_langevin", id(masses), id(params), id(generator),
-           float(dt), float(temperature), float(friction))
-    return _dense_run(x, v, energy_fn, n_steps, graph, key, step, generator,
-                      keep=(masses, params, generator))
+
+    def make_step(m, g):
+        return _rattle_baoab(
+            lambda xx, nb: integrate._energy_and_forces(energy_fn, xx), m,
+            dt, temperature, friction, g, params)
+    key = ("rattle_langevin", float(dt), float(temperature), float(friction))
+    return _dense_run(x, v, energy_fn, masses, n_steps, graph, key,
+                      make_step, params, generator)
 
 
 def rattle_langevin_trajectory_nb(state, e_fn, init_nb, masses, dt: float,
@@ -587,14 +591,14 @@ def rattle_langevin_trajectory_nb(state, e_fn, init_nb, masses, dt: float,
     v0 = project_velocities(x, state.velocities, params)
 
     def make(k):
-        step = _rattle_baoab(lambda xx, nb: e_fn(xx, nb)[:2], masses, dt,
-                             temperature, friction, generator, params)
-        return integrate.Chunk(step, init_nb, k, (x,) * 3, graph, generator,
-                               keep=(masses, params, generator))
+        return integrate.Chunk(lambda m, g: _rattle_baoab(
+            lambda xx, nb: e_fn(xx, nb)[:2], m, dt, temperature, friction, g,
+            params), init_nb, k, (x,) * 3, graph, masses, generator,
+            keep=(params,))
 
-    key = ("rattle_langevin_nb", init_nb, id(masses), id(params),
-           id(generator), float(dt), float(temperature), float(friction))
+    key = ("rattle_langevin_nb", init_nb, id(params), float(dt),
+           float(temperature), float(friction))
     chunk, kes = integrate._run_chunks(
-        integrate._chunk_getter(e_fn, graph, x, key, make),
-        (x, v0, state.forces), n_steps, rebuild_every)
+        integrate._chunk_getter(e_fn, graph, x, masses, key, make),
+        (x, v0, state.forces), n_steps, rebuild_every, masses, generator)
     return integrate._final_nb(chunk, e_fn, init_nb), kes

@@ -1,6 +1,8 @@
 // Fused direct-space walk over the cell blocks, for sm_90a: erfc Coulomb
 // plus prefactored LJ over every in-cutoff pair, emitting the energy, dE/dx
-// and dE/dq in one launch.
+// and dE/dq in one launch.  Two instantiations: the orthorhombic box ([3]
+// edge lengths) and the reduced triclinic lattice ([3, 3] rows), which
+// differ only in how a neighbor tile's image offset becomes Cartesian.
 //
 // Replaces chargeflux_tpu/cells.py _concat_fused_walk / _concat_tile (the
 // JAX package's hand-VJP XLA walk; the reference did this work in CUDA,
@@ -229,17 +231,30 @@ __device__ __forceinline__ void evaluate(
   }
 }
 
-template <int NC, int MAXT, int MINB>
-__global__ void __launch_bounds__(MAXT, MINB) direct_walk_kernel(
-    const float* __restrict__ bx, const float* __restrict__ by,
-    const float* __restrict__ bz, const float* __restrict__ bq,
-    const float* __restrict__ bhs, const float* __restrict__ bse,
-    const int* __restrict__ ids, const int* __restrict__ nbr,
-    const int* __restrict__ img, const float* __restrict__ box,
-    const float* __restrict__ coef, int ncoef, float ws, float cut2,
-    int n_atoms, int cap, int stage, int list_cap,
-    float* __restrict__ e_part, float* __restrict__ grad,
-    float* __restrict__ dq_out, int n_slots) {
+// The kernels' parameters, and the names that pass them on.
+#define WALK_PARAMS                                                        \
+  const float *__restrict__ bx, const float *__restrict__ by,              \
+      const float *__restrict__ bz, const float *__restrict__ bq,          \
+      const float *__restrict__ bhs, const float *__restrict__ bse,        \
+      const int *__restrict__ ids, const int *__restrict__ nbr,            \
+      const int *__restrict__ img, const float *__restrict__ box,          \
+      const float *__restrict__ coef, int ncoef, float ws, float cut2,     \
+      int n_atoms, int cap, int stage, int list_cap,                       \
+      float *__restrict__ e_part, float *__restrict__ grad,                \
+      float *__restrict__ dq_out, int n_slots
+#define WALK_ARGS                                                          \
+  bx, by, bz, bq, bhs, bse, ids, nbr, img, box, coef, ncoef, ws, cut2,     \
+      n_atoms, cap, stage, list_cap, e_part, grad, dq_out, n_slots
+
+// One i-cell's walk.  TRICLINIC: the box is the [3, 3] row-major reduced
+// lower-triangular lattice B, and a neighbor tile's integer image offset
+// im turns into the lattice rows im[0] B[0] + im[1] B[1] + im[2] B[2];
+// otherwise the box is the [3] edge lengths and the offset im[k] L[k].
+// Everything after the offset (the cull against the i atoms' bounding box,
+// the distance tests, the pair terms) works in Cartesian space, so it
+// holds for a sheared box as it is.
+template <int NC, bool TRICLINIC>
+__device__ __forceinline__ void walk_cell(WALK_PARAMS) {
   extern __shared__ float4 smem4[];
   float4* sA = smem4;                                    // x, y, z, q
   float2* sB = reinterpret_cast<float2*>(sA + stage);    // hs, se
@@ -267,9 +282,15 @@ __global__ void __launch_bounds__(MAXT, MINB) direct_walk_kernel(
   if (lane < 27) {
     const int* im = img + (c * 27 + lane) * 3;
     my_tile0 = nbr[c * 27 + lane] * cap;
-    my_ox = im[0] * box[0];
-    my_oy = im[1] * box[1];
-    my_oz = im[2] * box[2];
+    if (TRICLINIC) {
+      my_ox = im[0] * box[0] + im[1] * box[3] + im[2] * box[6];
+      my_oy = im[1] * box[4] + im[2] * box[7];
+      my_oz = im[2] * box[8];
+    } else {
+      my_ox = im[0] * box[0];
+      my_oy = im[1] * box[1];
+      my_oz = im[2] * box[2];
+    }
   }
 
   float cf[NC];
@@ -511,6 +532,20 @@ __global__ void __launch_bounds__(MAXT, MINB) direct_walk_kernel(
   }
 }
 
+// The two instantiations have names of their own, so that a profiler
+// trace tells them apart.
+template <int NC, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB)
+    direct_walk_kernel(WALK_PARAMS) {
+  walk_cell<NC, false>(WALK_ARGS);
+}
+
+template <int NC, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB)
+    direct_walk_tri_kernel(WALK_PARAMS) {
+  walk_cell<NC, true>(WALK_ARGS);
+}
+
 // The arguments of cf_direct_walk, as the launches pass them on.
 struct WalkArgs {
   const float *x, *y, *z, *q, *hs, *se;
@@ -523,15 +558,17 @@ struct WalkArgs {
 };
 
 template <int NC, int MAXT, int MINB>
-cudaError_t launch(const Plan& p, const WalkArgs& a, cudaStream_t s) {
+cudaError_t launch(const Plan& p, const WalkArgs& a, bool triclinic,
+                   cudaStream_t s) {
+  auto kernel = triclinic ? direct_walk_tri_kernel<NC, MAXT, MINB>
+                          : direct_walk_kernel<NC, MAXT, MINB>;
   const size_t smem = p.smem();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        direct_walk_kernel<NC, MAXT, MINB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  direct_walk_kernel<NC, MAXT, MINB><<<a.n_cells, p.threads, smem, s>>>(
+  kernel<<<a.n_cells, p.threads, smem, s>>>(
       a.x, a.y, a.z, a.q, a.hs, a.se, a.ids, a.nbr, a.img, a.box, a.coef,
       a.ncoef, a.ws, a.cut2, a.n_atoms, a.cap, p.stage, p.list_cap, a.e_part,
       a.grad, a.dq, a.n_cells * a.cap);
@@ -550,15 +587,17 @@ int cf_walk_limits(int* max_coef, int* max_cap) {
 }
 
 // Blocks x..se and ids are [n_cells, cap]; nbr [n_cells, 27] int32, img
-// [n_cells, 27, 3] int32 image offsets in box units; box [3]; coef [ncoef]
-// ascending monomial coefficients.  Outputs: e_part [n_cells], grad
-// [3, n_cells * cap], dq [n_cells * cap].
+// [n_cells, 27, 3] int32 image offsets in lattice units; box [3] edge
+// lengths, or with `triclinic` the [3, 3] row-major reduced lattice; coef
+// [ncoef] ascending monomial coefficients.  Outputs: e_part [n_cells],
+// grad [3, n_cells * cap], dq [n_cells * cap].
 int cf_direct_walk(const float* x, const float* y, const float* z,
                    const float* q, const float* hs, const float* se,
                    const int* ids, const int* nbr, const int* img,
                    const float* box, const float* coef, int ncoef, float ws,
                    float cut2, int n_atoms, int n_cells, int cap,
-                   float* e_part, float* grad, float* dq, void* stream) {
+                   int triclinic, float* e_part, float* grad, float* dq,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cap < 1 || cap > kMaxCap || ncoef < 1 || ncoef > kMaxCoef)
     return (int)cudaErrorInvalidValue;
@@ -569,11 +608,13 @@ int cf_direct_walk(const float* x, const float* y, const float* z,
                       grad, dq};
   // the polynomial of ops/erfc.py has 13 coefficients; any other count
   // runs the 16-coefficient chain on zero-padded coefficients
+  const bool tri = triclinic != 0;
   if (p.cap_warps <= kSmallWarps)
-    return (int)(ncoef == 13 ? launch<13, kSmallThreads, 2>(p, a, s)
-                             : launch<kMaxCoef, kSmallThreads, 2>(p, a, s));
-  return (int)(ncoef == 13 ? launch<13, 1024, 1>(p, a, s)
-                           : launch<kMaxCoef, 1024, 1>(p, a, s));
+    return (int)(ncoef == 13
+                     ? launch<13, kSmallThreads, 2>(p, a, tri, s)
+                     : launch<kMaxCoef, kSmallThreads, 2>(p, a, tri, s));
+  return (int)(ncoef == 13 ? launch<13, 1024, 1>(p, a, tri, s)
+                           : launch<kMaxCoef, 1024, 1>(p, a, tri, s));
 }
 
 }  // extern "C"

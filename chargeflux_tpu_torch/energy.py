@@ -7,7 +7,8 @@ autograd through :func:`charges.effective_charges`.
 Routes, as in the JAX package:
 
 * non-periodic: the masked all-pairs 1/r Coulomb + LJ, ``{"pair": ...}``;
-* periodic, orthorhombic: self energy, [dispersion tail,] direct space,
+* periodic, orthorhombic or a reduced [3, 3] lattice (triclinic): self
+  energy, [dispersion tail,] direct space,
   exclusion correction and reciprocal.  Direct space is the dense masked
   pair sum (``direct_method="dense"``) or the fused cell walk
   (``"cell"``).  The reciprocal is the cell-column SPME (``"pme"``, cell
@@ -20,8 +21,8 @@ device in f32 where JAX has the TPU in f32: the cell route takes "pme";
 the dense route "pallas" while the half-space k count
 Kx (2 Ky - 1)(2 Kz - 1) is below 4000 and the grid is within the
 structure-factor kernels' Ky / 2Kz limits, else "xla"; on the CPU or in
-f64, "xla".  Triclinic boxes and dense direct space with the dense-mesh PME
-raise ``NotImplementedError`` (ROADMAP.md lists them).
+f64, "xla".  Dense direct space with the dense-mesh PME raises
+``NotImplementedError`` (ROADMAP.md lists it).
 
 The walk and the spread take their kernels or their plain versions by the
 system's ``kernel_route``, fixed when it is built: a system in f64 (the
@@ -178,9 +179,6 @@ def resolve_recip_method(spec, dtype, device) -> str:
 
 
 def _check_route(system: ChargeFluxSystem, recip: str):
-    if system.box.ndim == 2:
-        raise NotImplementedError(
-            "triclinic boxes are not ported yet (ROADMAP.md)")
     if system.spec.direct_method != "cell" and recip == "pme":
         raise NotImplementedError(
             "the dense-mesh PME reciprocal (pme.pme_reciprocal_energy) is "

@@ -12,7 +12,9 @@ plane, weighted 1/2 at kx == 0 and 0 at the origin:
 
 * ``"xla"``, the plain factorized product: q folded into the combined
   [Kx*Ky, N] tables cxy/sxy, contracted with [cos_z | sin_z] by
-  ``torch.matmul`` (the JAX package leaves this product to XLA too);
+  ``device.ieee_matmul`` (the JAX package leaves this product to XLA too,
+  with its precision pinned; here IEEE f32 whatever the caller's TF32
+  switches say);
 * ``"pallas"``, which keeps the JAX spec string and here names the
   hand-written structure-factor kernel (``ops/structure_factor.py``,
   ``csrc/structure_factor.cu``): q folded into zq = q [cos_z | sin_z], the
@@ -30,9 +32,9 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .device import device_key
+from .device import device_key, ieee_matmul
 from .ops.structure_factor import structure_factor, xy_tables
-from .pairs import box_volume, frac_coords, reciprocal_metric
+from .pairs import box_volume, frac_coords, metric_k2, reciprocal_metric
 from .units import ONE_4PI_EPS0, SQRT_PI
 
 
@@ -132,17 +134,26 @@ def structure_factors(positions, q, box, kmax, method: str = "xla",
     cx, sx, cy, sy, cz, sz = phase_tables(positions, box, kmax)
     cxy, sxy = xy_tables(cx.T, sx.T, cy.T, sy.T)       # [Kx*Ky, N]
     cz_sz = torch.cat([cz, sz], dim=1)                 # [N, 2Kz]
-    return assemble((cxy * q) @ cz_sz, (sxy * q) @ cz_sz, kz)
+    return assemble(ieee_matmul(cxy * q, cz_sz), ieee_matmul(sxy * q, cz_sz),
+                    kz)
 
 
 def reciprocal_energy_from_sf(s_cos, s_sin, box, alpha: float, kmax):
-    """E_rec from assembled structure factors (orthorhombic box)."""
+    """E_rec from assembled structure factors; for a [3, 3] lattice |k|^2
+    = n . G . n takes the three cross terms of the reciprocal metric on
+    the signed integer frequencies."""
     dtype, dev = s_cos.dtype, s_cos.device
     grid = kgrid_tensors(kmax, dtype, dev)
-    sqx, sqy, sqz = grid.sq
-    g = torch.diagonal(reciprocal_metric(box, dtype))  # (2 pi / L)^2
-    k2 = (g[0] * sqx[:, None, None] + g[1] * sqy[None, :, None]
-          + g[2] * sqz[None, None, :]).reshape(grid.w.shape)
+    if box.ndim == 2:
+        nx, ny, nz = grid.n
+        k2 = metric_k2(reciprocal_metric(box, dtype), nx[:, None, None],
+                       ny[None, :, None], nz[None, None, :]).reshape(
+                           grid.w.shape)
+    else:
+        sqx, sqy, sqz = grid.sq
+        g = torch.diagonal(reciprocal_metric(box, dtype))  # (2 pi / L)^2
+        k2 = (g[0] * sqx[:, None, None] + g[1] * sqy[None, :, None]
+              + g[2] * sqz[None, None, :]).reshape(grid.w.shape)
     k2_safe = torch.where(k2 > 0, k2, 1.0)
     eak = torch.exp(-k2_safe * (0.25 / (alpha * alpha))) / k2_safe
     wk = grid.w * eak

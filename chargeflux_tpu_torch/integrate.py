@@ -18,9 +18,11 @@ device (``device.constant``), the binning takes its cell starts from the
 sorted ids, and each chunk's first capture follows one eager warm-up step
 on the capture's side stream, which fills every cache (constants, cuFFT
 plans, the kernel library).  The graphs are kept on the energy function
-(:func:`chunk_for`) and replayed by every later call with the same energy
-function, masses tensor, generator, coefficients and chunk length; each
-call copies the caller's state into the static buffers first.
+(:func:`chunk_for`) under a key of what they compute (:func:`chunk_key`:
+the driver and its float coefficients, the chunk length, the shapes,
+types and device), and replayed by every later call with the same key;
+each call copies the caller's state and masses into the chunk's own
+buffers first.
 
 Noise.  The stochastic drivers take a ``torch.Generator`` where the JAX
 package takes a PRNG key, and draw every O-step's normals through
@@ -30,11 +32,12 @@ the same generator on.  One call of 2n steps of
 :func:`langevin_trajectory_nb` equals two calls of n steps with the
 generator carried across, bit for bit (the final state keeps the carry
 forces); ``constraints.rattle_langevin_trajectory_nb`` resumes to
-round-off, as in the JAX package.  A capture registers the generator with
-the graph and restores its state after the warm-up step and the capture,
-so each replay draws the numbers an eager chunk draws from the same
-generator state and advances the generator as far.  A graph belongs to
-the generator it captured: a call with another generator captures anew.
+round-off, as in the JAX package.  A chunk that replays a graph owns a
+generator of its own, registered with the graph: before each replay it
+takes the caller's generator state, after it gives the caller the state
+it reached, so each replay draws the numbers an eager chunk draws from the
+same generator state and advances the caller's generator as far.  Any
+generator of the device replays the same graph.
 The normals are torch's, not ``jax.random``'s: the two packages agree in
 distribution, and the tests hold the drivers to the JAX package by handing
 both the same normals.
@@ -57,6 +60,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import math
+import time
 
 import torch
 
@@ -244,30 +248,41 @@ class Chunk:
     ``rebuild`` gives one, then ``k`` steps (the JAX package's ``outer`` of
     its packed chunks).
 
-    ``step(carry, nb) -> (carry, potential, record)`` is one step on the
-    carry, a tuple of tensors with the positions first; the chunk writes
-    its last carry and potential and its per-step records ``es`` [k] into
-    the buffers in place.  With ``graph`` (a CUDA device) the first
-    :meth:`load` captures the chunk into a CUDA graph, after one eager
-    warm-up step on the capture's side stream, and each call replays it.
-    ``generator`` is the one the steps draw their noise from (None for the
-    deterministic drivers): the capture registers it with the graph and
-    restores its state after the warm-up step and the capture.  ``keep``
-    holds the objects whose ids are in the chunk's key (see
-    :func:`chunk_for`)."""
+    ``make_step(masses, generator)`` gives ``step(carry, nb) -> (carry,
+    potential, record)``, one step on the carry, a tuple of tensors with
+    the positions first; the chunk writes its last carry and potential and
+    its per-step records ``es`` [k] into the buffers in place.  The step
+    reads the masses and draws its noise (``generator``; None for the
+    deterministic drivers) from what it is given: the caller's own on the
+    CPU or with ``graph=False``.  With ``graph`` (a CUDA device) the chunk
+    owns a masses buffer and a generator, and the first :meth:`load`
+    captures it into a CUDA graph, after one eager warm-up step on the
+    capture's side stream; each call replays it.  :meth:`load` copies the
+    caller's masses in, and a replay runs from the caller's generator
+    state and hands back the state it reached.  ``keep`` holds the
+    objects whose ids are in the chunk's key (see :func:`chunk_key`)."""
 
-    def __init__(self, step, rebuild, k: int, carry_like, graph: bool,
-                 generator=None, keep=()):
-        self.step, self.rebuild, self.k = step, rebuild, k
+    def __init__(self, make_step, rebuild, k: int, carry_like, graph: bool,
+                 masses, generator=None, keep=()):
+        self.rebuild, self.k = rebuild, k
         self.carry = tuple(torch.empty_like(t) for t in carry_like)
         like = self.carry[0]
         self.potential = like.new_empty(())
         self.es = like.new_empty((k,))
         self.nb = None            # static NeighborState after the first rebuild
-        self.generator, self.keep = generator, keep
         self.want_graph = graph and like.is_cuda
+        if self.want_graph:
+            masses = torch.empty_like(masses)
+            if generator is not None:
+                generator = torch.Generator(like.device)
+        self.masses, self.generator = masses, generator
+        self.source = None        # the caller's generator of a replay
+        self.step = make_step(masses, generator)
+        self.keep = keep
         self.graph = None
         self.captured = {}        # kernel launches of one replay
+        self.capture_bytes = 0    # device memory the graph's pool reserved
+        self.capture_seconds = 0.0  # the capture, its warm-up step included
 
     @property
     def x(self):
@@ -281,12 +296,17 @@ class Chunk:
     def f(self):
         return self.carry[2]
 
-    def load(self, *carry):
-        """Copy a state into the static inputs (capturing first, if this
-        chunk replays a graph that is not captured yet)."""
-        if self.want_graph and self.graph is None:
-            self._copy_in(carry)
-            self._capture()
+    def load(self, *carry, masses=None, generator=None):
+        """Copy a state into the static inputs and, for a chunk that
+        replays a graph, the caller's ``masses`` into its own and
+        ``generator`` as the one its replays follow (capturing first, if
+        the graph is not captured yet)."""
+        if self.want_graph:
+            self.masses.copy_(masses)
+            self.source = generator
+            if self.graph is None:
+                self._copy_in(carry)
+                self._capture()
         self._copy_in(carry)
 
     def _copy_in(self, carry):
@@ -298,7 +318,12 @@ class Chunk:
         if self.graph is None:
             self.run()
             return
+        own, source = self.generator, self.source
+        if own is not None:
+            own.set_state(source.get_state())
         self.graph.replay()
+        if own is not None:
+            source.set_state(own.get_state())
         ops.add_launches(self.captured)
 
     def run(self, n_steps: int | None = None):
@@ -327,8 +352,10 @@ class Chunk:
         return self.nb
 
     def _capture(self):
+        # the warm-up step draws from the chunk's own generator, whose
+        # state each replay sets anew
         gen = self.generator
-        saved = gen.get_state() if gen is not None else None
+        t0 = time.perf_counter()
         side = torch.cuda.Stream(self.x.device)
         side.wait_stream(torch.cuda.current_stream(self.x.device))
         with torch.cuda.stream(side):
@@ -345,6 +372,10 @@ class Chunk:
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        # the capture empties the allocator's cache as it starts; empty it
+        # first, so that what it reserves after is the graph's pool
+        torch.cuda.empty_cache()
+        pool0 = torch.cuda.memory_reserved(self.x.device)
         try:
             with ops.captured_launches() as self.captured:
                 with torch.cuda.graph(graph, stream=side):
@@ -352,9 +383,10 @@ class Chunk:
         finally:
             if collecting:
                 gc.enable()
-        if gen is not None:
-            gen.set_state(saved)
         self.graph = graph
+        # the graph's private memory pool: what the card reserved for it
+        self.capture_bytes = torch.cuda.memory_reserved(self.x.device) - pool0
+        self.capture_seconds = time.perf_counter() - t0
 
 
 #: The chunk's earlier name, from when its only step was the NVE one.
@@ -367,30 +399,42 @@ def chunk_for(energy_fn, make, key) -> Chunk:
     that later calls replay its graph.  A chunk, its graph and the graph's
     memory pool live as long as the energy function; a trajectory call
     uses at most two (its chunk length and its remainder's).  The chunk
-    holds the objects whose ids are in ``key`` (masses, generator,
-    constraint parameters), so their ids stay theirs."""
+    holds the objects whose ids are in ``key`` (constraint parameters, the
+    fast force function), so their ids stay theirs."""
     kept = energy_fn.__dict__.setdefault("nve_chunks", {})
     if key not in kept:
         kept[key] = make()
     return kept[key]
 
 
-def _chunk_getter(owner, graph: bool, like, key, make):
+def chunk_key(base: tuple, k: int, like, masses) -> tuple:
+    """The key a chunk of ``k`` steps is kept under: ``base`` (the driver,
+    its float coefficients and the ids of the functions and parameters it
+    closes over), then ``k`` and the shapes, types and device of the carry
+    (``like``) and the masses.  No tensor or generator identity enters it:
+    fresh masses tensors and generators replay one graph."""
+    return base + (k, tuple(like.shape), like.dtype, device_key(like.device),
+                   tuple(masses.shape), masses.dtype)
+
+
+def _chunk_getter(owner, graph: bool, like, masses, key, make):
     """``get_chunk(k)`` for :func:`_run_chunks`: ``make(k)`` eagerly on the
-    CPU or with ``graph=False``, else the chunk kept on ``owner`` for
-    ``key`` and the chunk's length and carry."""
+    CPU or with ``graph=False``, else the chunk kept on ``owner`` under
+    :func:`chunk_key`."""
     def get_chunk(k):
         if not (graph and like.is_cuda):
             return make(k)
-        return chunk_for(owner, lambda: make(k), key + (
-            k, tuple(like.shape), like.dtype, like.device))
+        return chunk_for(owner, lambda: make(k),
+                         chunk_key(key, k, like, masses))
     return get_chunk
 
 
-def _run_chunks(get_chunk, carry, n_steps: int, k: int):
+def _run_chunks(get_chunk, carry, n_steps: int, k: int, masses,
+                generator=None):
     """``n_steps`` in chunks of ``k`` steps, then one chunk of the
-    remainder (the JAX package's ``outer`` and ``outer_rem``); returns the
-    last chunk run and the per-step records [n_steps]."""
+    remainder (the JAX package's ``outer`` and ``outer_rem``), on
+    ``masses`` and drawing from ``generator``; returns the last chunk run
+    and the per-step records [n_steps]."""
     es = carry[0].new_empty((n_steps,))
     n_full, rem = divmod(n_steps, k)
     done, chunk = 0, None
@@ -398,7 +442,7 @@ def _run_chunks(get_chunk, carry, n_steps: int, k: int):
         if count == 0:
             continue
         chunk = get_chunk(length)
-        chunk.load(*carry)
+        chunk.load(*carry, masses=masses, generator=generator)
         for _ in range(count):
             chunk()
             es[done:done + length].copy_(chunk.es)
@@ -435,18 +479,20 @@ def nve_trajectory_nb(state: MDStateNB, e_fn, init_nb, masses, dt: float,
         return state, state.positions.new_zeros((0,))
     x = state.positions
 
-    def make(k):
-        half = (0.5 * dt / masses)[:, None]
-
+    def make_step(m, _generator):
         def step(carry, nb):
-            x, v, f, e = _verlet_nb(e_fn, half, dt, *carry, nb)
-            return (x, v, f), e, e + kinetic_energy(v, masses)
-        return Chunk(step, init_nb, k, (x,) * 3, graph, keep=(masses,))
+            x, v, f, e = _verlet_nb(e_fn, (0.5 * dt / m)[:, None], dt,
+                                    *carry, nb)
+            return (x, v, f), e, e + kinetic_energy(v, m)
+        return step
 
-    get_chunk = _chunk_getter(e_fn, graph, x, ("nb", init_nb, id(masses),
-                                               float(dt)), make)
+    def make(k):
+        return Chunk(make_step, init_nb, k, (x,) * 3, graph, masses)
+
+    get_chunk = _chunk_getter(e_fn, graph, x, masses,
+                              ("nb", init_nb, float(dt)), make)
     chunk, es = _run_chunks(get_chunk, (x, state.velocities, state.forces),
-                            n_steps, rebuild_every)
+                            n_steps, rebuild_every, masses)
     return _final_nb(chunk, e_fn, init_nb), es
 
 
@@ -467,18 +513,20 @@ def nve_trajectory(state: MDState, energy_fn, masses, dt: float,
         return state, state.positions.new_zeros((0,))
     x = state.positions
 
-    def make(k):
-        inv_m = (1.0 / masses)[:, None]
-
+    def make_step(m, _generator):
         def step(carry, nb):
-            x, v, f, e = _verlet(energy_fn, inv_m, dt, *carry, nb)
-            return (x, v, f), e, e + kinetic_energy(v, masses)
-        return Chunk(step, None, k, (x,) * 3, graph, keep=(masses,))
+            x, v, f, e = _verlet(energy_fn, (1.0 / m)[:, None], dt, *carry,
+                                 nb)
+            return (x, v, f), e, e + kinetic_energy(v, m)
+        return step
 
-    get_chunk = _chunk_getter(energy_fn, graph, x,
-                              ("plain", id(masses), float(dt)), make)
+    def make(k):
+        return Chunk(make_step, None, k, (x,) * 3, graph, masses)
+
+    get_chunk = _chunk_getter(energy_fn, graph, x, masses,
+                              ("plain", float(dt)), make)
     last, es = _run_chunks(get_chunk, (x, state.velocities, state.forces),
-                           n_steps, STEPS_PER_CHUNK)
+                           n_steps, STEPS_PER_CHUNK, masses)
     return MDState(last.x.clone(), last.v.clone(), last.f.clone(),
                    last.potential.clone()), es
 
@@ -517,10 +565,10 @@ def baoab_pre_force(x, v, f, inv_m, dt, c1, c2, generator):
 def _baoab_step(force, masses, dt, temperature, friction, generator):
     """One BAOAB step as a :class:`Chunk` step; ``force(x, nb) -> (energy,
     forces)``.  Its record is the kinetic energy."""
-    inv_m = (1.0 / masses)[:, None]
     c1, c2 = baoab_coeffs(dt, friction, temperature)
 
     def step(carry, nb):
+        inv_m = (1.0 / masses)[:, None]
         x, v = baoab_pre_force(*carry, inv_m, dt, c1, c2, generator)
         e, f = force(x, nb)
         v = v + 0.5 * dt * f * inv_m                                # B
@@ -555,16 +603,16 @@ def langevin_trajectory(state: MDState, energy_fn, masses, dt: float,
     _check_generator(generator, x.device)
 
     def make(k):
-        step = _baoab_step(lambda xx, nb: _energy_and_forces(energy_fn, xx),
-                           masses, dt, temperature, friction, generator)
-        return Chunk(step, None, k, (x,) * 3, graph, generator,
-                     keep=(masses, generator))
+        return Chunk(lambda m, g: _baoab_step(
+            lambda xx, nb: _energy_and_forces(energy_fn, xx), m, dt,
+            temperature, friction, g), None, k, (x,) * 3, graph, masses,
+            generator)
 
-    key = ("langevin", id(masses), id(generator), float(dt),
-           float(temperature), float(friction))
-    last, kes = _run_chunks(_chunk_getter(energy_fn, graph, x, key, make),
-                            (x, state.velocities, state.forces), n_steps,
-                            STEPS_PER_CHUNK)
+    key = ("langevin", float(dt), float(temperature), float(friction))
+    last, kes = _run_chunks(
+        _chunk_getter(energy_fn, graph, x, masses, key, make),
+        (x, state.velocities, state.forces), n_steps, STEPS_PER_CHUNK,
+        masses, generator)
     x_fin = last.x.clone()
     with torch.no_grad():
         e_pot = energy_fn(x_fin)
@@ -589,16 +637,15 @@ def langevin_trajectory_nb(state: MDStateNB, e_fn, init_nb, masses,
     _check_generator(generator, x.device)
 
     def make(k):
-        step = _baoab_step(lambda xx, nb: e_fn(xx, nb)[:2], masses, dt,
-                           temperature, friction, generator)
-        return Chunk(step, init_nb, k, (x,) * 3, graph, generator,
-                     keep=(masses, generator))
+        return Chunk(lambda m, g: _baoab_step(
+            lambda xx, nb: e_fn(xx, nb)[:2], m, dt, temperature, friction,
+            g), init_nb, k, (x,) * 3, graph, masses, generator)
 
-    key = ("langevin_nb", init_nb, id(masses), id(generator), float(dt),
-           float(temperature), float(friction))
-    chunk, kes = _run_chunks(_chunk_getter(e_fn, graph, x, key, make),
+    key = ("langevin_nb", init_nb, float(dt), float(temperature),
+           float(friction))
+    chunk, kes = _run_chunks(_chunk_getter(e_fn, graph, x, masses, key, make),
                              (x, state.velocities, state.forces), n_steps,
-                             rebuild_every)
+                             rebuild_every, masses, generator)
     return _final_nb(chunk, e_fn, init_nb), kes
 
 
@@ -647,9 +694,9 @@ def _respa_outer(slow_fn, inner, masses, dt, n_inner):
     f_slow, f_fast): a slow half kick, ``n_inner`` substeps
     ``inner(x, v, f_fast) -> (x, v, f_fast, e_fast)``, the slow force, a
     slow half kick.  Its record is (e_slow, e_fast of the last substep)."""
-    inv_m = (1.0 / masses)[:, None]
 
     def step(carry, nb):
+        inv_m = (1.0 / masses)[:, None]
         x, v, f_slow, f_fast = carry
         v = v + 0.5 * dt * f_slow * inv_m                   # slow kick
         for _ in range(n_inner):
@@ -663,21 +710,21 @@ def _respa_outer(slow_fn, inner, masses, dt, n_inner):
 def _respa_run(state, slow_fn, fast_fn, init_nb, masses, n_steps,
                rebuild_every, graph, key, make_step, generator=None):
     """The RESPA drivers' loop: chunks of ``rebuild_every`` outer steps
-    (``make_step()`` gives one, a :class:`Chunk` step) from the carry at
-    ``state``, kept on ``slow_fn`` under ``key``; returns (final state,
-    per-outer-step records)."""
+    (``make_step(masses, generator)`` gives one, a :class:`Chunk` step)
+    from the carry at ``state``, kept on ``slow_fn`` under ``key``;
+    returns (final state, per-outer-step records)."""
     _require_steps(n_steps)
     x = state.positions
 
     def make(k):
-        return Chunk(make_step(), init_nb, k, (x,) * 4, graph, generator,
-                     keep=(masses, generator, fast_fn))
+        return Chunk(make_step, init_nb, k, (x,) * 4, graph, masses,
+                     generator, keep=(fast_fn,))
 
-    get_chunk = _chunk_getter(slow_fn, graph, x, key + (
-        init_nb, id(fast_fn), id(masses), id(generator)), make)
+    get_chunk = _chunk_getter(slow_fn, graph, x, masses,
+                              key + (init_nb, id(fast_fn)), make)
     chunk, out = _run_chunks(get_chunk,
                              _respa_start(state, slow_fn, fast_fn, init_nb),
-                             n_steps, rebuild_every)
+                             n_steps, rebuild_every, masses, generator)
     return _respa_final(chunk, slow_fn, fast_fn, init_nb), out
 
 
@@ -696,19 +743,19 @@ def respa_trajectory_nb(state: MDStateNB, slow_fn, fast_fn, init_nb, masses,
     are evaluated afresh."""
     dt_in = dt / n_inner
 
-    def make_step():
+    def make_step(m, _generator):
         def inner(x, v, f, inv_m):
             v_half = v + 0.5 * dt_in * f * inv_m
             x_new = x + dt_in * v_half
             e_fast, f_new = fast_fn(x_new)
             return x_new, v_half + 0.5 * dt_in * f_new * inv_m, f_new, e_fast
 
-        outer = _respa_outer(slow_fn, inner, masses, dt, n_inner)
+        outer = _respa_outer(slow_fn, inner, m, dt, n_inner)
 
         def step(carry, nb):
             carry, e_slow, e_fast = outer(carry, nb)
             return carry, e_slow, (e_slow + e_fast
-                                   + kinetic_energy(carry[1], masses))
+                                   + kinetic_energy(carry[1], m))
         return step
 
     return _respa_run(state, slow_fn, fast_fn, init_nb, masses, n_steps,
@@ -731,19 +778,19 @@ def respa_langevin_trajectory_nb(state: MDStateNB, slow_fn, fast_fn,
     _check_generator(generator, state.positions.device)
     dt_in = dt / n_inner
 
-    def make_step():
+    def make_step(m, g):
         c1, c2 = baoab_coeffs(dt_in, friction, temperature)
 
         def inner(x, v, f, inv_m):
-            x, v = baoab_pre_force(x, v, f, inv_m, dt_in, c1, c2, generator)
+            x, v = baoab_pre_force(x, v, f, inv_m, dt_in, c1, c2, g)
             e_fast, f_new = fast_fn(x)
             return x, v + 0.5 * dt_in * f_new * inv_m, f_new, e_fast
 
-        outer = _respa_outer(slow_fn, inner, masses, dt, n_inner)
+        outer = _respa_outer(slow_fn, inner, m, dt, n_inner)
 
         def step(carry, nb):
             carry, e_slow, _e_fast = outer(carry, nb)
-            return carry, e_slow, kinetic_energy(carry[1], masses)
+            return carry, e_slow, kinetic_energy(carry[1], m)
         return step
 
     key = ("respa_langevin", float(dt), n_inner, float(temperature),

@@ -12,6 +12,9 @@ the neighbor tiles compacted (sentinel slots and every atom beyond the
 cutoff of the bounding box of the cell's real atoms dropped), lets each
 thread list the staged atoms within the cutoff of its own i atom, and
 evaluates the pair terms from those lists, every sum in a fixed order.
+A [3, 3] box (a reduced triclinic lattice) takes the kernel's triclinic
+instantiation, which turns a neighbor tile's image offset into lattice
+rows; its launches count apart (``direct_walk_tri``).
 
 :func:`direct_walk` runs the plain version on a CPU tensor and the kernel
 on a CUDA tensor, or raises (f64 on the card raises: the kernel is f32
@@ -30,16 +33,38 @@ from ..device import constant
 from .erfc import erf_over_r_coeffs, erf_over_r_eval
 from ..units import ONE_4PI_EPS0
 
-#: Kernel launches since the last reset.
-LAUNCHES = {"direct_walk": 0}
-#: The kernel it counts, as a profiler trace names it.
-SYMBOLS = {"direct_walk": "direct_walk_kernel"}
+#: Kernel launches since the last reset: the orthorhombic instantiation,
+#: and the triclinic one (a [3, 3] box).
+LAUNCHES = {"direct_walk": 0, "direct_walk_tri": 0}
+#: The kernel each counts, as a profiler trace names it.
+SYMBOLS = {"direct_walk": "direct_walk_kernel",
+           "direct_walk_tri": "direct_walk_tri_kernel"}
 
 
 def _crossing(n: int, d: int, dtype, device):
     c = torch.arange(n, device=device)
     return torch.where(c + d >= n, 1.0, torch.where(c + d < 0, -1.0, 0.0)).to(
         dtype)
+
+
+def image_offsets(grid, shift, box, dtype, device):
+    """Cartesian image offsets of the neighbor slab of a half-shell
+    ``shift``, one per coordinate, broadcastable to [gx, gy, gz, 1] (the
+    JAX package's ``shift_image_offsets``): an orthorhombic box shifts
+    coordinate k by +-L_k where the roll wraps along axis k; a [3, 3]
+    lower-triangular lattice adds the whole row +-B[a] where it wraps
+    along grid axis a, so coordinate k collects the crossings of every
+    axis a >= k."""
+    gx, gy, gz = grid
+    dx, dy, dz = shift
+    cx = _crossing(gx, dx, dtype, device).view(gx, 1, 1, 1)
+    cy = _crossing(gy, dy, dtype, device).view(1, gy, 1, 1)
+    cz = _crossing(gz, dz, dtype, device).view(1, 1, gz, 1)
+    if box.ndim == 2:
+        return (cx * box[0, 0] + cy * box[1, 0] + cz * box[2, 0],
+                cy * box[1, 1] + cz * box[2, 1],
+                cz * box[2, 2])
+    return cx * box[0], cy * box[1], cz * box[2]
 
 
 def direct_walk_plain(x, y, z, q, hs, se, ids, box, n_atoms: int,
@@ -61,12 +86,11 @@ def direct_walk_plain(x, y, z, q, hs, se, ids, box, n_atoms: int,
         def roll(a):
             return torch.roll(a, sh, ax)
 
-        xs.append(roll(x) + (_crossing(gx, dx, dtype, dev) * box[0]).view(
-            gx, 1, 1, 1))
-        ys.append(roll(y) + (_crossing(gy, dy, dtype, dev) * box[1]).view(
-            1, gy, 1, 1))
-        zs.append(roll(z) + (_crossing(gz, dz, dtype, dev) * box[2]).view(
-            1, 1, gz, 1))
+        ox, oy, oz = image_offsets((gx, gy, gz), (dx, dy, dz), box, dtype,
+                                   dev)
+        xs.append(roll(x) + ox)
+        ys.append(roll(y) + oy)
+        zs.append(roll(z) + oz)
         qs.append(roll(q))
         hss.append(roll(hs))
         ses.append(roll(se))
@@ -168,9 +192,9 @@ def direct_walk(x, y, z, q, hs, se, ids, box, n_atoms: int, alpha: float,
         if t is not box and t.shape != shape:
             raise ValueError(f"direct walk kernel: {name} shape {tuple(t.shape)}"
                              f" != {tuple(shape)}")
-    if box.shape != (3,):
-        raise NotImplementedError("direct walk kernel: orthorhombic [3] boxes "
-                                  "only (triclinic: ROADMAP.md)")
+    if box.shape not in ((3,), (3, 3)) or box.device != x.device:
+        raise ValueError("direct walk kernel: the box must be a [3] or a "
+                         "[3, 3] tensor on the device of the blocks")
     if (ids.dtype != torch.int32 or ids.shape != shape
             or not ids.is_contiguous() or ids.device != x.device):
         raise ValueError("direct walk kernel: ids must be contiguous int32 in "
@@ -187,8 +211,8 @@ def direct_walk(x, y, z, q, hs, se, ids, box, n_atoms: int, alpha: float,
         *(t.data_ptr() for t in (x, y, z, q, hs, se, ids, nbr, img, box,
                                  coef)),
         coef.numel(), 2.0 / (cutoff * cutoff), cutoff * cutoff, n_atoms,
-        n_cells, cap, e_part.data_ptr(), g.data_ptr(), dq.data_ptr(),
-        native.stream_ptr(x))
+        n_cells, cap, int(box.ndim == 2), e_part.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), native.stream_ptr(x))
     native.check(err, "cf_direct_walk")
-    LAUNCHES["direct_walk"] += 1
+    LAUNCHES["direct_walk_tri" if box.ndim == 2 else "direct_walk"] += 1
     return torch.sum(e_part), g, dq

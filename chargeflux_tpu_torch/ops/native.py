@@ -94,7 +94,7 @@ def library() -> ctypes.CDLL:
         lib.cf_sf_limits.argtypes = [ctypes.POINTER(i)] * 9
         lib.cf_spread_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.cf_spread_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
-        lib.cf_direct_walk.argtypes = ([p] * 11 + [i, f, f, i, i, i]
+        lib.cf_direct_walk.argtypes = ([p] * 11 + [i, f, f, i, i, i, i]
                                        + [p] * 3 + [p])
         lib.cf_sf_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.cf_sf_bwd_tables.argtypes = [p] * 11 + [i] * 4 + [p]

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from . import native
-from ..device import constant
+from ..device import constant, ieee_matmul
 
 #: Kernel launches since the last reset, per wrapper.
 LAUNCHES = {"spread_fwd": 0, "spread_bwd": 0}
@@ -53,7 +53,7 @@ def spread_fwd_plain(qwlxt, wlyt, wzt, zorg, offsets, pad_xy):
     n_col, wx, rows = qwlxt.shape
     wyp = wlyt.shape[1]
     px, py, gz = pad_xy
-    p = torch.bmm(_a2(qwlxt, wlyt), _expand_z(wzt, zorg, gz)).reshape(
+    p = ieee_matmul(_a2(qwlxt, wlyt), _expand_z(wzt, zorg, gz)).reshape(
         n_col, wx, wyp, gz)
     qpad = torch.zeros((px, py, gz), dtype=qwlxt.dtype, device=qwlxt.device)
     for c, (ox, oy) in enumerate(zip(*offsets)):
@@ -71,10 +71,10 @@ def spread_bwd_plain(qwlxt, wlyt, wzt, zorg, offsets, ct):
     dp = torch.stack([ct[ox:ox + wx, oy:oy + wyp]
                       for ox, oy in zip(*offsets)]).reshape(n_col, wx * wyp, gz)
     a2 = _a2(qwlxt, wlyt)
-    d_dense = torch.bmm(a2.transpose(1, 2), dp)            # [n_col, rows, Gz]
+    d_dense = ieee_matmul(a2.transpose(1, 2), dp)          # [n_col, rows, Gz]
     d_wzt = torch.gather(d_dense, 2, _placements(zorg, order, gz).transpose(
         1, 2)).transpose(1, 2)
-    d_a2 = torch.bmm(dp, _expand_z(wzt, zorg, gz).transpose(1, 2)).reshape(
+    d_a2 = ieee_matmul(dp, _expand_z(wzt, zorg, gz).transpose(1, 2)).reshape(
         n_col, wx, wyp, rows)
     d_qwlxt = torch.sum(d_a2 * wlyt[:, None, :, :], dim=2)
     d_wlyt = torch.sum(d_a2 * qwlxt[:, :, None, :], dim=1)

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from . import native
+from ..device import ieee_matmul
 
 #: Kernel launches since the last reset, per wrapper.
 LAUNCHES = {"sf_fwd": 0, "sf_bwd_tables": 0, "sf_bwd_zq": 0}
@@ -145,7 +146,7 @@ def xy_tables(cxT, sxT, cyT, syT):
 def sf_fwd_plain(cxT, sxT, cyT, syT, zq):
     """(A, B) = (cxy @ zq, sxy @ zq)."""
     cxy, sxy = xy_tables(cxT, sxT, cyT, syT)
-    return cxy @ zq, sxy @ zq
+    return ieee_matmul(cxy, zq), ieee_matmul(sxy, zq)
 
 
 def sf_bwd_tables_plain(cxT, sxT, cyT, syT, zq, abar, bbar):
@@ -154,8 +155,8 @@ def sf_bwd_tables_plain(cxT, sxT, cyT, syT, zq, abar, bbar):
     for the x tables and over kx for the y tables."""
     kx, n = cxT.shape
     ky = cyT.shape[0]
-    gc = (abar @ zq.T).reshape(kx, ky, n)
-    gs = (bbar @ zq.T).reshape(kx, ky, n)
+    gc = ieee_matmul(abar, zq.T).reshape(kx, ky, n)
+    gs = ieee_matmul(bbar, zq.T).reshape(kx, ky, n)
     dcx = torch.sum(gc * cyT[None] + gs * syT[None], dim=1)
     dsx = torch.sum(-gc * syT[None] + gs * cyT[None], dim=1)
     dcy = torch.sum(gc * cxT[:, None] + gs * sxT[:, None], dim=0)
@@ -166,7 +167,7 @@ def sf_bwd_tables_plain(cxT, sxT, cyT, syT, zq, abar, bbar):
 def sf_bwd_zq_plain(cxT, sxT, cyT, syT, abar, bbar):
     """dzq = cxy^T abar + sxy^T bbar, [N, 2Kz]."""
     cxy, sxy = xy_tables(cxT, sxT, cyT, syT)
-    return cxy.T @ abar + sxy.T @ bbar
+    return ieee_matmul(cxy.T, abar) + ieee_matmul(sxy.T, bbar)
 
 
 def _refusal(named, ky: int, kz2: int, n: int):

@@ -68,6 +68,16 @@ def frac_coords(x: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
     return x / box
 
 
+def lattice_cart(n: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
+    """Cartesian coordinates of lattice or fractional vectors ``n`` (last
+    axis 3): ``n @ box`` for a [3, 3] row-vector lattice, expanded
+    elementwise (no f32 matmul), ``n * box`` for an orthorhombic box."""
+    if box.ndim == 2:
+        return (n[..., 0:1] * box[0] + n[..., 1:2] * box[1]
+                + n[..., 2:3] * box[2])
+    return n * box
+
+
 def plane_widths(box: torch.Tensor) -> torch.Tensor:
     """Perpendicular widths as a [3] tensor (the box itself when
     orthorhombic)."""
@@ -78,13 +88,25 @@ def plane_widths(box: torch.Tensor) -> torch.Tensor:
 
 
 def reciprocal_metric(box: torch.Tensor, dtype) -> torch.Tensor:
-    """G [3, 3] with |k(n)|^2 = n . G . n: diagonal (2 pi / L_i)^2 for an
-    orthorhombic box.  The triclinic Gram matrix is not ported yet."""
+    """G [3, 3] with |k(n)|^2 = n . G . n for k = 2 pi n B^-T: the
+    reciprocal-lattice Gram matrix (2 pi)^2 B^-T B^-1 of a [3, 3] box, from
+    the closed-form inverse, summed elementwise in f64 and then cast;
+    diagonal (2 pi / L_i)^2 for an orthorhombic box."""
     if box.ndim == 2:
-        raise NotImplementedError(
-            "triclinic boxes are not ported yet (ROADMAP.md)")
+        inv = box_inverse(box.to(torch.float64))
+        g = torch.sum(inv[:, :, None] * inv[:, None, :], dim=0)
+        return ((2.0 * math.pi) ** 2 * g).to(dtype)
     r = (2.0 * math.pi) / box.to(dtype)
     return torch.diag(r * r)
+
+
+def metric_k2(g: torch.Tensor, ax, ay, az):
+    """|k|^2 = n . G . n on broadcast integer frequencies (ax, ay, az) for
+    the reciprocal metric ``g`` of a [3, 3] lattice: the diagonal terms
+    and the three cross terms."""
+    return (g[0, 0] * ax * ax + g[1, 1] * ay * ay + g[2, 2] * az * az
+            + 2.0 * (g[0, 1] * ax * ay + g[0, 2] * ax * az
+                     + g[1, 2] * ay * az))
 
 
 def pair_matrix_mask(n: int, exclusions: torch.Tensor) -> torch.Tensor:

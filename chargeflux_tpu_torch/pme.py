@@ -23,7 +23,7 @@ import torch
 
 from .device import constant, device_key
 from .ops.pme_spread import fold_padded_axis, spread_columns
-from .pairs import box_volume
+from .pairs import box_inverse, box_volume, metric_k2, reciprocal_metric
 from .units import ONE_4PI_EPS0
 
 # Order 8: the spline order never enters a contraction shape, so a higher
@@ -139,17 +139,20 @@ def _influence_static(grid, order, dtype, device):
 def influence_function(grid, box: torch.Tensor, alpha: float, order: int,
                        dtype=torch.float64) -> torch.Tensor:
     """Real rFFT-space influence function D [Gx, Gy, Gz//2+1] with
-    E_rec = sum(D |Q^|^2) (orthorhombic box; origin masked to zero)."""
-    if box.ndim == 2:
-        raise NotImplementedError("triclinic PME is not ported yet "
-                                  "(ROADMAP.md)")
+    E_rec = sum(D |Q^|^2), origin masked to zero.  For a [3, 3] lattice
+    |k|^2 = m . G . m with the reciprocal Gram matrix G, three cross terms
+    on the half-space grid."""
     fx, fy, fz, origin, static = _influence_static(
         tuple(grid), order, dtype, device_key(box.device))
     two_pi = 2.0 * math.pi
-    kx = (two_pi * fx / box[0])[:, None, None]
-    ky = (two_pi * fy / box[1])[None, :, None]
-    kz = (two_pi * fz / box[2])[None, None, :]
-    k2 = kx * kx + ky * ky + kz * kz
+    if box.ndim == 2:
+        k2 = metric_k2(reciprocal_metric(box, dtype), fx[:, None, None],
+                       fy[None, :, None], fz[None, None, :])
+    else:
+        kx = (two_pi * fx / box[0])[:, None, None]
+        ky = (two_pi * fy / box[1])[None, :, None]
+        kz = (two_pi * fz / box[2])[None, None, :]
+        k2 = kx * kx + ky * ky + kz * kz
     k2s = torch.where(origin, 1.0, k2)
     kern = torch.where(origin, 0.0,
                        torch.exp(-k2s * (0.25 / (alpha * alpha))) / k2s)
@@ -197,10 +200,16 @@ def _cell_patch_weights(coord, n_cells, grid_n, length, extra, cell_axis,
 
 def _block_spread_coords(blocks, box):
     """Per-axis spread coordinates (coord, length), u = coord * G / length:
-    the Cartesian block coordinates against the edge lengths."""
+    the Cartesian block coordinates against the edge lengths, or for a
+    [3, 3] lattice the fractional ones (f = x B^-1 by lower-triangular
+    back-substitution on the blocks) against length 1, the B-spline mesh
+    living on the unit cell."""
     if box.ndim == 2:
-        raise NotImplementedError("triclinic PME is not ported yet "
-                                  "(ROADMAP.md)")
+        inv = box_inverse(box)
+        fx = blocks.x * inv[0, 0] + blocks.y * inv[1, 0] + blocks.z * inv[2, 0]
+        fy = blocks.y * inv[1, 1] + blocks.z * inv[2, 1]
+        fz = blocks.z * inv[2, 2]
+        return (fx, 1.0), (fy, 1.0), (fz, 1.0)
     return ((blocks.x, box[0]), (blocks.y, box[1]), (blocks.z, box[2]))
 
 

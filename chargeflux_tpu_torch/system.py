@@ -167,6 +167,7 @@ class ChargeFluxSystem:
     water_b0: torch.Tensor     # [W]
     water_ub0: torch.Tensor    # [W]
     box: torch.Tensor          # [3] edge lengths (zeros when non-periodic)
+    #                            or [3, 3] reduced lattice rows (triclinic)
     spec: StaticSpec
     # fixed-order plans of the remainder rows (those no template covers),
     # made once at construction: the flux terms' atoms (bonds, angles,
@@ -433,9 +434,10 @@ class CoulForce:
 
         ``cell_grid`` may only reduce the derived grid (never below the
         cutoff); ``pme_grid`` may only raise the derived mesh; both raise
-        otherwise.  The port's energy path runs the orthorhombic periodic
-        routes and the non-periodic one (see energy.py for the routes and
-        for what raises).
+        otherwise.  The port's energy path runs the periodic routes, on an
+        orthorhombic box or a reduced triclinic lattice, and the
+        non-periodic one (see energy.py for the routes and for what
+        raises).
         """
         device = resolve_device(device)
         n = len(self._charges)

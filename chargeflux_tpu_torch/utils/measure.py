@@ -1,7 +1,11 @@
 """Step measurements of the port's MD paths on one CUDA card.
 
-    python3 -m chargeflux_tpu_torch.utils.measure profile [--path 216|rigid|respa]
-    python3 -m chargeflux_tpu_torch.utils.measure f64 [--path 216]
+    python3 -m chargeflux_tpu_torch.utils.measure profile [--path PATH]
+    python3 -m chargeflux_tpu_torch.utils.measure f64 [--path PATH]
+
+PATH is 30k (the default), 216, rigid, respa, or one of the other NVE
+configs of the JAX package's bench.py: 4k, 100k, tri30k, hetero30k
+(:func:`bench_path`, burned in as the 30k path).
 
 ``--path 30k`` (the default) starts from the cell + SPME main path's system
 (``water_box(n_side=22, flux="bond_angle", cutoff=0.72)``, 31,944 atoms,
@@ -94,12 +98,13 @@ def kernel_bound(name: str, **dims) -> dict:
     sf_fwd / sf_bwd_tables / sf_bwd_zq (kx, ky, kz2, n): two [Kx Ky, N]
       by [N, 2Kz] products (4 Kx Ky N 2Kz); forming cxy, sxy costs 6 per
       (kx, ky, n), the tables' epilogue 16.
-    direct_walk (n_pairs, n_slots, n_cells, ncoef): each of the n_pairs
-      in-cutoff pairs once, 51 + 4 (ncoef - 1) flops (the Horner pair of
-      P and dP is 4 per coefficient; the j-side updates are counted, the
-      distance tests of pairs beyond the cutoff are not); bytes: six float
-      and one id column per slot in, dE/dx and dE/dq per slot out, the
-      27-cell neighbor and image tables and one energy per cell.
+    direct_walk (n_pairs, n_slots, n_cells, ncoef[, box_floats]): each of
+      the n_pairs in-cutoff pairs once, 51 + 4 (ncoef - 1) flops (the
+      Horner pair of P and dP is 4 per coefficient; the j-side updates are
+      counted, the distance tests of pairs beyond the cutoff are not);
+      bytes: six float and one id column per slot in, dE/dx and dE/dq per
+      slot out, the 27-cell neighbor and image tables, one energy per cell
+      and the box (3 floats, 9 for a triclinic lattice).
     binning (n_atoms, n_slots): the cell binning of a neighbor rebuild
       (``cells.build_cell_list_full``), no flops counted: the positions in
       (3 floats per atom), the slots (one int per slot), the inverse slots
@@ -128,7 +133,7 @@ def kernel_bound(name: str, **dims) -> dict:
     elif name == "direct_walk":
         flops = d["n_pairs"] * (51 + 4 * (d["ncoef"] - 1))
         nbytes = (F32 * (11 * d["n_slots"] + d["n_cells"] * (1 + 27 + 81)
-                         + 3 + d["ncoef"]))
+                         + d.get("box_floats", 3) + d["ncoef"]))
     elif name == "binning":
         flops = 0
         nbytes = F32 * (3 * d["n_atoms"] + d["n_slots"] + d["n_atoms"] + 1)
@@ -142,12 +147,14 @@ def kernel_bound(name: str, **dims) -> dict:
 
 def pairs_within_cutoff(x, box, cutoff: float, chunk: int = 1024) -> int:
     """Unordered atom pairs closer than ``cutoff`` under the minimum image
-    of an orthorhombic ``box`` (the pairs the direct walk must evaluate)."""
+    of ``box``, [3] or a reduced [3, 3] lattice (the pairs the direct walk
+    must evaluate)."""
+    from ..pairs import delta_periodic
+
     box = box.to(x.dtype)
     n, count = x.shape[0], 0
     for i0 in range(0, n, chunk):
-        d = x[i0:i0 + chunk, None, :] - x[None, :, :]
-        d = d - box * torch.round(d / box)
+        d = delta_periodic(x[None, :, :], x[i0:i0 + chunk, None, :], box)
         close = (d * d).sum(-1) < cutoff * cutoff
         rows = torch.arange(i0, min(i0 + chunk, n), device=x.device)
         close &= rows[:, None] < torch.arange(n, device=x.device)[None, :]
@@ -158,25 +165,73 @@ def pairs_within_cutoff(x, box, cutoff: float, chunk: int = 1024) -> int:
 def build_system(force, box, cap, device, dtype=torch.float32,
                  grid=(8, 8, 8)):
     """The cell + SPME system (recip_method pinned to "pme", so the f64
-    control stays on SPME too)."""
+    control stays on SPME too); ``grid=None`` takes the planner's cell
+    grid."""
     return force.create_system(box=box, dtype=dtype, direct_method="cell",
                                recip_method="pme", cell_grid=grid,
                                cell_capacity=cap, device=device)
 
 
-def main_path(device):
-    """(force, x, masses, box, bonded, system) of the 30k main path, f32,
-    capacity from ``suggest_capacity(margin=1.05)``."""
-    from ..cells import suggest_capacity
-    from ..models import water_bonded_params, water_box
+#: n_side of the water boxes of the JAX package's bench.py configs.
+BENCH_SIDES = {"216": 6, "4k": 11, "30k": 22, "100k": 32}
 
-    force, pos, masses, box = water_box(n_side=22, flux="bond_angle",
-                                        cutoff=0.72)
-    cap = suggest_capacity(pos, box, (8, 8, 8), margin=1.05)
-    system = build_system(force, box, cap, device)
+
+def shear_box(box):
+    """bench.py's tri30k lattice: the orthorhombic ``box`` sheared into the
+    reduced lower-triangular [[L, 0, 0], [0.15 L, L, 0], [0.10 L,
+    -0.12 L, L]] (NumPy f64)."""
+    import numpy as np
+
+    L = np.asarray(box, np.float64)
+    return np.array([[L[0], 0.0, 0.0],
+                     [0.15 * L[0], L[1], 0.0],
+                     [0.10 * L[0], -0.12 * L[1], L[2]]])
+
+
+def bench_path(config: str, device, cutoff=None):
+    """(force, x, masses, box, bonded, system) of one of the JAX package's
+    bench.py configs, built as ``build_full`` and ``bench_hetero`` build
+    them, f32: "30k" and "tri30k" (the 30k box sheared by
+    :func:`shear_box`) at cutoff 0.72 on the forced 8^3 cell grid, "4k"
+    and "100k" at cutoff 0.8 on the planner's grid, "hetero30k"
+    (``solvated_chain_box(n_side=22, n_solute_sites=100, cutoff=0.72)``,
+    forced 8^3, its bonded rows), each with the capacity from
+    ``suggest_capacity(margin=1.05)`` and SPME; "216" dense with
+    ``recip_method="auto"``.  ``cutoff`` replaces the 30k box's (bench.py's
+    rc 0.9 and rc 1.0 legs, on the planner's grid)."""
+    from ..bonded import BondedParams
+    from ..cells import suggest_capacity
+    from ..models import solvated_chain_box, water_bonded_params, water_box
+
+    if config == "216":
+        return dense_path(device)
+    grid = (8, 8, 8)
+    if config == "hetero30k":
+        force, pos, masses, box, bonded_kw = solvated_chain_box(
+            n_side=22, n_solute_sites=100, cutoff=0.72)
+        bonded = BondedParams.create(box=box, pbc=True, device=device,
+                                     **bonded_kw)
+    else:
+        base = config[3:] if config.startswith("tri") else config
+        if base not in BENCH_SIDES or base == "216":
+            raise ValueError(f"unknown bench config {config!r}")
+        if base != "30k" or cutoff is not None:
+            grid = None
+        if cutoff is None:
+            cutoff = 0.72 if base == "30k" else 0.8
+        force, pos, masses, box = water_box(n_side=BENCH_SIDES[base],
+                                            flux="bond_angle", cutoff=cutoff)
+        if config.startswith("tri"):
+            box = shear_box(box)
+        bonded = water_bonded_params(len(masses) // 3, box=box,
+                                     device=device)
+    if grid is None:
+        grid = force.create_system(box=box, direct_method="cell",
+                                   device="cpu").spec.cell_grid
+    cap = suggest_capacity(pos, box, grid, margin=1.05)
+    system = build_system(force, box, cap, device, grid=grid)
     x = torch.tensor(pos, dtype=torch.float32, device=device)
     m = torch.tensor(masses, dtype=torch.float32, device=device)
-    bonded = water_bonded_params(len(masses) // 3, box=box, device=device)
     return force, x, m, box, bonded, system
 
 
@@ -470,6 +525,7 @@ def drifted_blocks(system, state, e_fn, masses, n_steps: int):
     from .. import cells
     from ..charges import effective_charges
     from ..integrate import nve_step_nb
+    from ..pairs import frac_coords
 
     nb = state.nb
     for _ in range(n_steps):
@@ -483,13 +539,15 @@ def drifted_blocks(system, state, e_fn, masses, n_steps: int):
                            nb.inv_slot, wrap=nb.wrap)
         ids = nb.slots.reshape(b.x.shape).to(torch.int32).contiguous()
         outside = torch.zeros_like(ids, dtype=torch.bool)
-        for k, col in enumerate((b.x, b.y, b.z)):
+        # a cell's nominal bounds in fractional coordinates (the binning's)
+        frac = frac_coords(torch.stack([b.x, b.y, b.z], dim=-1), system.box)
+        for k in range(3):
             n = spec.cell_grid[k]
-            edge = system.box[k] / n
             shape = [1, 1, 1, 1]
             shape[k] = n
-            lo = (torch.arange(n, device=x.device) * edge).view(shape)
-            outside |= (col < lo) | (col >= lo + edge)
+            lo = torch.arange(n, device=x.device).view(shape)
+            u = frac[..., k] * n
+            outside |= (u < lo) | (u >= lo + 1)
         info = dict(outside=int((outside & (ids < system.n_atoms)).sum()),
                     moved=float((x - nb.x_ref).norm(dim=-1).max()))
     return (*b, ids, system.box, system.n_atoms, spec.alpha,
@@ -770,18 +828,15 @@ def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
               f"step's device busy time {share}", flush=True)
 
 
-def f64_control(system, state, rebuild_every, masses, box):
+def f64_control(system, state, rebuild_every, masses, bonded):
     from ..integrate import (init_state_nb, kinetic_energy, make_nb_energy_fn,
                              nve_trajectory_nb)
-    from ..models import water_bonded_params
 
-    n = state.positions.shape[0]
     for label, dtype, plain in (("f32 kernel path", torch.float32, False),
                                 ("f64 plain path", torch.float64, True)):
         sys_ = system.astype(dtype)
-        bonded = water_bonded_params(n // 3, box=box, dtype=dtype,
-                                     device=state.positions.device)
-        e_fn, init_nb = make_nb_energy_fn(sys_, bonded=bonded, plain=plain)
+        e_fn, init_nb = make_nb_energy_fn(sys_, bonded=bonded.astype(dtype),
+                                          plain=plain)
         m = masses.to(dtype)
         s0 = init_state_nb(state.positions.to(dtype),
                            state.velocities.to(dtype), e_fn, init_nb)
@@ -801,13 +856,14 @@ def f64_control(system, state, rebuild_every, masses, box):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("profile", "f64"))
-    ap.add_argument("--path", choices=("30k", "216", "rigid", "respa"),
+    ap.add_argument("--path", choices=("30k", "216", "rigid", "respa", "4k",
+                                       "100k", "tri30k", "hetero30k"),
                     default="30k")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: needs a CUDA device")
     if args.what == "f64" and args.path in ("rigid", "respa"):
-        raise SystemExit("measure f64: NVE paths only (30k, 216)")
+        raise SystemExit("measure f64: NVE paths only")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -842,16 +898,17 @@ def main(argv=None):
             parts = {f"bonded substeps ({N_INNER} BAOAB substeps)":
                      substep_work(path)}
     else:
-        force, x, m, box, bonded, system0 = main_path(dev)
+        force, x, m, box, bonded, system0 = bench_path(args.path, dev)
         system, state, rebuild_every, info = burn_in(force, system0, x, m,
                                                      box, bonded)
-        print(f"burned in: capacity {system.spec.cell_capacity}, "
-              f"rebuild_every {rebuild_every}, vmax {info['vmax']:.2f} "
-              f"nm/ps", flush=True)
+        print(f"{args.path} path: {system.n_atoms} atoms, cells "
+              f"{system.spec.cell_grid}, PME {system.spec.pme_grid}; burned "
+              f"in: capacity {system.spec.cell_capacity}, rebuild_every "
+              f"{rebuild_every}, vmax {info['vmax']:.2f} nm/ps", flush=True)
     if args.what == "f64":
-        f64_control(system, state, rebuild_every, m, box)
+        f64_control(system, state, rebuild_every, m, bonded)
         return
-    if args.path in ("30k", "216"):
+    if args.path not in ("rigid", "respa"):
         drive, owner, init_nb = nve_drive(system, state, rebuild_every, m,
                                           bonded)
     profile(drive, owner, init_nb, state, rebuild_every, dt_ps, parts)

@@ -4,9 +4,12 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a),
-nvcc and a CUDA build of PyTorch.  It drives two paths of the port: the
-30k cell + SPME path (the JAX package's ``bench.py 30k``) and the 216-water
-dense + classical-Ewald path (``bench.py 216``).  Phases, in order:
+nvcc and a CUDA build of PyTorch.  It drives six paths of the port: the
+30k cell + SPME path (the JAX package's ``bench.py 30k``), the 216-water
+dense + classical-Ewald path (``bench.py 216``), rigid and RESPA NVT at
+the 30k box (``bench.py rigid``, ``respa``), the 30k box on a sheared
+triclinic lattice (``bench.py tri30k``) and the solvated chain
+(``bench.py hetero30k``).  Phases, in order:
 
 1. CUDA present (else exit non-zero), the card's name and power limit;
 2. build the CUDA kernels from ``chargeflux_tpu_torch/csrc``;
@@ -63,7 +66,19 @@ dense + classical-Ewald path (``bench.py 216``).  Phases, in order:
    within 10 % of 300 K (rigid: 3N - n_constraints degrees of freedom) and,
    for rigid water, the largest |constraint residual| at the end at most
    1e-4 nm^2;
-6. a JSON line with each kernel's numbers, then the last line
+6. tri30k (``utils.measure.bench_path("tri30k")``: the 30k box sheared into
+   [[L, 0, 0], [0.15 L, L, 0], [0.10 L, -0.12 L, L]], forced 8^3 cells):
+   burn-in as in 5; the triclinic walk kernel (``direct_walk_tri``)
+   against its plain version on the drifted blocks, timed as in phase 3
+   beside its bound; energy_and_forces against the plain f32 and f64
+   route as in 4; the chunk check as in 5; then 200 replayed NVE steps
+   (ms/step printed), in which the triclinic walk and the spread kernels
+   must have launched;
+6b. hetero30k (``bench_path("hetero30k")``: a 300-bead chain in 10,548
+   flexible waters, forced 8^3 cells): the remainder row counts (the
+   chain's 299 flux bonds), burn-in, the chunk check, 200 replayed NVE
+   steps with finite energies (ms/step printed);
+7. a JSON line with each kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero before the last
@@ -91,6 +106,8 @@ KERNELS = {
                    "chargeflux_tpu/ops/pallas_pme.py:183", "30k"),
     "direct_walk": ("chargeflux_tpu_torch/csrc/direct_walk.cu",
                     "chargeflux_tpu/cells.py:862", "30k"),
+    "direct_walk_tri": ("chargeflux_tpu_torch/csrc/direct_walk.cu",
+                        "chargeflux_tpu/cells.py:862", "tri30k"),
     "sf_fwd": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:145", "216"),
     "sf_bwd_tables": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:157",
                       "216"),
@@ -285,7 +302,6 @@ def run_md(force, system0, x, masses, box):
     """Phase 5: burn-in, capacity re-provisioning, then 200 NVE steps."""
     import torch
 
-    from chargeflux_tpu_torch import ops
     from chargeflux_tpu_torch.integrate import kinetic_energy
     from chargeflux_tpu_torch.models import water_bonded_params
     from chargeflux_tpu_torch.ops import direct_walk as dw
@@ -314,32 +330,138 @@ def run_md(force, system0, x, masses, box):
               lambda: dw.direct_walk_plain(*walk_args), WALK_TOLS, where)
 
     ms_eager, _ = check_chunks("5", drive, rebuild_every)
-    n_steps = N_STEPS
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    final, es = drive(n_steps, True, False)
-    b.record()
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    ms = a.elapsed_time(b) / n_steps
-    es = es.double().cpu()
+    chunk = next(c for c in e_fn.nve_chunks.values() if c.k == rebuild_every)
+    capture = {"capture_mib": chunk.capture_bytes / 2 ** 20,
+               "capture_s": chunk.capture_seconds}
+    print(f"phase 5 chunk graph of {rebuild_every} steps: capture took "
+          f"{capture['capture_s']:.3f} s (host clock, incl. its eager warm-up "
+          f"step); its memory pool reserved {capture['capture_mib']:.2f} "
+          f"MiB (torch.cuda.memory_reserved around the capture)", flush=True)
+    launches, ms, final, es = timed_run(drive)
     e0 = float(s1.potential) + float(kinetic_energy(s1.velocities, masses))
     drift = float(es[-1]) - e0
-    print(f"phase 5 NVE: {n_steps} steps as CUDA graph replays, {ms:.3f} "
+    print(f"phase 5 NVE: {N_STEPS} steps as CUDA graph replays, {ms:.3f} "
           f"ms/step (CUDA events, includes the eager final consistent-state "
           f"evaluation); total energy "
           f"{e0:.3f} -> {float(es[-1]):.3f} kJ/mol, drift {drift:.4f} "
           f"kJ/mol ({drift / x.shape[0]:.3e} per atom), max |E - E0| "
           f"{float((es - e0).abs().max()):.4f}; launches {launches}",
           flush=True)
-    if not (torch.isfinite(es).all() and math.isfinite(float(final.potential))
-            and torch.isfinite(final.positions).all()):
-        fail("NVE run produced non-finite energies (NaN poison or blowup)")
     if int(final.nb.overflow) != 0:
         fail("binning overflow in the NVE run")
-    return check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager
+    return (check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager,
+            capture)
+
+
+def run_tri(dev, results):
+    """Phase 6: tri30k, the 30k box on the sheared lattice."""
+    import torch
+
+    from chargeflux_tpu_torch.ops import direct_walk as dw
+    from chargeflux_tpu_torch.ops.erfc import erf_over_r_coeffs
+    from chargeflux_tpu_torch.utils.measure import (bench_path, burn_in,
+                                                    drifted_blocks,
+                                                    kernel_bound, nve_drive,
+                                                    pairs_within_cutoff)
+
+    force, x, m, box, bonded, system0 = bench_path("tri30k", dev)
+    system, s1, every, info = burn_in(force, system0, x, m, box, bonded)
+    spec = system.spec
+    print(f"phase 6 tri30k: {system.n_atoms} atoms, box rows "
+          f"{[[round(float(v), 4) for v in row] for row in system.box]}, "
+          f"cells {spec.cell_grid} cap {spec.cell_capacity} (burn-in peak "
+          f"occupancy {info['occupancy']}), PME {spec.pme_grid} slack "
+          f"{spec.pme_slack}, rebuild_every {every}", flush=True)
+    drive, e_fn, _ = nve_drive(system, s1, every, m, bonded)
+    walk_args, moved = drifted_blocks(system, s1, e_fn, m, every - 1)
+    if moved["outside"] == 0:
+        fail("phase 6: no atom left its cell's nominal bounds")
+    with torch.no_grad():
+        n_pairs = pairs_within_cutoff(s1.positions, system.box, spec.cutoff)
+    bound = kernel_bound("direct_walk", n_pairs=n_pairs,
+                         n_slots=walk_args[0].numel(),
+                         n_cells=math.prod(spec.cell_grid),
+                         ncoef=len(erf_over_r_coeffs(spec.alpha,
+                                                     spec.cutoff)),
+                         box_floats=9)
+    where = (f"phase 6 tri30k blocks after {every - 1} steps on one neighbor "
+             f"state ({moved['outside']} atoms outside their cells' nominal "
+             f"bounds; {n_pairs} pairs within the cutoff)")
+    results["direct_walk_tri"] = kernel_entry("direct_walk_tri", compare(
+        "direct_walk_tri", lambda: dw.direct_walk(*walk_args),
+        lambda: dw.direct_walk_plain(*walk_args), WALK_TOLS, where, bound))
+    results["direct_walk_tri"]["library_note"] = (
+        results["direct_walk"]["library_note"])
+    check_energy(system, s1.positions, "6")
+    ms_eager, _ = check_chunks("6", drive, every)
+    launches, ms, final, _ = timed_run(drive)
+    print(f"phase 6 tri30k NVE: {N_STEPS} steps as CUDA graph replays, "
+          f"{ms:.3f} ms/step (CUDA events, incl. the eager final "
+          f"evaluation); eager {ms_eager:.3f} ms/step; launches {launches}",
+          flush=True)
+    if int(final.nb.overflow) != 0:
+        fail("phase 6: binning overflow in the NVE run")
+    counts = check_launches(launches, "tri30k", lambda c: c > 0)
+    if not (launches["spread_fwd"] > 0 and launches["spread_bwd"] > 0
+            and launches["direct_walk"] == 0):
+        fail("phase 6: the sheared box must run the spread kernels and the "
+             "triclinic walk only")
+    return counts, ms, ms_eager
+
+
+def run_hetero(dev):
+    """Phase 6b: hetero30k, the 300-bead chain solvated in flexible
+    water; returns (ms/step, eager ms/step)."""
+    from chargeflux_tpu_torch.utils.measure import (bench_path, burn_in,
+                                                    nve_drive)
+
+    force, x, m, box, bonded, system0 = bench_path("hetero30k", dev)
+    rem = {"flux": dict(system0.spec.flux_template.remainder),
+           "exclusions": dict(system0.spec.excl_template.remainder),
+           "bonded": dict(bonded.template.remainder)}
+    print(f"phase 6b hetero30k: {system0.n_atoms} atoms, remainder rows "
+          f"{rem}", flush=True)
+    if rem["flux"].get("bonds") != 299:
+        fail("phase 6b: the chain's 299 flux bonds must take the remainder "
+             "rows")
+    system, s1, every, info = burn_in(force, system0, x, m, box, bonded)
+    print(f"phase 6b burn-in: capacity {system.spec.cell_capacity} (peak "
+          f"occupancy {info['occupancy']}), rebuild_every {every}",
+          flush=True)
+    drive, _, _ = nve_drive(system, s1, every, m, bonded)
+    ms_eager, _ = check_chunks("6b", drive, every)
+    launches, ms, final, es = timed_run(drive)
+    print(f"phase 6b hetero30k NVE: {N_STEPS} steps as CUDA graph replays, "
+          f"{ms:.3f} ms/step; eager {ms_eager:.3f} ms/step; total energy "
+          f"{float(es[0]):.3f} -> {float(es[-1]):.3f} kJ/mol; launches "
+          f"{launches}", flush=True)
+    if int(final.nb.overflow) != 0:
+        fail("phase 6b: binning overflow in the NVE run")
+    return ms, ms_eager
+
+
+def timed_run(drive):
+    """N_STEPS replayed steps through ``drive`` with the launch counts reset
+    just before: (launches, ms/step from CUDA events around the call, the
+    final state, the per-step records in f64 on the host), or the script
+    fails on a non-finite record, potential or position (a NaN poison or
+    a blowup)."""
+    import torch
+
+    from chargeflux_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    final, es = drive(N_STEPS, True, False)
+    b.record()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if not (torch.isfinite(es).all() and math.isfinite(float(final.potential))
+            and torch.isfinite(final.positions).all()):
+        fail("a timed run produced non-finite energies or positions")
+    return launches, a.elapsed_time(b) / N_STEPS, final, es.double().cpu()
 
 
 def check_chunks(phase, drive, rebuild_every, gen=None):
@@ -414,9 +536,6 @@ def run_nvt(phase, label, path, drive, dt_ps, params=None):
     spread and walk kernels' launches, the mean kinetic temperature and,
     with ``params``, the constraint residual.  Returns (launches, ms/step,
     eager ms/step)."""
-    import torch
-
-    from chargeflux_tpu_torch import ops
     from chargeflux_tpu_torch.constraints import constraint_residuals
     from chargeflux_tpu_torch.units import BOLTZ
     from chargeflux_tpu_torch.utils.measure import ns_per_day
@@ -429,17 +548,9 @@ def run_nvt(phase, label, path, drive, dt_ps, params=None):
           f"{path['system'].spec.cell_capacity}; rebuild_every {every}",
           flush=True)
     ms_eager, _ = check_chunks(phase, drive, every, path["generator"])
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    final, kes = drive(N_STEPS, True, False)
-    b.record()
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    ms = a.elapsed_time(b) / N_STEPS
+    launches, ms, final, kes = timed_run(drive)
     n_c = 0 if params is None else params.n_constraints
-    temps = 2.0 * kes.double().cpu() / ((3 * n_atoms - n_c) * BOLTZ)
+    temps = 2.0 * kes / ((3 * n_atoms - n_c) * BOLTZ)
     t_mean = float(temps.mean())
     res = (float(constraint_residuals(final.positions, params).abs().max())
            if params is not None else None)
@@ -452,9 +563,6 @@ def run_nvt(phase, label, path, drive, dt_ps, params=None):
           f"{'none' if res is None else '%.3e nm^2' % res}; final potential "
           f"{float(final.potential):.3f} kJ/mol; launches {launches}",
           flush=True)
-    if not (torch.isfinite(kes).all() and math.isfinite(
-            float(final.potential)) and torch.isfinite(final.positions).all()):
-        fail(f"phase {phase}: non-finite energies or positions")
     if not abs(t_mean / 300.0 - 1.0) <= T_TOL:
         fail(f"phase {phase}: mean temperature {t_mean:.2f} K is not within "
              f"{T_TOL:.0%} of 300 K")
@@ -571,7 +679,6 @@ def run_dense_md(x, masses, bonded, system):
     once per step plus the final consistent-state evaluation."""
     import torch
 
-    from chargeflux_tpu_torch import ops
     from chargeflux_tpu_torch.integrate import init_state_nb, make_nb_energy_fn
     from chargeflux_tpu_torch.utils.measure import nve_drive
 
@@ -579,16 +686,7 @@ def run_dense_md(x, masses, bonded, system):
                        *make_nb_energy_fn(system, bonded=bonded))
     drive, _, _ = nve_drive(system, s0, 10, masses, bonded)
     ms_eager, _ = check_chunks("5b", drive, 10)
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    final, es = drive(N_STEPS, True, False)
-    b.record()
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    ms = a.elapsed_time(b) / N_STEPS
-    es = es.double().cpu()
+    launches, ms, final, es = timed_run(drive)
     e0 = float(s0.potential)
     drift = float(es[-1]) - e0
     print(f"phase 5b dense NVE: {N_STEPS} steps of {x.shape[0]} atoms as "
@@ -598,9 +696,6 @@ def run_dense_md(x, masses, bonded, system):
           f"{float(es[-1]):.3f} kJ/mol, drift {drift:.4f} kJ/mol, max "
           f"|E - E0| {float((es - e0).abs().max()):.4f}; launches "
           f"{launches}", flush=True)
-    if not (torch.isfinite(es).all() and math.isfinite(float(final.potential))
-            and torch.isfinite(final.positions).all()):
-        fail("dense NVE run produced non-finite energies")
     return (check_launches(launches, "216", lambda c: c == N_STEPS + 1), ms,
             ms_eager)
 
@@ -632,10 +727,10 @@ def main():
           flush=True)
 
     from chargeflux_tpu_torch.energy import resolve_recip_method
-    from chargeflux_tpu_torch.utils.measure import dense_path, main_path
+    from chargeflux_tpu_torch.utils.measure import bench_path, dense_path
 
     dev = torch.device("cuda", 0)
-    force, x, m, box, _, system = main_path(dev)
+    force, x, m, box, _, system = bench_path("30k", dev)
     spec = system.spec
     print(f"phase 3 system: {system.n_atoms} atoms, cells {spec.cell_grid} "
           f"cap {spec.cell_capacity}, PME {spec.pme_grid} order "
@@ -653,11 +748,13 @@ def main():
     check_sf_kernels(results)
     check_energy(system, x, "4")
     check_energy(sys_d, x_d, "4b")
-    launches, ms_step, ms_eager = run_md(force, system, x, m, box)
+    launches, ms_step, ms_eager, capture = run_md(force, system, x, m, box)
     launches_d, ms_d, ms_eager_d = run_dense_md(x_d, m_d, bonded_d, sys_d)
     launches_r, ms_r, ms_eager_r = run_rigid(dev)
     launches_m, ms_m, ms_eager_m = run_respa(dev)
-    for name, count in {**launches, **launches_d}.items():
+    launches_t, ms_t, ms_eager_t = run_tri(dev, results)
+    ms_h, ms_eager_h = run_hetero(dev)
+    for name, count in {**launches, **launches_d, **launches_t}.items():
         results[name]["launches"] = count
     for key, counts in (("launches_rigid", launches_r),
                         ("launches_respa", launches_m)):
@@ -674,7 +771,12 @@ def main():
                       "ns_per_day_rigid": ns_per_day(2e-3, ms_r),
                       "ms_per_step_respa": ms_m,
                       "ms_per_step_respa_eager": ms_eager_m,
-                      "ns_per_day_respa": ns_per_day(2e-3, ms_m)}),
+                      "ns_per_day_respa": ns_per_day(2e-3, ms_m),
+                      "ms_per_step_tri30k": ms_t,
+                      "ms_per_step_tri30k_eager": ms_eager_t,
+                      "ms_per_step_hetero30k": ms_h,
+                      "ms_per_step_hetero30k_eager": ms_eager_h,
+                      "chunk_capture_30k": capture}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

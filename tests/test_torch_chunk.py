@@ -312,3 +312,48 @@ def test_chunks_are_kept_on_the_energy_function():
     assert sum(counts.values()) == 10
     assert set(ops.KERNEL_SYMBOLS) == set(counts)
     ops.reset_launch_counts()
+
+
+def test_chunk_key_holds_what_a_chunk_computes_not_identities():
+    """``integrate.chunk_key``: fresh masses tensors and generators of the
+    same shapes give one key (they replay one graph); the chunk length, the
+    carry's shape, type or device, the masses' shape or type, and the
+    driver's coefficients each give another."""
+    x = torch.zeros((6, 3), dtype=torch.float64)
+    m = torch.ones(6, dtype=torch.float64)
+    base = ("langevin_nb", 5e-4, 300.0, 20.0)
+    key = integrate.chunk_key(base, 4, x, m)
+    assert key == integrate.chunk_key(base, 4, x.clone(), m.clone() * 2.0)
+    assert hash(key) == hash(integrate.chunk_key(base, 4, x.clone(),
+                                                 m.clone()))
+    others = [integrate.chunk_key(base, 5, x, m),
+              integrate.chunk_key(base, 4, torch.zeros((9, 3),
+                                                       dtype=torch.float64),
+                                  torch.ones(9, dtype=torch.float64)),
+              integrate.chunk_key(base, 4, x.float(), m),
+              integrate.chunk_key(base, 4, x, m.float()),
+              integrate.chunk_key(("langevin_nb", 5e-4, 310.0, 20.0), 4, x,
+                                  m)]
+    assert len({key, *others}) == 1 + len(others)
+    assert not any(isinstance(v, torch.Tensor) for v in key)
+
+
+def test_eager_chunk_reads_the_callers_masses_and_generator():
+    """On the CPU (and with ``graph=False``) a chunk's step reads the
+    caller's masses tensor and generator themselves; a chunk that would
+    replay a graph is given buffers of its own (checked on the card)."""
+    seen = {}
+
+    def make_step(masses, generator):
+        seen.update(masses=masses, generator=generator)
+        return lambda carry, nb: (carry, carry[0].sum(), carry[0].sum())
+
+    x = torch.zeros((6, 3), dtype=torch.float64)
+    m = torch.ones(6, dtype=torch.float64)
+    gen = torch.Generator().manual_seed(3)
+    chunk = integrate.Chunk(make_step, None, 2, (x,) * 3, True, m, gen)
+    assert not chunk.want_graph
+    assert seen["masses"] is m and seen["generator"] is gen
+    chunk.load(x, x, x, masses=m, generator=gen)
+    chunk()
+    assert torch.equal(chunk.es, torch.zeros(2, dtype=torch.float64))

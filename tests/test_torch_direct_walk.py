@@ -72,7 +72,8 @@ def _kernel_traversal(x, y, z, q, hs, se, ids, box, n_atoms, alpha, cutoff,
     ranked in ascending slot order and their bounding box; each neighbor
     tile of full_shell_tables, image offset added, compacted in slot order
     to its real atoms within the cutoff of that box (the self tile keeps
-    every real atom); rounds of whole tiles that fit ``stage_tiles * cap``
+    every real atom; a [3, 3] box adds the lattice rows); rounds of whole
+    tiles that fit ``stage_tiles * cap``
     entries; a round's entries dealt out in chunks of ``chunk`` to the
     thread groups in turn (a block has four warps per 32 slots of
     capacity, 32 at most, and forms as many groups as the warps of its
@@ -104,7 +105,8 @@ def _kernel_traversal(x, y, z, q, hs, se, ids, box, n_atoms, alpha, cutoff,
         tiles = []                       # per tile: (slots kept, positions)
         for s in range(27):
             cj = nbr[c, s]
-            pj = pos[cj] + img[c, s] * boxn
+            pj = pos[cj] + (img[c, s] @ boxn if boxn.ndim == 2
+                            else img[c, s] * boxn)
             d = np.maximum(np.maximum(lo - pj, pj - hi), 0.0)
             keep = (idn[cj] < n_atoms) & (
                 (s == 13) | ((d * d).sum(-1) < cut2 * 1.00001))
@@ -158,7 +160,8 @@ def _kernel_traversal(x, y, z, q, hs, se, ids, box, n_atoms, alpha, cutoff,
     pj = torch.as_tensor(np.array(pairs_j, np.int64))
     ps = np.array(pairs_s, np.int64)
     cell_of = (pi // cap).numpy()
-    off = torch.as_tensor(img[cell_of, ps].astype(np.float64)) * box
+    im = torch.as_tensor(img[cell_of, ps].astype(np.float64))
+    off = im @ box if box.ndim == 2 else im * box
     flat = [a.reshape(-1) for a in (x, y, z)]
     d = [a[pi] - (a[pj] + off[:, k]) for k, a in enumerate(flat)]
     r2 = d[0] ** 2 + d[1] ** 2 + d[2] ** 2

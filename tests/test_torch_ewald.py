@@ -126,9 +126,11 @@ def test_auto_resolves_as_the_jax_package(direct, n_side, device, dtype,
 
 def _reciprocal_energy_uncached(positions, q, box, alpha, kmax, method):
     """reciprocal_energy as it was before the k grid's tensors were kept:
-    every constant built from the NumPy grid inside the call."""
+    every constant built from the NumPy grid inside the call (the "xla"
+    product through ``device.ieee_matmul``, as the port forms it)."""
     import math
 
+    from chargeflux_tpu_torch.device import ieee_matmul
     from chargeflux_tpu_torch.ops.structure_factor import (structure_factor,
                                                            xy_tables)
     from chargeflux_tpu_torch.pairs import (box_volume, frac_coords,
@@ -152,7 +154,7 @@ def _reciprocal_energy_uncached(positions, q, box, alpha, kmax, method):
                                 (q[:, None] * cz_sz).contiguous())
     else:
         cxy, sxy = xy_tables(cx.T, sx.T, cy.T, sy.T)
-        a, b = (cxy * q) @ cz_sz, (sxy * q) @ cz_sz
+        a, b = ieee_matmul(cxy * q, cz_sz), ieee_matmul(sxy * q, cz_sz)
     s_cos, s_sin = ewald.assemble(a, b, len(nz))
     g = torch.diagonal(reciprocal_metric(box, dtype))
 
@@ -204,3 +206,60 @@ def test_kept_k_grid_tensors_change_no_bit(dtype, method, monkeypatch):
     assert kept is ewald.kgrid_tensors(list(kmax), dtype, torch.device("cpu"))
     assert kept.w.shape == (kmax[0] * (2 * kmax[1] - 1), 2 * kmax[2] - 1)
     assert all(t.dtype == dtype for t in (*kept.n, *kept.sq, kept.w))
+
+
+PRODUCTS = ["xla", "spread_plain", "sf_plain"]
+
+
+@pytest.mark.parametrize("product", PRODUCTS)
+def test_f32_products_run_at_ieee_f32_whatever_the_tf32_switch(
+        product, monkeypatch):
+    """With the caller's TF32 switch on, every product of an accuracy path
+    (the "xla" structure-factor product and the plain versions' products
+    of the spread and of the structure-factor kernels), forward and
+    backward through ``torch.autograd.grad``, runs with the switch off
+    (a spy on ``torch.matmul`` reads it at each call), and the caller's
+    switch reads True again afterwards."""
+    from chargeflux_tpu_torch.ops import pme_spread
+    from chargeflux_tpu_torch.ops import structure_factor as sf
+
+    real = torch.matmul
+    seen = []
+
+    def spy(*a, **k):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(*a, **k)
+
+    rng = np.random.default_rng(1)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            requires_grad=True)
+
+    matmul = torch.backends.cuda.matmul
+    monkeypatch.setattr(matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch, "matmul", spy)
+    if product == "xla":
+        x = torch.tensor(rng.uniform(0, 2.0, (20, 3)), dtype=torch.float32,
+                         requires_grad=True)
+        q = t(20)
+        e = ewald.reciprocal_energy(x, q, torch.tensor([2.0, 2.1, 2.2]), 3.0,
+                                    (3, 3, 3))
+        inputs = (x, q)
+    elif product == "spread_plain":
+        qwlxt, wlyt, wzt = t(4, 6, 10), t(4, 8, 10), t(4, 8, 10)
+        zorg = torch.tensor(rng.integers(0, 12, (4, 1, 10)), dtype=torch.int32)
+        offsets = ((0, 0, 3, 3), (0, 3, 0, 3))
+        out = pme_spread.spread_columns(qwlxt, wlyt, wzt, zorg, offsets,
+                                        (9, 11, 12))
+        e = torch.sum(out * out)
+        inputs = (qwlxt, wlyt, wzt)
+    else:
+        tabs = (t(3, 15), t(3, 15), t(5, 15), t(5, 15), t(15, 10))
+        a, b = sf.structure_factor(*tabs)
+        e = torch.sum(a * a) + torch.sum(b * b)
+        inputs = tabs
+    grads = torch.autograd.grad(e, inputs)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert seen and not any(seen)
+    assert matmul.allow_tf32 is True

@@ -285,7 +285,7 @@ def test_direct_walk_kernel_edge_cases(case):
     err = native.library().cf_direct_walk(
         *(t.data_ptr() for t in (*cols, ids, nbr, img, box, coef)),
         coef.numel(), 2.0 / (cutoff * cutoff), cutoff * cutoff, n_atoms,
-        n_cells, cap, e_part.data_ptr(), g.data_ptr(), dq.data_ptr(),
+        n_cells, cap, 0, e_part.data_ptr(), g.data_ptr(), dq.data_ptr(),
         native.stream_ptr(ids))
     native.check(err, "cf_direct_walk")
     torch.cuda.synchronize()
@@ -300,7 +300,7 @@ def test_direct_walk_kernel_edge_cases(case):
     coef16 = torch.cat([coef, coef.new_zeros(16 - coef.numel())])
     err = native.library().cf_direct_walk(
         *(t.data_ptr() for t in (*cols, ids, nbr, img, box, coef16)), 16,
-        2.0 / (cutoff * cutoff), cutoff * cutoff, n_atoms, n_cells, cap,
+        2.0 / (cutoff * cutoff), cutoff * cutoff, n_atoms, n_cells, cap, 0,
         e_part.data_ptr(), g.data_ptr(), dq.data_ptr(),
         native.stream_ptr(ids))
     native.check(err, "cf_direct_walk")
@@ -1019,9 +1019,11 @@ def test_a_warm_eager_noise_chunk_makes_no_host_sync(nvt_paths, driver):
 
 
 def test_a_new_generator_captures_anew(nvt_paths):
-    """A graph belongs to the generator it captured: a call with another
-    generator captures its own chunk, whose replays give that generator's
-    eager bits; the first generator's graph is kept and still replays."""
+    """A graph no longer belongs to the generator it captured: a call with
+    another generator captures nothing new and replays the one graph from
+    that generator's state, giving that generator's eager bits and moving
+    it on as far as the eager run does; the first generator's graph is the
+    one replayed."""
     run, every = nvt_paths["runs"]["langevin_nb"]
     owner = nvt_paths["owners"]["langevin_nb"]
     dev = nvt_paths["device"]
@@ -1029,13 +1031,14 @@ def test_a_new_generator_captures_anew(nvt_paths):
     run(every, True, g1, None)
     before = {k: c.graph for k, c in owner.nve_chunks.items()}
     got = run(every, True, g2, None)[1]
-    new = [c for k, c in owner.nve_chunks.items() if k not in before]
-    assert len(new) == 1 and new[0].generator is g2
-    assert all(owner.nve_chunks[k].graph is g for k, g in before.items())
+    offset = g2.get_offset()
+    assert {k: c.graph for k, c in owner.nve_chunks.items()} == before
+    assert all(c.generator is not g2 for c in owner.nve_chunks.values())
     g2.manual_seed(2)
     want = run(every, False, g2, None)[1]
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert g2.get_offset() == offset
 
 
 def test_a_dropped_chunk_collected_during_a_capture_does_not_break_it(
@@ -1063,3 +1066,185 @@ def test_a_dropped_chunk_collected_during_a_capture_does_not_break_it(
     finally:
         gc.set_threshold(*thresholds)
     _same_bits(_trajectory(path, every + 1, False, fns), got)
+
+
+def test_fresh_generators_and_masses_replay_one_chunk_graph(md_paths):
+    """Chunks are keyed by what they compute, not by the identity of the
+    masses tensor or the generator: three calls of
+    langevin_trajectory_nb on one energy function, each with a fresh
+    generator of the same seed and a freshly built masses tensor, capture
+    in the first call only (the count of kept chunks does not grow), and
+    each equals graph=False from the same generator state bit for bit,
+    with the caller's generator moved on as far; a fourth call with other
+    masses values replays the same graphs on those masses."""
+    from chargeflux_tpu_torch.integrate import (langevin_trajectory_nb,
+                                                make_nb_energy_fn)
+
+    system, bonded, s0, masses, _ = md_paths["cell"]
+    dev = s0.positions.device
+    e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
+    every, n = 4, 9
+    kept = None
+    for scale in (1.0, 1.0, 1.0, 1.05):
+        outs = []
+        for graph in (True, False):
+            gen = torch.Generator(dev).manual_seed(21)
+            m = masses.cpu().clone().to(dev) * scale
+            out = langevin_trajectory_nb(s0, e_fn, init_nb, m, 5e-4, 300.0,
+                                         20.0, gen, n, every, graph=graph)
+            outs.append((out, gen.get_offset()))
+            if graph:
+                if kept is None:
+                    kept = {k: c.graph for k, c in e_fn.nve_chunks.items()}
+                assert len(kept) == 2
+                assert {k: c.graph for k, c in
+                        e_fn.nve_chunks.items()} == kept
+        torch.cuda.synchronize()
+        (got, off_g), (want, off_e) = outs
+        assert torch.isfinite(want[1]).all()
+        assert torch.equal(got[1], want[1]) and off_g == off_e
+        for f in ("positions", "velocities", "forces"):
+            assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+
+
+def test_chunk_capture_reports_its_memory_and_time(md_paths):
+    """A captured chunk records the device memory its capture took and
+    the capture's time, for PERF.md's account of the graphs kept."""
+    path = md_paths["cell"]
+    from chargeflux_tpu_torch.integrate import make_nb_energy_fn
+
+    e_fns = make_nb_energy_fn(path[0], bonded=path[1])
+    _trajectory(path, path[4], True, e_fns)
+    (chunk,) = e_fns[0].nve_chunks.values()
+    assert chunk.capture_bytes > 0 and chunk.capture_seconds > 0.0
+
+
+def test_tf32_switched_on_leaves_the_xla_route_at_ieee_f32():
+    """With TF32 switched on globally (``allow_tf32`` and
+    ``set_float32_matmul_precision("high")``), the "xla" classical-Ewald
+    route's f32 forces on the bench.py 216 box stay within the 1e-4 RMS
+    budget of the f64 plain path, their energy within 1e-5 of sum |E_c|,
+    and the caller's switches read as they were set afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from chargeflux_tpu_torch.models import water_box as water_box_t
+
+    dev = torch.device("cuda", 0)
+    force, pos, _, box = water_box_t(n_side=6, flux="bond_angle", cutoff=0.9)
+    system = force.create_system(box=box, dtype=torch.float32,
+                                 direct_method="dense", recip_method="xla",
+                                 device=dev)
+    x = torch.tensor(pos, dtype=torch.float32, device=dev)
+    sys64 = system.astype(torch.float64)
+    e64, f64 = energy_and_forces(x.double(), sys64, plain=True)
+    matmul = torch.backends.cuda.matmul
+    try:
+        torch.set_float32_matmul_precision("high")
+        matmul.allow_tf32 = True
+        e32, f32 = energy_and_forces(x, system)
+        assert matmul.allow_tf32 is True
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        matmul.allow_tf32 = False
+    rms = torch.sqrt(torch.mean((f32.double() - f64) ** 2)
+                     / torch.mean(f64 ** 2))
+    assert float(rms) <= 1e-4
+    with torch.no_grad():
+        scale = sum(abs(float(v)) for v in energy_components(
+            x.double(), sys64, plain=True).values())
+    assert abs(float(e32) - float(e64)) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# triclinic boxes: the walk kernel's triclinic instantiation
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tri_setup():
+    """A small water box on bench.py's sheared lattice
+    (``utils.measure.shear_box``), f32 cell + SPME on the card, with its
+    blocks and a start state at rest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from chargeflux_tpu_torch.integrate import init_state_nb, make_nb_energy_fn
+    from chargeflux_tpu_torch.models import water_bonded_params
+    from chargeflux_tpu_torch.utils.measure import shear_box
+
+    dev = torch.device("cuda", 0)
+    force, pos, masses, box = water_box(n_side=9, cutoff=0.65)
+    lattice = shear_box(box)
+    system = force.create_system(box=lattice, dtype=torch.float32,
+                                 direct_method="cell", recip_method="pme",
+                                 device=dev)
+    assert system.box.shape == (3, 3)
+    x = torch.tensor(pos, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        nb = build_neighbor_state(x, system)
+        b = cells.blockify(x, effective_charges(x, system), system, nb.slots,
+                           nb.inv_slot, wrap=nb.wrap)
+    bonded = water_bonded_params(x.shape[0] // 3, box=lattice, device=dev)
+    s0 = init_state_nb(x, torch.zeros_like(x),
+                       *make_nb_energy_fn(system, bonded=bonded))
+    return dict(system=system, x=x, blocks=b, ids=nb.slots.reshape(b.x.shape),
+                bonded=bonded, s0=s0,
+                masses=torch.tensor(masses, dtype=torch.float32, device=dev))
+
+
+def test_triclinic_walk_kernel_matches_plain_and_repeats_bitwise(tri_setup):
+    """On the sheared box the wrapper launches the triclinic instantiation
+    (counted as ``direct_walk_tri``, not ``direct_walk``): energy within
+    1e-5, dE/dx and dE/dq within 1e-4 of their max of the plain version
+    (lattice-row image offsets), two launches bit-equal, sentinel slots
+    exactly 0."""
+    s = tri_setup
+    b, system = s["blocks"], s["system"]
+    args = (*b, s["ids"], system.box, system.n_atoms, system.spec.alpha,
+            system.spec.cutoff)
+    ops.reset_launch_counts()
+    k1, k2 = dw.direct_walk(*args), dw.direct_walk(*args)
+    counts = ops.launch_counts()
+    assert counts["direct_walk_tri"] == 2 and counts["direct_walk"] == 0
+    p = dw.direct_walk_plain(*args)
+    for u, v in zip(k1, k2):
+        assert torch.equal(u, v)
+    assert abs(float(k1[0] - p[0])) <= 1e-5 * abs(float(p[0]))
+    assert _max_rel(k1[1], p[1]) <= 1e-4 and _max_rel(k1[2], p[2]) <= 1e-4
+    sentinel = s["ids"] >= system.n_atoms
+    assert not k1[1][:, sentinel].any() and not k1[2][sentinel].any()
+
+
+def test_triclinic_kernel_path_matches_plain_and_f64(tri_setup):
+    """energy_and_forces on the sheared box: the f32 kernel path against
+    the f32 plain path and the f64 plain path, force RMS rel <= 1e-4 and
+    |dE| <= 1e-5 sum |E_c|."""
+    s = tri_setup
+    system, x = s["system"], s["x"]
+    e_k, f_k = energy_and_forces(x, system)
+    sys64 = system.astype(torch.float64)
+    with torch.no_grad():
+        scale = sum(abs(float(v)) for v in energy_components(
+            x.double(), sys64, plain=True).values())
+    for ref_sys, xx in ((system, x), (sys64, x.double())):
+        e_p, f_p = energy_and_forces(xx, ref_sys, plain=True)
+        rms = torch.sqrt(torch.mean((f_k.double() - f_p.double()) ** 2)
+                         / torch.mean(f_p.double() ** 2))
+        assert float(rms) <= 1e-4
+        assert abs(float(e_k) - float(e_p)) <= 1e-5 * scale
+
+
+def test_triclinic_chunk_replays_give_the_eager_bits(tri_setup):
+    """nve_trajectory_nb on the sheared box: two chunks and a remainder
+    replayed (first call and second call) equal graph=False bit for bit."""
+    from chargeflux_tpu_torch.integrate import (make_nb_energy_fn,
+                                                nve_trajectory_nb)
+    from chargeflux_tpu_torch.utils.measure import DT_PS
+
+    s = tri_setup
+    fns = make_nb_energy_fn(s["system"], bonded=s["bonded"])
+    runs = [nve_trajectory_nb(s["s0"], *fns, s["masses"], DT_PS, 9, 4,
+                              graph=g) for g in (False, True, True)]
+    assert torch.isfinite(runs[0][1]).all()
+    for got in runs[1:]:
+        _same_bits(runs[0], got)

@@ -231,6 +231,7 @@ def test_cpu_wrappers_take_the_plain_path():
     e, f = energy_and_forces(torch.as_tensor(pos, dtype=torch.float32), sys_t)
     assert torch.isfinite(e) and torch.isfinite(f).all()
     assert ops.launch_counts() == {"spread_fwd": 0, "spread_bwd": 0,
-                                   "direct_walk": 0, "sf_fwd": 0,
-                                   "sf_bwd_tables": 0, "sf_bwd_zq": 0}
+                                   "direct_walk": 0, "direct_walk_tri": 0,
+                                   "sf_fwd": 0, "sf_bwd_tables": 0,
+                                   "sf_bwd_zq": 0}
     assert jax.devices()[0].platform == "cpu"
