@@ -10,9 +10,13 @@ the dense periodic route with classical Ewald (CUDA structure-factor
 kernels) and the non-periodic all-pairs route, harmonic water bonds and
 angles, and the integrators: NVE, BAOAB Langevin NVT and impulse r-RESPA
 (NVE and NVT), with or without neighbor-state reuse, rigid water by
-SETTLE / RATTLE (``constraints``) and general distance constraints, and
-FIRE minimization.  Each trajectory chunk is replayed as one CUDA graph
-on the card, its noise drawn there from the caller's ``torch.Generator``.
+SETTLE / RATTLE (``constraints``) and general distance constraints, the
+CSVR (``csvr``) and Nose-Hoover chain (``nosehoover``) thermostats, the
+isotropic and anisotropic Monte Carlo barostats with the virial pressure
+and pressure tensor (``npt``), and FIRE minimization.  Each trajectory
+chunk is replayed as one CUDA graph on the card, its noise drawn there
+from the caller's ``torch.Generator``; a barostat's volume move writes the
+box the graph reads.
 The water boxes, flexible and rigid, are in ``models``.  ROADMAP.md lists
 what is still to port.
 """
@@ -36,6 +40,12 @@ from .constraints import (DistanceConstraints, RigidWaterParams,
                           rattle_langevin_trajectory_nb,
                           rattle_nve_trajectory, rattle_verlet_step,
                           settle_positions)
+from .csvr import csvr_scale, csvr_trajectory, csvr_trajectory_nb
+from .nosehoover import (NHChain, nhc_conserved, nhc_init, nose_hoover_step,
+                         nose_hoover_trajectory, nose_hoover_trajectory_nb)
+from .npt import (instantaneous_pressure, molecule_centroids, molecule_index,
+                  npt_anisotropic_langevin_trajectory,
+                  npt_langevin_trajectory, pressure_tensor)
 from .models import rigid_water_box
 from .units import BOLTZ, ONE_4PI_EPS0
 
@@ -53,5 +63,11 @@ __all__ = [
     "project_positions", "project_velocities", "settle_positions",
     "rattle_verlet_step", "rattle_nve_trajectory",
     "rattle_langevin_trajectory", "rattle_langevin_trajectory_nb",
+    "csvr_scale", "csvr_trajectory", "csvr_trajectory_nb",
+    "NHChain", "nhc_init", "nhc_conserved", "nose_hoover_step",
+    "nose_hoover_trajectory", "nose_hoover_trajectory_nb",
+    "molecule_index", "molecule_centroids", "instantaneous_pressure",
+    "pressure_tensor", "npt_langevin_trajectory",
+    "npt_anisotropic_langevin_trajectory",
     "rigid_water_box", "ONE_4PI_EPS0", "BOLTZ",
 ]

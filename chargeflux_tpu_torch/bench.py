@@ -2,12 +2,13 @@
 one configuration, printed as one JSON line with bench.py's metric names
 and fields.
 
-    python3 -m chargeflux_tpu_torch.bench [216|4k|30k|100k|tri30k|hetero30k|rigid|respa]
+    python3 -m chargeflux_tpu_torch.bench [216|4k|30k|100k|tri30k|hetero30k|rigid|respa|npt]
 
 Each configuration is built as bench.py builds it
-(``utils.measure.bench_path``; rigid and respa through
-``utils.measure.rigid_path`` and ``respa_path``), the cell configurations
-burned in and re-provisioned as there (``utils.measure.burn_in``).  The
+(``utils.measure.bench_path``; rigid, respa and npt through
+``utils.measure.rigid_path``, ``respa_path`` and ``npt_path``), the cell
+configurations burned in and re-provisioned as there
+(``utils.measure.burn_in``).  The
 trajectory drivers replay each rebuild chunk as a CUDA graph, as a user's
 call does.  Timing keeps bench.py's pairing: after a warm-up, per
 repetition the CUDA-event times of two calls of k1 and k2 = 6 k1 rebuild
@@ -28,8 +29,14 @@ carries ``device``: the card's name and power limit from ``nvidia-smi``.
 
 Not ported: ``vs_baseline`` and ``last_measured_tpu_ms`` (TPU targets and
 TPU times), and the CPU fallback: without CUDA this raises unless
-``--device cpu`` is given (the tests' small runs).  ``npt`` and
-``replicas`` exit non-zero naming the ROADMAP items that port them.
+``--device cpu`` is given (the tests' small runs).  ``replicas`` exits
+non-zero naming the ROADMAP item that ports it.
+
+The npt line (``ms_per_npt_md_step_30k_ewald_f32``: ms per NPT step, the
+attempt and its re-binning amortised over the barostat interval) adds
+bench.py's ``barostat_interval``, and from one more replayed call of
+:data:`NPT_ATTEMPTS` attempts after the timing, the accept fraction and
+the count of poisoned proposals.
 """
 
 from __future__ import annotations
@@ -53,11 +60,11 @@ from .pme import pme_cell_column_reciprocal_energy
 from .utils import measure
 
 CONFIGS = ("216", "4k", "30k", "100k", "tri30k", "hetero30k", "rigid",
-           "respa")
+           "respa", "npt")
 #: Configurations of the JAX package's bench.py the port does not run yet,
 #: and the ROADMAP item that ports each.
-NOT_PORTED = {"npt": "ROADMAP A.5 (npt.py, the MC barostat)",
-              "replicas": "ROADMAP A.9 (parallel/replicas.py)"}
+NOT_PORTED = {"replicas": "ROADMAP A.9 (parallel/replicas.py)"}
+NPT_ATTEMPTS = 100         # attempts of the npt line's acceptance call
 REPS = 7                   # bench.py's repetitions of the paired timing
 WARM_S = 10.0              # bench.py's warm-up under sustained load (card)
 
@@ -298,6 +305,36 @@ def bench_nvt(config, dev, steps=None) -> dict:
             "kinetic_energy": ke_last}
 
 
+def bench_npt(dev, steps=None, path=None) -> dict:
+    """bench.py's npt config (``utils.measure.npt_path``, or ``path``):
+    NPT steps of 0.5 fs, one barostat attempt per interval, timed as the
+    other configs; then one call of :data:`NPT_ATTEMPTS` attempts for the
+    acceptance statistics, whose energies must be finite too."""
+    path = path or measure.npt_path(dev)
+    drive, owner, _ = measure.npt_drive(path)
+    every = path["rebuild_every"]
+    k1, k2 = _chunks(every, steps)
+    if k1 % every:
+        raise ValueError(f"--steps must be a multiple of the barostat "
+                         f"interval {every}")
+    ms, e_last = paired_ms(lambda n: drive(n, True, False), k1, k2, dev)
+    run, es = drive(NPT_ATTEMPTS * every, True, False)
+    diag = run.diag
+    system = path["system"]
+    return {"metric": "ms_per_npt_md_step_30k_ewald_f32", "value": ms,
+            "unit": "ms", "ns_per_day": measure.ns_per_day(measure.DT_PS, ms),
+            "replays_alone_ms": replays_alone_ms(owner, every, dev),
+            "card": card_state(dev), "dt_fs": measure.DT_PS * 1e3,
+            "barostat_interval": every, "atoms": system.n_atoms,
+            "cell_capacity": system.spec.cell_capacity,
+            "cell_grid": list(system.spec.cell_grid),
+            "attempts": NPT_ATTEMPTS,
+            "accept_fraction": float(diag["accepts"].double().mean()),
+            "poisoned": int(diag["poisoned"].sum()),
+            "energy": e_last,
+            "energies_finite": bool(torch.isfinite(es).all())}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config", nargs="?", default="30k",
@@ -312,7 +349,10 @@ def main(argv=None):
         raise SystemExit(f"bench {args.config}: not ported yet, "
                          f"{NOT_PORTED[args.config]}")
     dev = resolve_device(args.device)
-    if args.config in ("rigid", "respa"):
+    if args.config == "npt":
+        line = bench_npt(dev, args.steps)
+        finite = math.isfinite(line["energy"]) and line["energies_finite"]
+    elif args.config in ("rigid", "respa"):
         line = bench_nvt(args.config, dev, args.steps)
         finite = math.isfinite(line["kinetic_energy"])
     else:

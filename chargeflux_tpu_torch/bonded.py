@@ -102,6 +102,17 @@ class BondedParams:
                    angle_theta0=f(angle_theta0), box=f(box), pbc=pbc,
                    template=template)
 
+    def with_box(self, box: torch.Tensor) -> "BondedParams":
+        """The same terms with the box tensor ``box`` (the JAX package's
+        ``dataclasses.replace(bonded, box=...)``): a shallow copy that
+        keeps the row plan, so it makes no host traffic and may be made
+        inside a CUDA graph capture."""
+        new = object.__new__(type(self))
+        for f in dataclasses.fields(self):
+            object.__setattr__(new, f.name, getattr(self, f.name))
+        object.__setattr__(new, "box", box.to(self.box.dtype))
+        return new
+
     def astype(self, dtype) -> "BondedParams":
         """Cast the float tensors to ``dtype`` (index tensors untouched)."""
         return dataclasses.replace(self, **{

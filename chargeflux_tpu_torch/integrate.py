@@ -251,7 +251,14 @@ class Chunk:
     ``make_step(masses, generator)`` gives ``step(carry, nb) -> (carry,
     potential, record)``, one step on the carry, a tuple of tensors with
     the positions first; the chunk writes its last carry and potential and
-    its per-step records ``es`` [k] into the buffers in place.  The step
+    its per-step records ``es`` [k, *record_shape] into the buffers in
+    place.  The chunk starts with its head, ``head(carry, rebuild) ->
+    (carry, nb, records)``: by default the rebuild alone, recording
+    nothing; ``make_head(masses, generator)``, where given, gives another
+    (the barostat's attempt, npt.py).  ``rebuild(x, *args)`` rebuilds into
+    the chunk's neighbor state, the steps get the ``nb`` the head returns,
+    and the chunk keeps the ``records``, a tuple of tensors, in
+    ``head_records``.  The step
     reads the masses and draws its noise (``generator``; None for the
     deterministic drivers) from what it is given: the caller's own on the
     CPU or with ``graph=False``.  With ``graph`` (a CUDA device) the chunk
@@ -263,12 +270,14 @@ class Chunk:
     objects whose ids are in the chunk's key (see :func:`chunk_key`)."""
 
     def __init__(self, make_step, rebuild, k: int, carry_like, graph: bool,
-                 masses, generator=None, keep=()):
+                 masses, generator=None, keep=(), make_head=None,
+                 record_shape=()):
         self.rebuild, self.k = rebuild, k
         self.carry = tuple(torch.empty_like(t) for t in carry_like)
         like = self.carry[0]
         self.potential = like.new_empty(())
-        self.es = like.new_empty((k,))
+        self.es = like.new_empty((k,) + tuple(record_shape))
+        self.head_records = None  # static buffers after the first head
         self.nb = None            # static NeighborState after the first rebuild
         self.want_graph = graph and like.is_cuda
         if self.want_graph:
@@ -278,6 +287,8 @@ class Chunk:
         self.masses, self.generator = masses, generator
         self.source = None        # the caller's generator of a replay
         self.step = make_step(masses, generator)
+        self.head = (self._rebuild_head if make_head is None
+                     else make_head(masses, generator))
         self.keep = keep
         self.graph = None
         self.captured = {}        # kernel launches of one replay
@@ -329,8 +340,12 @@ class Chunk:
     def run(self, n_steps: int | None = None):
         """The chunk's work, eagerly, on the static buffers (``n_steps``
         of its ``k`` steps)."""
-        carry = self.carry
-        nb = self._rebuild(carry[0]) if self.rebuild is not None else None
+        carry, nb, records = self.head(self.carry, self._rebuild)
+        if self.head_records is None:       # the first run is eager
+            self.head_records = tuple(r.clone() for r in records)
+        else:
+            for buf, r in zip(self.head_records, records):
+                buf.copy_(r)
         es = []
         for _ in range(self.k if n_steps is None else n_steps):
             carry, e, record = self.step(carry, nb)
@@ -339,8 +354,13 @@ class Chunk:
         self.potential.copy_(e)
         self.es[:len(es)].copy_(torch.stack(es))
 
-    def _rebuild(self, x):
-        nb = self.rebuild(x)
+    def _rebuild_head(self, carry, rebuild):
+        """The default head: the rebuild alone, recording nothing."""
+        return (carry, rebuild(carry[0]) if self.rebuild is not None
+                else None, ())
+
+    def _rebuild(self, x, *args):
+        nb = self.rebuild(x, *args)
         if nb is None:                                  # the dense route
             return None
         if self.nb is None:      # the first rebuild runs eagerly: warm-up
@@ -434,14 +454,16 @@ def _run_chunks(get_chunk, carry, n_steps: int, k: int, masses,
     """``n_steps`` in chunks of ``k`` steps, then one chunk of the
     remainder (the JAX package's ``outer`` and ``outer_rem``), on
     ``masses`` and drawing from ``generator``; returns the last chunk run
-    and the per-step records [n_steps]."""
-    es = carry[0].new_empty((n_steps,))
+    and the per-step records [n_steps, *record_shape]."""
+    es = None
     n_full, rem = divmod(n_steps, k)
     done, chunk = 0, None
     for length, count in ((k, n_full), (rem, 1 if rem else 0)):
         if count == 0:
             continue
         chunk = get_chunk(length)
+        if es is None:
+            es = chunk.es.new_empty((n_steps,) + chunk.es.shape[1:])
         chunk.load(*carry, masses=masses, generator=generator)
         for _ in range(count):
             chunk()

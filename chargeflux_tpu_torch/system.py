@@ -219,6 +219,74 @@ class ChargeFluxSystem:
             f: getattr(self, f).to(dtype) for f in ARRAY_FIELDS
             if getattr(self, f).is_floating_point()})
 
+    def _swap(self, **fields) -> "ChargeFluxSystem":
+        """A shallow copy with ``fields`` replaced: the row plans and the
+        kernel route are carried over as they are (``dataclasses.replace``
+        would plan them again on the host), and nothing kept on this
+        object (chunks, host caches) comes along."""
+        new = object.__new__(type(self))
+        for f in dataclasses.fields(self):
+            object.__setattr__(new, f.name, fields.get(f.name,
+                                                       getattr(self, f.name)))
+        return new
+
+    def with_box(self, box) -> "ChargeFluxSystem":
+        """The same system with the box ``box``: the basis of the
+        constant-pressure drivers (npt.py), as in the JAX package.
+
+        Only the box tensor changes; the spec (alpha, kmax, PME mesh, cell
+        grid and capacity) stays the one planned for the build-time box,
+        and the energy path NaN-poisons where a shrunken box leaves a cell
+        plane below the cutoff.  The copy makes no host-to-device copy and
+        reads nothing back, so it may be made inside a CUDA graph capture:
+        a tensor ``box`` on the system's device is used as it is, so a
+        graph that reads the copy reads ``box`` by address.  A [3] box
+        given to a system built triclinic is diagonalised; a [3, 3]
+        lattice may be given to an orthorhombic one (the pressure tensor
+        strains the box that way); other shapes broadcast."""
+        ref = self.box
+        if torch.is_tensor(box):
+            box = box.to(dtype=ref.dtype, device=ref.device)
+        else:
+            box = torch.as_tensor(np.asarray(box, np.float64),
+                                  device=ref.device).to(ref.dtype)
+        if box.shape != ref.shape:
+            if box.shape == (3,) and ref.shape == (3, 3):
+                box = torch.diag(box)
+            elif box.shape != (3, 3):
+                box = torch.broadcast_to(box, ref.shape)
+        return self._swap(box=box)
+
+    def with_particle_parameters(self, q0=None, sigma=None,
+                                 epsilon=None) -> "ChargeFluxSystem":
+        """The same system with new per-particle parameters (the OpenMM
+        ``updateParametersInContext`` analog), shapes unchanged.  Where
+        the dispersion tail correction is on and sigma or epsilon change,
+        the tail coefficient is recomputed on the host, as in the JAX
+        package."""
+        new = {}
+        for name, val in (("q0", q0), ("sigma", sigma), ("epsilon", epsilon)):
+            if val is None:
+                continue
+            old = getattr(self, name)
+            arr = (val.to(dtype=old.dtype, device=old.device)
+                   if torch.is_tensor(val) else torch.as_tensor(
+                       np.asarray(val, np.float64), device=old.device
+                   ).to(old.dtype))
+            if arr.shape != old.shape:
+                raise ValueError(
+                    f"{name} shape {tuple(arr.shape)} != {tuple(old.shape)}; "
+                    f"the particle count is fixed when the system is built")
+            new[name] = arr
+        if self.spec.tail_coeff is not None and (
+                sigma is not None or epsilon is not None):
+            new["spec"] = dataclasses.replace(
+                self.spec, tail_coeff=dispersion_tail_coefficient(
+                    new.get("sigma", self.sigma).cpu().double().numpy(),
+                    new.get("epsilon", self.epsilon).cpu().double().numpy(),
+                    self.spec.cutoff))
+        return self._swap(**new)
+
 
 ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(ChargeFluxSystem)
                      if f.init and f.name != "spec")

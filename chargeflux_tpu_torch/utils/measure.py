@@ -3,9 +3,10 @@
     python3 -m chargeflux_tpu_torch.utils.measure profile [--path PATH]
     python3 -m chargeflux_tpu_torch.utils.measure f64 [--path PATH]
 
-PATH is 30k (the default), 216, rigid, respa, or one of the other NVE
-configs of the JAX package's bench.py: 4k, 100k, tri30k, hetero30k
-(:func:`bench_path`, burned in as the 30k path).
+PATH is 30k (the default), 216, rigid, respa, npt, or one of the other
+NVE configs of the JAX package's bench.py: 4k, 100k, tri30k, hetero30k
+(:func:`bench_path`, burned in as the 30k path); or csvr / nhc, the CSVR
+and Nose-Hoover chain NVT drivers on the burned-in 30k box.
 
 ``--path 30k`` (the default) starts from the cell + SPME main path's system
 (``water_box(n_side=22, flux="bond_angle", cutoff=0.72)``, 31,944 atoms,
@@ -19,8 +20,11 @@ rigid water, fixed charges, RATTLE-BAOAB at 2 fs, 300 K, friction 5/ps
 after a 20/ps burn-in); ``--path respa`` its ``bench.py respa``
 (:func:`respa_path`: flexible water, BAOAB r-RESPA with 4 bonded substeps
 per 2 fs outer step, 300 K, friction 5/ps after 0.2 ps of 0.5 fs
-Langevin).  Run from the root of a checkout; each prints the card's name
-and power limit first.
+Langevin); ``--path npt`` its ``bench.py npt`` (:func:`npt_path`: BAOAB
+Langevin at 300 K and friction 5/ps with an isotropic MC barostat at 1 bar,
+one volume attempt per rebuild chunk, after 0.2 ps at friction 20/ps).
+Run from the root of a checkout; each prints the card's name and power
+limit first.
 
 ``profile``: ms/step from CUDA events of the kernel path replayed as CUDA
 graphs (each rebuild chunk one replay), of the same run eagerly
@@ -37,8 +41,11 @@ only and with CPU and CUDA activity, and over an eager trajectory (with
 its eager final evaluation).  On the rigid path also the device time of
 one step's five constraint projections (two of the positions, three of
 the velocities) and on the RESPA path that of one outer step's bonded
-substeps, each a CUDA graph timed alone, and their share of the step's
-device busy time.
+substeps, on the NPT path that of one barostat proposal (centroids,
+scaled positions, the forward energy with its binning; once per chunk),
+and on the nhc path that of one step's two chain updates, each a CUDA
+graph timed alone, and their share of the step's device busy time.  The
+NPT and thermostat paths have no plain-path variant.
 
 ``f64``: 200 NVE steps of the f32 kernel path beside 200 of the plain f64
 path from one start state: ms/step, net drift, max and RMS of ``E - E0``.
@@ -52,6 +59,7 @@ import re
 import statistics
 import subprocess
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -60,6 +68,9 @@ DT_RIGID = 2e-3           # bench.py rigid's 2 fs step
 N_INNER = 4               # bench.py respa's substeps: 2 fs outer steps
 TEMP = 300.0              # the thermostats' target, K
 FRICTION = 5.0            # production friction, 1/ps (burn-ins: 20)
+PRESSURE_BAR = 1.0        # bench.py npt's barostat target
+TAU_CSVR = 0.1            # CSVR coupling time, ps
+TAU_NHC = 0.02            # Nose-Hoover chain period, ps (40 steps)
 KB = 0.00831446261815324  # kJ/mol/K
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): f32 on the
@@ -457,6 +468,168 @@ def respa_path(device, n_side: int = 22, cutoff: float = 0.72,
                                    seconds=burn_s, occupancy=occ, vmax=vmax))
 
 
+def npt_path(device, n_side: int = 22, cutoff: float = 0.72,
+             grid=(8, 8, 8), burn_steps: int = 400, seed: int = 0):
+    """The JAX package's ``bench.py npt`` set-up (``bench_npt``): flexible
+    ``water_box(n_side=22, flux="bond_angle", cutoff=0.72)`` with
+    ``water_bonded_params``, f32, forced 8^3 cell grid, SPME, the capacity
+    from ``suggest_capacity(margin=1.05)``.  From rest, ``burn_steps``
+    (rounded up to whole chunks) of 0.5 fs BAOAB at 300 K and friction
+    20/ps on a capacity-1.35 twin, rebuilt for 24 nm/ps; the capacity
+    re-provisioned to 1.10 x the relaxed peak occupancy, and the barostat
+    interval (the rebuild interval) ``suggest_rebuild_interval(max_speed=
+    max(8, 1.2 vmax), cap=40)``.  Returns a dict: system, state (evaluated
+    on the system), bonded, rebuild_every (the barostat interval), masses,
+    generator (the one the burn-in drew from), e_fns
+    (``make_nb_energy_fn``), info."""
+    from ..cells import suggest_capacity
+    from ..integrate import (init_state_nb, langevin_trajectory_nb,
+                             make_nb_energy_fn)
+    from ..models import water_bonded_params, water_box
+    from ..neighbors import suggest_rebuild_interval
+
+    force, pos, masses, box = water_box(n_side=n_side, flux="bond_angle",
+                                        cutoff=cutoff)
+    cap = suggest_capacity(pos, box, grid, margin=1.05)
+    system = build_system(force, box, cap, device, grid=grid)
+    burn_sys = build_system(force, box, max(cap, suggest_capacity(
+        pos, box, grid, margin=1.35)), device, grid=grid)
+    x = torch.tensor(pos, dtype=torch.float32, device=device)
+    m = torch.tensor(masses, dtype=torch.float32, device=device)
+    bonded = water_bonded_params(len(masses) // 3, box=box, device=device)
+    e_fn, init_nb = make_nb_energy_fn(burn_sys, bonded=bonded)
+    every_b = suggest_rebuild_interval(burn_sys, DT_PS, max_speed=24.0,
+                                       cap=10)
+    n_burn = -(-burn_steps // every_b) * every_b
+    gen = torch.Generator(device).manual_seed(seed)
+    s0 = init_state_nb(x, torch.zeros_like(x), e_fn, init_nb)
+    t0 = time.perf_counter()
+    s_eq, kes = langevin_trajectory_nb(s0, e_fn, init_nb, m, DT_PS, TEMP,
+                                       20.0, gen, n_burn, every_b)
+    if not torch.isfinite(kes).all():
+        raise RuntimeError("NPT burn-in NaN-poisoned")
+    burn_s = time.perf_counter() - t0
+    system, occ = _reprovision(force, system, s_eq.positions)
+    vmax = float(s_eq.velocities.norm(dim=-1).max())
+    interval = suggest_rebuild_interval(
+        system, DT_PS, max_speed=max(8.0, 1.2 * vmax), cap=40)
+    e_fns = make_nb_energy_fn(system, bonded=bonded)
+    state = init_state_nb(s_eq.positions, s_eq.velocities, *e_fns)
+    return dict(system=system, state=state, bonded=bonded,
+                rebuild_every=interval, masses=m, generator=gen, e_fns=e_fns,
+                info=dict(chunk=every_b, steps=n_burn, seconds=burn_s,
+                          occupancy=occ, vmax=vmax))
+
+
+class NPTRun(NamedTuple):
+    """What one NPT drive returns beside its energies: the final
+    positions, velocities and box, and the driver's ``diag``."""
+
+    positions: torch.Tensor
+    velocities: torch.Tensor
+    box: torch.Tensor
+    diag: dict
+
+
+def npt_drive(path: dict):
+    """:func:`nve_drive` of the NPT path (:func:`npt_path`):
+    ``npt_langevin_trajectory`` from the path's state at 300 K, friction
+    5/ps, 1 bar, one attempt per ``rebuild_every`` steps, drawing from the
+    path's generator; ``drive(n_steps, graph, plain)`` returns
+    (:class:`NPTRun`, per-step total energies) and takes no plain path.
+    The chunks are kept on the system."""
+    from ..npt import npt_langevin_trajectory
+
+    s = path["state"]
+
+    def drive(n_steps, graph=True, plain=False):
+        if plain:
+            raise ValueError("the NPT drive has no plain path")
+        x, v, box, diag = npt_langevin_trajectory(
+            s.positions, s.velocities, path["system"], path["masses"],
+            DT_PS, TEMP, FRICTION, PRESSURE_BAR, path["generator"], n_steps,
+            bonded=path["bonded"], barostat_interval=path["rebuild_every"],
+            graph=graph)
+        return NPTRun(x, v, box, diag), diag["energies"]
+    return drive, path["system"], path["e_fns"][1]
+
+
+def proposal_work(path: dict):
+    """One barostat attempt at the NPT path's state, as the driver runs it
+    (``npt.isotropic_attempt``: its draws, the centroids, positions and
+    box scaled, the forward energy with its own binning and the bonded
+    terms, the acceptance), at the driver's starting width, drawing from
+    the default generator (which a graph capture registers); returns the
+    potential after the attempt."""
+    from ..npt import (BAR_TO_KJ_MOL_NM3, isotropic_attempt, molecules,
+                       proposal_energy)
+    from ..pairs import box_volume
+
+    system, bonded, x = path["system"], path["bonded"], path["state"].positions
+    mols = molecules(system, (bonded.bond_idx, bonded.angle_idx))
+    e_at = proposal_energy(system, bonded)
+    box = system.box
+    dv = 0.01 * box_volume(box)       # npt_langevin_trajectory's dv_frac
+    with torch.no_grad():
+        e_old = e_at(x, box)
+
+    def run():
+        with torch.no_grad():
+            return isotropic_attempt(x, box, dv, e_old, mols, e_at, None,
+                                     KB * TEMP,
+                                     PRESSURE_BAR * BAR_TO_KJ_MOL_NM3)[3]
+    return run
+
+
+def thermostat_drive(kind: str, system, state, rebuild_every, masses,
+                     bonded, generator=None):
+    """:func:`nve_drive` of a thermostatted NVT path on a burned-in state:
+    ``csvr_trajectory_nb`` (tau :data:`TAU_CSVR`, drawing from
+    ``generator``; records: the kinetic energies) or
+    ``nose_hoover_trajectory_nb`` (tau :data:`TAU_NHC`, a chain of 3
+    from rest; records: the kinetic energies), at 300 K; no plain path."""
+    from ..csvr import csvr_trajectory_nb
+    from ..integrate import make_nb_energy_fn
+    from ..nosehoover import nose_hoover_trajectory_nb
+
+    e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
+
+    def drive(n_steps, graph=True, plain=False):
+        if plain:
+            raise ValueError(f"the {kind} drive has no plain path")
+        if kind == "csvr":
+            fin, diag = csvr_trajectory_nb(state, e_fn, init_nb, masses,
+                                           DT_PS, TEMP, TAU_CSVR, generator,
+                                           n_steps, rebuild_every,
+                                           graph=graph)
+            return fin, diag["kinetic"]
+        fin, _chain, kes = nose_hoover_trajectory_nb(
+            state, e_fn, init_nb, masses, DT_PS, TEMP, TAU_NHC, n_steps,
+            rebuild_every, graph=graph)
+        return fin, kes
+    return drive, e_fn, init_nb
+
+
+def chain_work(state, masses):
+    """One NHC step's two chain half updates (chain of 3, 3N - 3 degrees
+    of freedom) at a state's velocities: the scalar chain the profile's
+    Nose-Hoover path adds to a step."""
+    from ..integrate import kinetic_energy
+    from ..nosehoover import _nhc_half, nhc_init
+
+    v = state.velocities
+    n_dof = 3 * v.shape[0] - 3
+    chain = nhc_init(n_dof, TEMP, TAU_NHC, 3, v.dtype, v.device)
+    kt = KB * TEMP
+
+    def run():
+        ke2 = 2.0 * kinetic_energy(v, masses)
+        s1, ch = _nhc_half(chain, ke2, n_dof, kt, 0.5 * DT_PS)
+        s2, ch = _nhc_half(ch, ke2 * s1 * s1, n_dof, kt, 0.5 * DT_PS)
+        return s2, ch
+    return run
+
+
 def ns_per_day(dt_ps: float, ms_per_step: float) -> float:
     """Simulated ns per day at ``ms_per_step`` for a step of ``dt_ps``."""
     return dt_ps * 86400.0 / ms_per_step
@@ -722,18 +895,20 @@ def window(run, n_steps: int, activities) -> dict:
 
 
 def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
-            parts=None):
+            parts=None, plain=True):
     """ms/step of the kernel path replayed as CUDA graphs, the same run
-    eagerly (``graph=False``) and the plain path's replays (``drive`` of
-    :func:`nve_drive` and its kind), with ns/day for a step of ``dt_ps``;
-    then profiler windows over the replays and over the eager run.
-    ``parts`` maps a label to a function whose device time, a CUDA graph
-    timed alone, is set beside the step's device busy time."""
+    eagerly (``graph=False``) and, with ``plain``, the plain path's
+    replays (``drive`` of :func:`nve_drive` and its kind), with ns/day for
+    a step of ``dt_ps``; then profiler windows over the replays and over
+    the eager run.  ``parts`` maps a label to a function, or to (function,
+    steps it serves), whose device time, a CUDA graph timed alone, is set
+    per step beside the step's device busy time."""
     from torch.profiler import ProfilerActivity
 
     n_steps = 10 * rebuild_every
-    variants = {"graph": (False, True), "eager": (False, False),
-                "plain graph": (True, True)}
+    variants = {"graph": (False, True), "eager": (False, False)}
+    if plain:
+        variants["plain graph"] = (True, True)
     for plain, graph in variants.values():
         if graph:                       # capture, outside the timed runs
             timed(drive, rebuild_every, graph, plain)
@@ -821,9 +996,12 @@ def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
             print(f"  {us / 1e3 / n_win:8.4f} ms/step  {name[:100]}",
                   flush=True)
     for label, fn in (parts or {}).items():
+        fn, steps = fn if isinstance(fn, tuple) else (fn, 1)
         ms = interleaved_ms([fn])[0]
-        share = "not measured" if busy is None else f"{ms / busy:.3f}"
-        print(f"{label}: {ms:.4f} ms per step (a CUDA graph of "
+        share = ("not measured" if busy is None
+                 else f"{ms / steps / busy:.3f}")
+        print(f"{label}: {ms:.4f} ms per call, one call per {steps} "
+              f"step(s), {ms / steps:.4f} ms per step (a CUDA graph of "
               f"{GRAPH_REPS} calls, median of {ROUNDS}); share of the "
               f"step's device busy time {share}", flush=True)
 
@@ -856,13 +1034,15 @@ def f64_control(system, state, rebuild_every, masses, bonded):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("profile", "f64"))
-    ap.add_argument("--path", choices=("30k", "216", "rigid", "respa", "4k",
-                                       "100k", "tri30k", "hetero30k"),
+    ap.add_argument("--path", choices=("30k", "216", "rigid", "respa", "npt",
+                                       "csvr", "nhc", "4k", "100k", "tri30k",
+                                       "hetero30k"),
                     default="30k")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: needs a CUDA device")
-    if args.what == "f64" and args.path in ("rigid", "respa"):
+    if args.what == "f64" and args.path in ("rigid", "respa", "npt", "csvr",
+                                            "nhc"):
         raise SystemExit("measure f64: NVE paths only")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -870,7 +1050,22 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
-    dt_ps, parts = DT_PS, None
+    dt_ps, parts, plain = DT_PS, None, True
+    if args.path == "npt":
+        path = npt_path(dev)
+        state, rebuild_every = path["state"], path["rebuild_every"]
+        system = path["system"]
+        print(f"npt path: {system.n_atoms} atoms, burned in "
+              f"({path['info']}); capacity {system.spec.cell_capacity}, "
+              f"barostat_interval {rebuild_every}", flush=True)
+        drive, owner, init_nb = npt_drive(path)
+        parts = {"barostat attempt (npt.isotropic_attempt: draws, "
+                 "centroids, scaled positions, forward energy with its "
+                 "binning, acceptance)": (proposal_work(path),
+                                          rebuild_every)}
+        profile(drive, owner, init_nb, state, rebuild_every, dt_ps, parts,
+                plain=False)
+        return
     if args.path == "216":
         from ..integrate import init_state_nb, make_nb_energy_fn
 
@@ -898,7 +1093,8 @@ def main(argv=None):
             parts = {f"bonded substeps ({N_INNER} BAOAB substeps)":
                      substep_work(path)}
     else:
-        force, x, m, box, bonded, system0 = bench_path(args.path, dev)
+        force, x, m, box, bonded, system0 = bench_path(
+            "30k" if args.path in ("csvr", "nhc") else args.path, dev)
         system, state, rebuild_every, info = burn_in(force, system0, x, m,
                                                      box, bonded)
         print(f"{args.path} path: {system.n_atoms} atoms, cells "
@@ -908,10 +1104,17 @@ def main(argv=None):
     if args.what == "f64":
         f64_control(system, state, rebuild_every, m, bonded)
         return
-    if args.path not in ("rigid", "respa"):
+    if args.path in ("csvr", "nhc"):
+        drive, owner, init_nb = thermostat_drive(
+            args.path, system, state, rebuild_every, m, bonded,
+            torch.Generator(dev).manual_seed(0))
+        plain = False
+        if args.path == "nhc":
+            parts = {"NHC chain updates (two halves)": chain_work(state, m)}
+    elif args.path not in ("rigid", "respa"):
         drive, owner, init_nb = nve_drive(system, state, rebuild_every, m,
                                           bonded)
-    profile(drive, owner, init_nb, state, rebuild_every, dt_ps, parts)
+    profile(drive, owner, init_nb, state, rebuild_every, dt_ps, parts, plain)
 
 
 if __name__ == "__main__":

@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a),
-nvcc and a CUDA build of PyTorch.  It drives six paths of the port: the
+nvcc and a CUDA build of PyTorch.  It drives nine paths of the port: the
 30k cell + SPME path (the JAX package's ``bench.py 30k``), the 216-water
 dense + classical-Ewald path (``bench.py 216``), rigid and RESPA NVT at
 the 30k box (``bench.py rigid``, ``respa``), the 30k box on a sheared
-triclinic lattice (``bench.py tri30k``) and the solvated chain
-(``bench.py hetero30k``).  Phases, in order:
+triclinic lattice (``bench.py tri30k``), the solvated chain
+(``bench.py hetero30k``), NPT at the 30k box (``bench.py npt``) and the
+CSVR and Nose-Hoover chain thermostats on it.  Phases, in order:
 
 1. CUDA present (else exit non-zero), the card's name and power limit;
 2. build the CUDA kernels from ``chargeflux_tpu_torch/csrc``;
@@ -78,7 +79,26 @@ triclinic lattice (``bench.py tri30k``) and the solvated chain
    flexible waters, forced 8^3 cells): the remainder row counts (the
    chain's 299 flux bonds), burn-in, the chunk check, 200 replayed NVE
    steps with finite energies (ms/step printed);
-7. a JSON line with each kernel's numbers, then the last line
+7. NPT at the 30k box (``utils.measure.npt_path``: bench.py npt's 400
+   steps of 20/ps Langevin from rest, capacity re-provisioned, the
+   barostat interval from the relaxed max speed; then BAOAB at 300 K,
+   5/ps, an isotropic MC barostat at 1 bar, one attempt per interval):
+   two intervals from one generator state eagerly (warm, under
+   ``set_sync_debug_mode("error")``) and as replays, bit-equal (energies,
+   positions, velocities, boxes, accepts), a further call drawing new
+   noise, one graph for the interval; then 200 steps rounded up to whole
+   intervals, replayed (counts reset before): finite energies, at least
+   one accepted move, the box moved, the same single graph replayed, the
+   poisoned count printed, the spread and walk kernels launched
+   (``launches_npt``); the three kernels against their plain versions at
+   the final box (phase 3's tolerances); ms/step and ns/day; the virial
+   pressure once at the final state (finite; its seconds and peak
+   memory);
+7b. CSVR and Nose-Hoover chain NVT on phase 5's burned-in 30k state: the
+   chunk check of 5c for each (CSVR from one generator state), 200
+   replayed steps each; CSVR's mean temperature within 10 % of 300 K,
+   the chain's conserved-quantity drift printed;
+8. a JSON line with each kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero before the last
@@ -186,6 +206,20 @@ def kernel_entry(name, fields):
 
 def check_kernels(system, x, results):
     """Phase 3: each kernel against its plain version at the real shapes."""
+    for name, (kern, plain, tols, bound, library) in kernel_cases(
+            system, x, "phase 3").items():
+        results[name] = kernel_entry(
+            name, compare(name, kern, plain, tols, "phase 3", bound, library))
+    results["direct_walk"]["library_note"] = (
+        "no single call: no PyTorch call computes the cell walk's energy, "
+        "dE/dx and dE/dq")
+
+
+def kernel_cases(system, x, where):
+    """The spread and walk kernels' calls at positions ``x`` on
+    ``system`` (its box): per kernel (kernel call, plain call, tolerances,
+    bound, library yardstick or None), with the real mesh cotangent for
+    the spread's backward."""
     import torch
 
     from chargeflux_tpu_torch import pme
@@ -223,7 +257,7 @@ def check_kernels(system, x, results):
     ct = ct.contiguous()
     dp = torch.stack([ct[ox:ox + wx, oy:oy + wy.shape[1]]
                       for ox, oy in zip(*offsets)]).reshape(n_col, -1, gz)
-    print(f"phase 3 shapes: spread {spread_dims}; walk {n_pairs} pairs "
+    print(f"{where} shapes: spread {spread_dims}; walk {n_pairs} pairs "
           f"within the cutoff over {b.x.numel()} slots", flush=True)
 
     cases = {
@@ -246,12 +280,7 @@ def check_kernels(system, x, results):
                                          spec.alpha, spec.cutoff))),
                         None),
     }
-    for name, (kern, plain, tols, bound, library) in cases.items():
-        results[name] = kernel_entry(
-            name, compare(name, kern, plain, tols, "phase 3", bound, library))
-    results["direct_walk"]["library_note"] = (
-        "no single call: no PyTorch call computes the cell walk's energy, "
-        "dE/dx and dE/dq")
+    return cases
 
 
 def check_energy(system, x, phase):
@@ -350,7 +379,7 @@ def run_md(force, system0, x, masses, box):
     if int(final.nb.overflow) != 0:
         fail("binning overflow in the NVE run")
     return (check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager,
-            capture)
+            capture, (system, s1, rebuild_every, bonded, masses))
 
 
 def run_tri(dev, results):
@@ -438,6 +467,203 @@ def run_hetero(dev):
     if int(final.nb.overflow) != 0:
         fail("phase 6b: binning overflow in the NVE run")
     return ms, ms_eager
+
+
+def check_npt_chunks(drive, every, gen, owner):
+    """Phase 7's chunk check: two barostat intervals from one generator
+    state (re-seeded before each run) eagerly, warm and under
+    ``set_sync_debug_mode("error")``, then as replays (the first call
+    captures): energies, positions, velocities, boxes, accepts and
+    poisoned flags bit-equal, one graph kept for the interval, and a
+    further call with the generator carried on draws new noise.  Returns
+    (eager, replayed) ms/step."""
+    import torch
+
+    n = 2 * every
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def run(graph, seed=29):
+        if seed is not None:
+            gen.manual_seed(seed)
+        a.record()
+        out = drive(n, graph, False)
+        b.record()
+        return out
+
+    def parts(out):
+        run_, es = out
+        d = run_.diag
+        return (es, run_.positions, run_.velocities, run_.box, d["boxes"],
+                d["accepts"], d["poisoned"])
+
+    run(False)                                      # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = parts(run(False))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms_eager = a.elapsed_time(b) / n
+    first = parts(run(True))
+    replay = parts(run(True))
+    torch.cuda.synchronize()
+    ms_graph = a.elapsed_time(b) / n
+    same = all(torch.equal(u, v) for out in (first, replay)
+               for u, v in zip(eager, out))
+    fresh = not torch.equal(run(True, seed=None)[1], replay[0])
+    graphs = [c for c in owner.nve_chunks.values() if c.graph is not None]
+    print(f"phase 7 chunks: {n} steps ({every}-step intervals) from one "
+          f"generator state, eager (graph=False, under "
+          f"set_sync_debug_mode('error')) {ms_eager:.3f} ms/step, replays "
+          f"{ms_graph:.3f} ms/step (CUDA events); energies, positions, "
+          f"velocities, boxes, accepts bit-equal: {same}; new noise on a "
+          f"further call: {fresh}; graphs kept: {len(graphs)}", flush=True)
+    if not torch.isfinite(eager[0]).all():
+        fail("phase 7: non-finite energies in the chunk check")
+    if not same:
+        fail("phase 7: NPT graph replays differ from the eager chunks")
+    if not fresh:
+        fail("phase 7: a second call drew the same noise")
+    if len(graphs) != 1:
+        fail(f"phase 7: {len(graphs)} graphs for one barostat interval")
+    return ms_eager, ms_graph
+
+
+def run_npt(dev):
+    """Phase 7: NPT at the 30k box (bench.py npt).  Returns (launches,
+    ms/step, eager ms/step, the line's extra fields)."""
+    import torch
+
+    from chargeflux_tpu_torch import ops
+    from chargeflux_tpu_torch.npt import instantaneous_pressure
+    from chargeflux_tpu_torch.pairs import box_volume
+    from chargeflux_tpu_torch.utils.measure import (DT_PS, npt_drive,
+                                                    npt_path, ns_per_day)
+
+    path = npt_path(dev)
+    every, system = path["rebuild_every"], path["system"]
+    info = path["info"]
+    print(f"phase 7 npt burn-in: {info['steps']} steps of 20/ps Langevin in "
+          f"{info['chunk']}-step chunks, {info['seconds']:.1f} s; relaxed "
+          f"peak occupancy {info['occupancy']} -> capacity "
+          f"{system.spec.cell_capacity}; vmax {info['vmax']:.2f} nm/ps -> "
+          f"barostat_interval {every}", flush=True)
+    drive, owner, _ = npt_drive(path)
+    ms_eager, _ = check_npt_chunks(drive, every, path["generator"], owner)
+    graph = next(c.graph for c in owner.nve_chunks.values())
+    n = -(-N_STEPS // every) * every
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    run, es = drive(n, True, False)
+    b.record()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    ms = a.elapsed_time(b) / n
+    diag = run.diag
+    vols = [float(box_volume(bx.double())) for bx in diag["boxes"]]
+    v0 = float(box_volume(system.box.double()))
+    n_acc = int(diag["accepts"].sum())
+    n_poison = int(diag["poisoned"].sum())
+    same_graph = (len(owner.nve_chunks) == 1
+                  and next(iter(owner.nve_chunks.values())).graph is graph)
+    print(f"phase 7 NPT: {n} steps ({n // every} attempts) as CUDA graph "
+          f"replays, {ms:.3f} ms/step (CUDA events around the call, incl. "
+          f"the copy-in and the start energy), "
+          f"{ns_per_day(DT_PS, ms):.2f} ns/day; eager {ms_eager:.3f} "
+          f"ms/step; accepted {n_acc} of {n // every}, poisoned {n_poison}; "
+          f"volume {v0:.4f} -> {vols[-1]:.4f} nm^3 (min {min(vols):.4f}, "
+          f"max {max(vols):.4f}); one graph replayed throughout: "
+          f"{same_graph}; energy {float(es[0]):.3f} -> {float(es[-1]):.3f} "
+          f"kJ/mol; launches {launches}", flush=True)
+    if not (torch.isfinite(es).all() and torch.isfinite(run.positions).all()):
+        fail("phase 7: non-finite energies or positions in the NPT run")
+    if n_acc == 0 or not float(box_volume(run.box.double())) != v0:
+        fail("phase 7: no volume move was accepted")
+    if not same_graph:
+        fail("phase 7: the box moved through a recapture")
+    sysb = system.with_box(run.box)
+    cases = kernel_cases(sysb, run.positions, "phase 7 at the final box")
+    with torch.no_grad():
+        for name, (kern, plain, tols, _b, _l) in cases.items():
+            agree(name, kern, plain, tols, "phase 7 at the final box")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    p = float(instantaneous_pressure(run.positions, run.velocities, sysb,
+                                     path["masses"],
+                                     path["bonded"].with_box(run.box)))
+    p_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"phase 7 instantaneous_pressure at the final state: {p:.2f} bar "
+          f"(plain autodiff through the box, classical Ewald at kmax "
+          f"{system.spec.kmax}) in {p_s:.2f} s (host clock, synchronised), "
+          f"peak device memory {peak:.2f} GiB", flush=True)
+    if not math.isfinite(p):
+        fail("phase 7: the virial pressure is not finite")
+    extra = {"barostat_interval": every, "attempts": n // every,
+             "accepted": n_acc, "poisoned": n_poison,
+             "volume_start_nm3": v0, "volume_end_nm3": vols[-1],
+             "pressure_bar": p, "pressure_s": p_s,
+             "pressure_peak_gib": peak,
+             "ns_per_day": ns_per_day(DT_PS, ms)}
+    return check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager, \
+        extra
+
+
+def run_thermostats(dev, ctx):
+    """Phase 7b: CSVR and Nose-Hoover chain NVT on phase 5's burned-in
+    state.  Returns {name: (ms/step, eager ms/step)} and the chain's
+    conserved-quantity drift."""
+    import torch
+
+    from chargeflux_tpu_torch.nosehoover import (nhc_conserved, nhc_init,
+                                                 nose_hoover_trajectory_nb)
+    from chargeflux_tpu_torch.units import BOLTZ
+    from chargeflux_tpu_torch.utils.measure import (DT_PS, TAU_NHC, TEMP,
+                                                    thermostat_drive)
+
+    system, s1, every, bonded, m = ctx
+    n_atoms = system.n_atoms
+    gen = torch.Generator(dev).manual_seed(0)
+    drive, _, _ = thermostat_drive("csvr", system, s1, every, m, bonded, gen)
+    ms_eager_c, _ = check_chunks("7b csvr", drive, every, gen)
+    launches, ms_c, _, kes = timed_run(drive)
+    t_mean = float((2.0 * kes / (3 * n_atoms * BOLTZ)).mean())
+    print(f"phase 7b CSVR NVT: {N_STEPS} steps as CUDA graph replays, "
+          f"{ms_c:.3f} ms/step; eager {ms_eager_c:.3f}; mean temperature "
+          f"{t_mean:.2f} K (3N degrees of freedom); launches {launches}",
+          flush=True)
+    if not abs(t_mean / 300.0 - 1.0) <= T_TOL:
+        fail(f"phase 7b: CSVR mean temperature {t_mean:.2f} K is not "
+             f"within {T_TOL:.0%} of 300 K")
+    check_launches(launches, "30k", lambda c: c > 0)
+    drive, e_fn, init_nb = thermostat_drive("nhc", system, s1, every, m,
+                                            bonded)
+    ms_eager_n, _ = check_chunks("7b nhc", drive, every)
+    n_dof = 3 * n_atoms - 3
+    chain0 = nhc_init(n_dof, TEMP, TAU_NHC, 3, torch.float32, dev)
+    h0 = float(nhc_conserved(s1, chain0, m, n_dof, TEMP))
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    fin, chain, kes = nose_hoover_trajectory_nb(
+        s1, e_fn, init_nb, m, DT_PS, TEMP, TAU_NHC, N_STEPS, every)
+    b.record()
+    torch.cuda.synchronize()
+    ms_n = a.elapsed_time(b) / N_STEPS
+    h1 = float(nhc_conserved(fin, chain, m, n_dof, TEMP))
+    t_mean = float((2.0 * kes / (n_dof * BOLTZ)).mean())
+    print(f"phase 7b NHC NVT (chain of 3, tau {TAU_NHC} ps): {N_STEPS} "
+          f"steps as CUDA graph replays, {ms_n:.3f} ms/step; eager "
+          f"{ms_eager_n:.3f}; conserved quantity {h0:.3f} -> {h1:.3f} "
+          f"kJ/mol (drift {h1 - h0:.4f}, {(h1 - h0) / n_atoms:.3e} per "
+          f"atom); mean temperature {t_mean:.2f} K", flush=True)
+    if not (torch.isfinite(kes).all() and math.isfinite(h1)):
+        fail("phase 7b: non-finite Nose-Hoover run")
+    return {"csvr": (ms_c, ms_eager_c), "nhc": (ms_n, ms_eager_n)}, h1 - h0
 
 
 def timed_run(drive):
@@ -748,16 +974,20 @@ def main():
     check_sf_kernels(results)
     check_energy(system, x, "4")
     check_energy(sys_d, x_d, "4b")
-    launches, ms_step, ms_eager, capture = run_md(force, system, x, m, box)
+    launches, ms_step, ms_eager, capture, ctx30k = run_md(force, system, x,
+                                                          m, box)
     launches_d, ms_d, ms_eager_d = run_dense_md(x_d, m_d, bonded_d, sys_d)
     launches_r, ms_r, ms_eager_r = run_rigid(dev)
     launches_m, ms_m, ms_eager_m = run_respa(dev)
     launches_t, ms_t, ms_eager_t = run_tri(dev, results)
     ms_h, ms_eager_h = run_hetero(dev)
+    launches_n, ms_n, ms_eager_n, npt_fields = run_npt(dev)
+    thermo, nhc_drift = run_thermostats(dev, ctx30k)
     for name, count in {**launches, **launches_d, **launches_t}.items():
         results[name]["launches"] = count
     for key, counts in (("launches_rigid", launches_r),
-                        ("launches_respa", launches_m)):
+                        ("launches_respa", launches_m),
+                        ("launches_npt", launches_n)):
         for name, count in counts.items():
             results[name][key] = count
     from chargeflux_tpu_torch.utils.measure import ns_per_day
@@ -776,6 +1006,14 @@ def main():
                       "ms_per_step_tri30k_eager": ms_eager_t,
                       "ms_per_step_hetero30k": ms_h,
                       "ms_per_step_hetero30k_eager": ms_eager_h,
+                      "ms_per_step_npt": ms_n,
+                      "ms_per_step_npt_eager": ms_eager_n,
+                      "npt": npt_fields,
+                      "ms_per_step_csvr": thermo["csvr"][0],
+                      "ms_per_step_csvr_eager": thermo["csvr"][1],
+                      "ms_per_step_nhc": thermo["nhc"][0],
+                      "ms_per_step_nhc_eager": thermo["nhc"][1],
+                      "nhc_conserved_drift": nhc_drift,
                       "chunk_capture_30k": capture}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

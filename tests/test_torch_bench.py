@@ -1,9 +1,9 @@
 """PyTorch port: ``chargeflux_tpu_torch.bench``, the JAX package's bench.py
 on the card.  On the CPU: the configs are built as bench.py builds them
 (its ``build_full`` and ``bench_hetero``), a small 216 run prints a line
-with bench.py's keys, the unported configs exit naming their ROADMAP
-items, and without CUDA the bench raises unless ``--device cpu`` is
-given."""
+with bench.py's keys, as does the npt line at a small box, the unported
+config exits naming its ROADMAP item, and without CUDA the bench raises
+unless ``--device cpu`` is given."""
 
 import json
 import sys
@@ -44,12 +44,37 @@ def test_216_line_has_the_bench_keys(capsys):
     assert line["ns_per_day"] == pytest.approx(43.2 / line["value"])
 
 
-@pytest.mark.parametrize("config,item", [("npt", "A.5"),
-                                         ("replicas", "A.9")])
+@pytest.mark.parametrize("config,item", [("replicas", "A.9")])
 def test_unported_configs_exit_naming_their_item(config, item):
     with pytest.raises(SystemExit) as exc:
         bench.main([config, "--device", "cpu"])
     assert item in str(exc.value.code) and exc.value.code != 0
+
+
+def test_npt_line_has_the_bench_keys(monkeypatch):
+    """npt is a bench config now: its line (``bench_npt`` on the small
+    rehearsal path of ``utils.measure.npt_path``, one timing repetition,
+    four acceptance attempts) carries bench.py's npt keys, a finite value
+    and energies, and the acceptance statistics."""
+    assert "npt" in bench.CONFIGS and "npt" not in bench.NOT_PORTED
+    paired = bench.paired_ms
+    monkeypatch.setattr(bench, "paired_ms",
+                        lambda d, k1, k2, dev: paired(d, k1, k2, dev, reps=1))
+    monkeypatch.setattr(bench, "NPT_ATTEMPTS", 4)
+    cpu = torch.device("cpu")
+    path = measure.npt_path(cpu, n_side=6, cutoff=0.55, grid=(3, 3, 3),
+                            burn_steps=40)
+    line = bench.bench_npt(cpu, None, path)
+    assert line["metric"] == "ms_per_npt_md_step_30k_ewald_f32"
+    for key in ("value", "unit", "ns_per_day", "dt_fs", "barostat_interval",
+                "atoms", "cell_capacity", "cell_grid", "accept_fraction",
+                "poisoned"):
+        assert key in line, key
+    assert line["barostat_interval"] == path["rebuild_every"]
+    assert line["atoms"] == 648 and line["attempts"] == 4
+    assert line["value"] > 0 and np.isfinite(line["energy"])
+    assert line["energies_finite"] and 0.0 <= line["accept_fraction"] <= 1.0
+    json.dumps(line)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA card is here")

@@ -1248,3 +1248,205 @@ def test_triclinic_chunk_replays_give_the_eager_bits(tri_setup):
     assert torch.isfinite(runs[0][1]).all()
     for got in runs[1:]:
         _same_bits(runs[0], got)
+
+
+# ---------------------------------------------------------------------------
+# NPT and the CSVR / Nose-Hoover thermostats: the box an input of the graph
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ensemble_paths(md_paths):
+    """Per driver, ``run(n_steps, graph, generator, **kw) -> (positions,
+    velocities, records)``, its owner (where its chunks are kept) and its
+    chunk length, on the small cell + SPME box of ``setup`` from its
+    lattice at rest (0.5 fs steps, rebuilt every 4): isotropic NPT at
+    1 bar (records: energies, then the boxes, accepts and poisoned flags
+    per attempt), CSVR (records: kinetic energies and work) and a
+    Nose-Hoover chain (records: kinetic energies)."""
+    from chargeflux_tpu_torch import csvr, npt
+    from chargeflux_tpu_torch import integrate as it
+    from chargeflux_tpu_torch import nosehoover as nh
+
+    system, bonded, s0, masses, _ = md_paths["cell"]
+    fns = it.make_nb_energy_fn(system, bonded=bonded)
+    dt, t = 5e-4, 300.0
+
+    def run_npt(n, g, gen, pressure=1.0, **kw):
+        x, v, box, d = npt.npt_langevin_trajectory(
+            s0.positions, s0.velocities, system, masses, dt, t, 5.0,
+            pressure, gen, n, bonded=bonded, barostat_interval=4, graph=g,
+            **kw)
+        return x, v, (d["energies"], d["boxes"], d["accepts"],
+                      d["poisoned"], box)
+
+    def run_csvr(n, g, gen):
+        fin, d = csvr.csvr_trajectory_nb(s0, *fns, masses, dt, t, 0.1, gen,
+                                         n, 4, graph=g)
+        return fin.positions, fin.velocities, (d["kinetic"], d["work"])
+
+    def run_nhc(n, g, gen):
+        fin, ch, kes = nh.nose_hoover_trajectory_nb(s0, *fns, masses, dt, t,
+                                                    0.02, n, 4, graph=g)
+        return fin.positions, fin.velocities, (kes, *ch)
+
+    return {"npt": (run_npt, system, 4), "csvr": (run_csvr, fns[0], 4),
+            "nhc": (run_nhc, fns[0], 4)}
+
+
+def _all_equal(a, b):
+    for u, v in zip(a, b):
+        if isinstance(u, tuple):
+            _all_equal(u, v)
+        else:
+            assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("driver", ["npt", "csvr", "nhc"])
+def test_ensemble_chunk_replays_give_the_eager_bits(ensemble_paths, driver):
+    """Two chunks (NPT: two barostat intervals; the thermostats also a
+    remainder) from one generator state: the first replayed call (which
+    captures) and a second give graph=False's positions, velocities and
+    records bit for bit (NPT: energies, boxes, accepts, poisoned flags and
+    the final box), one graph per chunk length, drawn inside the graph."""
+    run, owner, every = ensemble_paths[driver]
+    n = 2 * every + (0 if driver == "npt" else 1)
+    gen = torch.Generator(torch.device("cuda", 0))
+    before = set(owner.__dict__.get("nve_chunks", {}))
+    outs = []
+    for graph in (False, True, True):
+        gen.manual_seed(21)
+        outs.append(run(n, graph, gen))
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0][2][0]).all()
+    new = [c for k, c in owner.nve_chunks.items() if k not in before]
+    assert len(new) == (1 if driver == "npt" else 2)
+    assert all(c.graph is not None for c in new)
+    for got in outs[1:]:
+        _all_equal(outs[0], got)
+
+
+@pytest.mark.parametrize("driver", ["npt", "csvr"])
+def test_a_second_ensemble_call_draws_new_noise(ensemble_paths, driver):
+    """Two replayed calls with the generator carried on differ; the
+    generator moved as far as two eager calls move it."""
+    run, owner, every = ensemble_paths[driver]
+    gen = torch.Generator(torch.device("cuda", 0)).manual_seed(3)
+    a = run(every, True, gen)[2][0]
+    b = run(every, True, gen)[2][0]
+    offset = gen.get_offset()
+    gen.manual_seed(3)
+    run(every, False, gen)
+    run(every, False, gen)
+    torch.cuda.synchronize()
+    assert not torch.equal(a, b)
+    assert gen.get_offset() == offset
+
+
+@pytest.mark.parametrize("driver", ["npt", "csvr", "nhc"])
+def test_a_warm_eager_ensemble_chunk_makes_no_host_sync(ensemble_paths,
+                                                        driver):
+    """Once warm, a whole eager call (NPT: the start energy, the attempts
+    with their binning, the rebuilds and steps) runs under
+    ``set_sync_debug_mode("error")``."""
+    run, owner, every = ensemble_paths[driver]
+    gen = torch.Generator(torch.device("cuda", 0)).manual_seed(5)
+    run(2 * every, False, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rec = run(2 * every, False, gen)[2]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(rec[0]).all()
+
+
+def test_npt_calls_with_fresh_equal_arguments_share_one_graph(
+        ensemble_paths, md_paths):
+    """Replayed NPT calls that name the molecules' index arrays in fresh
+    tuples, or as fresh arrays of equal content, replay the graphs already
+    kept on the system (the molecules ride in the carry; only their
+    shapes key the chunk); an ``energy_fn``'s chunk is kept on that
+    function, and the system gains none."""
+    from chargeflux_tpu_torch.energy import _energy
+
+    run, system, every = ensemble_paths["npt"]
+    _, bonded, *_ = md_paths["cell"]
+    gen = torch.Generator(torch.device("cuda", 0)).manual_seed(13)
+    run(every, True, gen, extra_mol_idx=(bonded.bond_idx, bonded.angle_idx))
+    graphs = {k: c.graph for k, c in system.nve_chunks.items()}
+    for extra in ((bonded.bond_idx, bonded.angle_idx),
+                  (bonded.bond_idx.clone(), bonded.angle_idx.clone())):
+        es = run(every, True, gen, extra_mol_idx=extra)[2][0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(es).all()
+    assert {k: c.graph for k, c in system.nve_chunks.items()} == graphs
+
+    def e_fn(x, box):
+        return _energy(x, system.with_box(box))
+
+    for _ in range(2):
+        es = run(every, True, gen, energy_fn=e_fn)[2][0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(es).all()
+    assert {k: c.graph for k, c in system.nve_chunks.items()} == graphs
+    assert len(e_fn.nve_chunks) == 1
+    assert next(iter(e_fn.nve_chunks.values())).graph is not None
+
+
+def test_the_npt_profiles_proposal_timing_captures(setup):
+    """The NPT profile times one barostat attempt (``measure.proposal_work``,
+    the driver's ``npt.isotropic_attempt``) inside a CUDA graph
+    (``measure.call_graph``): its draws come from a generator that the
+    capture registers, and a replay gives a finite potential."""
+    from chargeflux_tpu_torch.utils import measure
+
+    path = measure.npt_path(torch.device("cuda", 0), n_side=6, cutoff=0.55,
+                            grid=(3, 3, 3), burn_steps=40)
+    work = measure.proposal_work(path)
+    graph = measure.call_graph(work)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.isfinite(work())
+
+
+def test_kernels_agree_with_plain_after_replayed_volume_moves(
+        ensemble_paths, md_paths):
+    """Six replayed NPT attempts at 5000 bar move the box (some accepted,
+    the replayed graph reading the box buffer the attempts wrote, never
+    recaptured); at the final box the spread and walk kernels agree with
+    their plain versions within phase 3's tolerances (spread 1e-6 and
+    2e-5, walk 1e-5 / 1e-4 / 1e-4), and the kernel path's energy and
+    forces with the plain path's."""
+    from chargeflux_tpu_torch.utils.measure import spread_inputs
+
+    run, system, every = ensemble_paths["npt"]
+    gen = torch.Generator(torch.device("cuda", 0)).manual_seed(11)
+    run(every, True, gen, pressure=5000.0)
+    graphs = {k: c.graph for k, c in system.nve_chunks.items()}
+    x, _v, (es, boxes, accepts, poisoned, box) = run(6 * every, True, gen,
+                                                     pressure=5000.0)
+    torch.cuda.synchronize()
+    assert {k: c.graph for k, c in system.nve_chunks.items()} == graphs
+    assert torch.isfinite(es).all() and bool(accepts.any())
+    assert not bool(poisoned.any())
+    assert not torch.equal(box, system.box)
+    moved = system.with_box(box)
+    with torch.no_grad():
+        args, b, ids = spread_inputs(x, moved)
+        ct = torch.randn(args[5], device=x.device,
+                         generator=torch.Generator(x.device).manual_seed(0))
+        assert _max_rel(ps.spread_fwd(*args), ps.spread_fwd_plain(*args)) \
+            <= 1e-6
+        for u, w in zip(ps.spread_bwd(*args[:5], ct),
+                        ps.spread_bwd_plain(*args[:5], ct)):
+            assert _max_rel(u, w) <= 2e-5
+        wargs = (*b, ids.to(torch.int32).contiguous(), moved.box,
+                 moved.n_atoms, moved.spec.alpha, moved.spec.cutoff)
+        k, p = dw.direct_walk(*wargs), dw.direct_walk_plain(*wargs)
+        assert abs(float(k[0] - p[0])) <= 1e-5 * abs(float(p[0]))
+        assert _max_rel(k[1], p[1]) <= 1e-4 and _max_rel(k[2], p[2]) <= 1e-4
+    e_k, f_k = energy_and_forces(x, moved)
+    e_p, f_p = energy_and_forces(x, moved, plain=True)
+    assert abs(float(e_k - e_p)) <= 1e-5 * abs(float(e_p))
+    assert _max_rel(f_k, f_p) <= 1e-3

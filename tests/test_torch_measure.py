@@ -308,3 +308,52 @@ def test_respa_path_small_box():
         fin, kes = drive(1, True, plain)
         assert kes.shape == (1,) and torch.isfinite(kes).all()
     assert measure.substep_work(path)().shape == state.positions.shape
+
+
+def test_npt_path_small_box():
+    """npt_path at n_side 6 (3^3 cells at cutoff 0.55) with a 40-step
+    burn-in from rest: a finite state on the returned system, a barostat
+    interval within the cap; two attempts through its drive are finite
+    and record a box per attempt, the drive refuses a plain path, and the
+    barostat proposal's work runs."""
+    path = measure.npt_path(torch.device("cpu"), n_side=6, cutoff=0.55,
+                            grid=(3, 3, 3), burn_steps=40)
+    state, every = path["state"], path["rebuild_every"]
+    assert path["info"]["steps"] >= 40
+    assert 1 <= every <= 40 and path["system"].spec.cell_grid == (3, 3, 3)
+    assert torch.isfinite(state.potential) and torch.isfinite(
+        state.forces).all()
+    drive, owner, init_nb = measure.npt_drive(path)
+    run, es = drive(2 * every, True, False)
+    assert es.shape == (2 * every,) and torch.isfinite(es).all()
+    assert run.diag["boxes"].shape == (2, 3)
+    assert torch.isfinite(run.box).all()
+    with pytest.raises(ValueError):
+        drive(every, True, True)
+    assert torch.isfinite(measure.proposal_work(path)())
+
+
+@pytest.mark.parametrize("kind", ["csvr", "nhc"])
+def test_thermostat_drives_small_box(kind):
+    """The CSVR and Nose-Hoover chain drives on the small burned-in box:
+    a chunk and a remainder finite, kinetic records per step; the NHC
+    chain work runs."""
+    force, pos, masses, box = water_box(n_side=6, flux="bond_angle",
+                                        cutoff=0.55)
+    grid = (3, 3, 3)
+    cap = suggest_capacity(pos, box, grid, margin=1.05)
+    system0 = measure.build_system(force, box, cap, torch.device("cpu"),
+                                   grid=grid)
+    x = torch.tensor(pos, dtype=torch.float32)
+    m = torch.tensor(masses, dtype=torch.float32)
+    bonded = water_bonded_params(len(masses) // 3, box=box, device="cpu")
+    system, state, every, _ = measure.burn_in(force, system0, x, m, box,
+                                              bonded, n_steps=4)
+    drive, owner, init_nb = measure.thermostat_drive(
+        kind, system, state, every, m, bonded, torch.Generator())
+    fin, kes = drive(every + 1, True, False)
+    assert kes.shape == (every + 1,) and torch.isfinite(kes).all()
+    assert torch.isfinite(fin.positions).all()
+    if kind == "nhc":
+        scale, chain = measure.chain_work(state, m)()
+        assert torch.isfinite(scale) and chain.v_xi.shape == (3,)
