@@ -1,10 +1,12 @@
-"""Harmonic bonds and angles (torch counterpart of
-``chargeflux_tpu.bonded``): E = 0.5 k (r - r0)^2 + 0.5 k (theta - theta0)^2.
+"""Bonded terms (torch counterpart of ``chargeflux_tpu.bonded``): harmonic
+bonds and angles, E = 0.5 k (r - r0)^2 + 0.5 k (theta - theta0)^2,
+periodic torsions, E = k (1 + cos(n phi - phi0)) (OpenMM's
+PeriodicTorsionForce), and harmonic and flat-bottom position restraints.
 
 Templated molecule blocks evaluate on [count, stride, 3] reshapes with
-static slices; remainder rows take one gather, whose backward sums in the
-fixed order of ``BondedParams.plan`` (deterministic on the card).
-Periodic torsions and restraints are not ported yet (ROADMAP.md).
+static slices; remainder bond and angle rows and every torsion row take
+one gather, whose backward sums in the fixed order of ``BondedParams.plan``
+(deterministic on the card).
 """
 
 from __future__ import annotations
@@ -37,6 +39,30 @@ def _angle_e(p1, p2, p3, k, theta0, box, pbc):
     return 0.5 * torch.sum(k * (theta - theta0) ** 2)
 
 
+def _torsion_e(p0, p1, p2, p3, k, n, phi0, box, pbc):
+    """sum k (1 + cos(n phi - phi0)) with phi the dihedral about the 2-3
+    bond by the atan2 form (stable at phi -> 0 and pi), IUPAC sign."""
+    b1 = displacement(p0, p1, box, pbc)
+    b2 = displacement(p1, p2, box, pbc)
+    b3 = displacement(p2, p3, box, pbc)
+    n1 = torch.cross(b1, b2, dim=-1)
+    n2 = torch.cross(b2, b3, dim=-1)
+    b2n = b2 / torch.linalg.norm(b2, dim=-1, keepdim=True)
+    m1 = torch.cross(b2n, n1, dim=-1)
+    phi = torch.atan2(torch.sum(m1 * n2, dim=-1), torch.sum(n1 * n2, dim=-1))
+    return torch.sum(k * (1.0 + torch.cos(n * phi - phi0)))
+
+
+def periodic_torsion_energy(positions, idx, k, n, phi0, box, pbc):
+    """``sum k (1 + cos(n phi - phi0))`` over torsions 1-2-3-4 (idx
+    [T, 4]; ``n`` the integer periodicity), OpenMM's PeriodicTorsionForce
+    convention, phi by the atan2 formulation."""
+    if idx.shape[0] == 0:
+        return torch.zeros((), dtype=positions.dtype, device=positions.device)
+    return _torsion_e(*(positions[idx[:, c]] for c in range(4)), k, n, phi0,
+                      box, pbc)
+
+
 @dataclasses.dataclass(frozen=True)
 class BondedParams:
     """Bonded-term parameters (companion to ChargeFluxSystem)."""
@@ -49,9 +75,16 @@ class BondedParams:
     angle_theta0: torch.Tensor  # [A] rad
     box: torch.Tensor           # [3]
     pbc: bool
+    # periodic torsions (OpenMM PeriodicTorsionForce): optional, every row
+    # on the gather path (counts are small; water models have none)
+    torsion_idx: Optional[torch.Tensor] = None    # [T, 4] int64
+    torsion_k: Optional[torch.Tensor] = None      # [T] kJ/mol
+    torsion_n: Optional[torch.Tensor] = None      # [T] periodicity
+    torsion_phi0: Optional[torch.Tensor] = None   # [T] rad
     template: Optional[TemplateSet] = None
-    # fixed-order plan of the remainder rows' atoms (bonds, then angles),
-    # made once at construction; None when every row is templated
+    # fixed-order plan of the gathered rows' atoms (remainder bonds, then
+    # remainder angles, then torsions), made once at construction; None
+    # when there are none
     plan: Optional[RowPlan] = dataclasses.field(init=False, compare=False)
 
     def __post_init__(self):
@@ -61,16 +94,20 @@ class BondedParams:
             start = (self.template.covered(kind, idx.shape[0])
                      if self.template is not None else 0)
             rows.append(idx[start:].reshape(-1).cpu().numpy())
+        if self.torsion_idx is not None:
+            rows.append(self.torsion_idx.reshape(-1).cpu().numpy())
         flat = np.concatenate(rows)
         object.__setattr__(self, "plan", row_plan(
             flat, self.bond_idx.device) if flat.size else None)
 
     @classmethod
     def create(cls, bond_idx, bond_k, bond_r0, angle_idx, angle_k,
-               angle_theta0, box, pbc, n_atoms=None, dtype=torch.float32,
-               device=None) -> "BondedParams":
-        """Build with molecule-template detection: repeating index
-        structure is reordered molecule-major for the static-slice path.
+               angle_theta0, box, pbc, n_atoms=None, torsion_idx=None,
+               torsion_k=None, torsion_n=None, torsion_phi0=None,
+               dtype=torch.float32, device=None) -> "BondedParams":
+        """Build with molecule-template detection: repeating bond/angle
+        index structure is reordered molecule-major for the static-slice
+        path; torsions (optional, all four arrays) keep their order.
         ``device`` defaults to the CUDA card (``"cpu"`` for the CPU)."""
         device = resolve_device(device)
         bond_idx = np.asarray(bond_idx, np.int64).reshape(-1, 2)
@@ -97,10 +134,16 @@ class BondedParams:
         def i(a):
             return torch.as_tensor(a, dtype=torch.int64, device=device)
 
+        tor = {}
+        if torsion_idx is not None:
+            tor = dict(torsion_idx=i(np.asarray(torsion_idx,
+                                                np.int64).reshape(-1, 4)),
+                       torsion_k=f(torsion_k), torsion_n=f(torsion_n),
+                       torsion_phi0=f(torsion_phi0))
         return cls(bond_idx=i(bond_idx), bond_k=f(bond_k), bond_r0=f(bond_r0),
                    angle_idx=i(angle_idx), angle_k=f(angle_k),
                    angle_theta0=f(angle_theta0), box=f(box), pbc=pbc,
-                   template=template)
+                   template=template, **tor)
 
     def with_box(self, box: torch.Tensor) -> "BondedParams":
         """The same terms with the box tensor ``box`` (the JAX package's
@@ -124,7 +167,7 @@ class BondedParams:
 
 def bonded_energy(positions: torch.Tensor,
                   bonded: BondedParams) -> torch.Tensor:
-    """Total harmonic bond + angle energy (kJ/mol)."""
+    """Total bond + angle + torsion energy (kJ/mol)."""
     box, pbc = bonded.box, bonded.pbc
     e = torch.zeros((), dtype=positions.dtype, device=positions.device)
     b0 = a0 = 0
@@ -152,15 +195,49 @@ def bonded_energy(positions: torch.Tensor,
                                      box, pbc)
     n_b = bonded.bond_idx.shape[0] - b0
     n_a = bonded.angle_idx.shape[0] - a0
-    if n_b + n_a > 0:
+    n_t = 0 if bonded.torsion_idx is None else bonded.torsion_idx.shape[0]
+    if n_b + n_a + n_t > 0:
         p_all = gather_planned(positions, bonded.plan)
         if n_b:
             pb = p_all[:2 * n_b].reshape(n_b, 2, 3)
             e = e + _bond_e(pb[:, 0], pb[:, 1], bonded.bond_k[b0:],
                             bonded.bond_r0[b0:], box, pbc)
         if n_a:
-            pa = p_all[2 * n_b:].reshape(n_a, 3, 3)
+            pa = p_all[2 * n_b:2 * n_b + 3 * n_a].reshape(n_a, 3, 3)
             e = e + _angle_e(pa[:, 0], pa[:, 1], pa[:, 2],
                              bonded.angle_k[a0:], bonded.angle_theta0[a0:],
                              box, pbc)
+        if n_t:
+            pt = p_all[2 * n_b + 3 * n_a:].reshape(n_t, 4, 3)
+            e = e + _torsion_e(pt[:, 0], pt[:, 1], pt[:, 2], pt[:, 3],
+                               bonded.torsion_k, bonded.torsion_n,
+                               bonded.torsion_phi0, box, pbc)
     return e
+
+
+def position_restraint_energy(positions, idx, k, x0) -> torch.Tensor:
+    """Harmonic position restraints ``E = sum 0.5 k_i |x[idx_i] - x0_i|^2``
+    (OpenMM's ``CustomExternalForce`` equilibration staple), in absolute
+    space (no minimum image): ``x0`` lives in the trajectory's unwrapped
+    frame.  ``idx`` [R] int, ``k`` [R] or scalar (kJ/mol/nm^2), ``x0``
+    [R, 3]."""
+    d = positions[idx] - x0
+    return 0.5 * torch.sum(torch.as_tensor(k, dtype=positions.dtype,
+                                           device=positions.device)
+                           * torch.sum(d * d, dim=-1))
+
+
+def flat_bottom_restraint_energy(positions, idx, k, x0,
+                                 radius) -> torch.Tensor:
+    """Flat-bottom position restraints: zero inside ``radius``, harmonic in
+    the overshoot outside, ``E = sum 0.5 k_i max(0, |d_i| - r_i)^2``;
+    grad-safe at |d| = 0 (the double where keeps the sqrt branch
+    finite)."""
+    d = positions[idx] - x0
+    r2 = torch.sum(d * d, dim=-1)
+    nonzero = r2 > 0
+    r = torch.sqrt(torch.where(nonzero, r2, 1.0))
+    like = dict(dtype=positions.dtype, device=positions.device)
+    over = torch.clamp(torch.where(nonzero, r, 0.0)
+                       - torch.as_tensor(radius, **like), min=0.0)
+    return 0.5 * torch.sum(torch.as_tensor(k, **like) * over * over)

@@ -142,6 +142,27 @@ def build_cell_list_full(positions: torch.Tensor, box: torch.Tensor, grid,
     return rank_into_slots(cell, gx * gy * gz, capacity)
 
 
+def build_cell_list(positions: torch.Tensor, box: torch.Tensor, grid,
+                    capacity: int):
+    """Bin atoms into cells: (slots [n_cells, capacity] int32 with sentinel
+    N, overflow count [scalar int32]).  Overflow drops atoms; callers
+    check the count (see :func:`validate_cell_list`)."""
+    slots, _, overflow = build_cell_list_full(positions, box, grid, capacity)
+    return slots, overflow
+
+
+def validate_cell_list(positions, system) -> int:
+    """Host-side overflow check: the count of atoms the system's binning
+    drops at ``positions`` (0, or rebuild with a larger
+    ``cell_capacity``).  Reads the count back to the host."""
+    spec = system.spec
+    x = torch.as_tensor(positions, device=system.box.device).to(
+        system.box.dtype)
+    _, overflow = build_cell_list(x, system.box, spec.cell_grid,
+                                  spec.cell_capacity)
+    return int(overflow)
+
+
 def suggest_capacity(positions, box, grid, margin: float = 1.25,
                      multiple: int = 8) -> int:
     """Capacity from an actual configuration: max cell occupancy * margin,

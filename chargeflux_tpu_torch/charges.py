@@ -8,6 +8,11 @@ only the remainder rows (a solute) go through one gather and one
 scatter-add, both in the fixed order of the system's ``flux_plan``
 (``rows.gather_planned`` / ``scatter_add_planned``), so a run on the card
 gives the same bits twice, as the JAX engine does.
+
+The analytic sparse Jacobian dq/dx (:func:`jacobian_index_layout`,
+:func:`charge_jacobian_values`) has the reference's COO layout and
+formulas; :func:`apply_chain_rule` contracts it with dE/dq, the force path
+of ``energy.forces_manual``.
 """
 
 from __future__ import annotations
@@ -160,3 +165,118 @@ def effective_charges(positions: torch.Tensor,
     q = torch.cat(pieces)
     return _scatter_flux(q, positions, system, b0=starts["bonds"],
                          a0=starts["angles"], w0=starts["waters"])
+
+
+# ---------------------------------------------------------------------------
+# Analytic sparse Jacobian dq/dx
+# ---------------------------------------------------------------------------
+
+
+def _nine(idx):
+    """(dq, dx) index rows of a three-atom term: (a, b) for a, b in its
+    atoms, a-major."""
+    dq = torch.stack([idx[:, a] for a in (0, 0, 0, 1, 1, 1, 2, 2, 2)], dim=1)
+    dx = torch.stack([idx[:, b] for b in (0, 1, 2, 0, 1, 2, 0, 1, 2)], dim=1)
+    return dq.reshape(-1), dx.reshape(-1)
+
+
+def jacobian_index_layout(system: ChargeFluxSystem):
+    """COO index tensors (dq_idx, dx_idx) [P] in the reference's layout: 4
+    entries per bond ((1,1), (1,2), (2,1), (2,2)), then 9 per angle, then
+    9 per water (ReferenceCoulKernels.cpp:286-383).  Entry p is
+    d q[dq_idx[p]] / d x[dx_idx[p]]."""
+    bi = system.bond_idx
+    dq_rows = [torch.stack([bi[:, a] for a in (0, 0, 1, 1)], dim=1)
+               .reshape(-1)]
+    dx_rows = [torch.stack([bi[:, b] for b in (0, 1, 0, 1)], dim=1)
+               .reshape(-1)]
+    for idx in (system.angle_idx, system.water_idx):
+        dq, dx = _nine(idx)
+        dq_rows.append(dq)
+        dx_rows.append(dx)
+    return torch.cat(dq_rows), torch.cat(dx_rows)
+
+
+def charge_jacobian_values(positions: torch.Tensor,
+                           system: ChargeFluxSystem) -> torch.Tensor:
+    """Analytic dq/dx COO values [P, 3] in :func:`jacobian_index_layout`'s
+    order, by the reference's formulas (bonds ReferenceCoulKernels.cpp:
+    64-79, angles :117-161, waters :194-226)."""
+    dtype = positions.dtype
+    box, pbc = system.box, system.spec.pbc
+    chunks = [positions.new_zeros((0, 3))]
+
+    def at(idx, c):
+        return positions[idx[:, c]]
+
+    bi = system.bond_idx
+    if bi.shape[0] > 0:
+        d = displacement(at(bi, 0), at(bi, 1), box, pbc)
+        val = (system.bond_k / _norm(d))[:, None] * d
+        chunks.append(torch.stack([-val, val, val, -val], dim=1)
+                      .reshape(-1, 3))
+
+    ai = system.angle_idx
+    if ai.shape[0] > 0:
+        p1, p2, p3 = at(ai, 0), at(ai, 1), at(ai, 2)
+        d21 = displacement(p2, p1, box, pbc)
+        d23 = displacement(p2, p3, box, pbc)
+        d13 = displacement(p1, p3, box, pbc)
+        r21_2 = torch.sum(d21 * d21, dim=-1)
+        r23_2 = torch.sum(d23 * d23, dim=-1)
+        r13_2 = torch.sum(d13 * d13, dim=-1)
+        r21, r23 = torch.sqrt(r21_2), torch.sqrt(r23_2)
+        cost = torch.clamp((r23_2 + r21_2 - r13_2) / (2.0 * r21 * r23),
+                           -1.0, 1.0)
+        k = system.angle_k
+        floor = 1e-300 if dtype == torch.float64 else 1e-30
+        one_const = 1.0 / torch.sqrt(torch.clamp(1.0 - cost * cost,
+                                                 min=floor))
+        c1 = (k * one_const / (r21 * r23))[:, None]
+        c2_21 = (k * cost * one_const / (r21 * r21))[:, None]
+        c2_23 = (k * cost * one_const / (r23 * r23))[:, None]
+        v1 = -c1 * d23 + c2_21 * d21
+        v3 = -c1 * d21 + c2_23 * d23
+        v2 = -v1 - v3
+        chunks.append(torch.stack(
+            [v1, v2, v3, -2 * v1, -2 * v2, -2 * v3, v1, v2, v3], dim=1)
+            .reshape(-1, 3))
+
+    wi = system.water_idx
+    if wi.shape[0] > 0:
+        p1, p2, p3 = at(wi, 0), at(wi, 1), at(wi, 2)
+        d12 = displacement(p1, p2, box, pbc)
+        d13 = displacement(p1, p3, box, pbc)
+        d23 = displacement(p2, p3, box, pbc)
+        n12 = d12 / _norm(d12)[:, None]
+        n13 = d13 / _norm(d13)[:, None]
+        n23 = d23 / _norm(d23)[:, None]
+        k1 = system.water_k1[:, None]
+        k2 = system.water_k2[:, None]
+        ub = system.water_kub[:, None] * n23
+        a12k1, a12k2 = k1 * n12, k2 * n12
+        a13k1, a13k2 = k1 * n13, k2 * n13
+        rows = [
+            a12k1 + a12k2 + a13k1 + a13k2,      # (O, O)
+            -a12k1 - a12k2 + 2 * ub,            # (O, H1)
+            -a13k2 - a13k1 - 2 * ub,            # (O, H2)
+            -a12k1 - a13k2,                     # (H1, O)
+            a12k1 - ub,                         # (H1, H1)
+            a13k2 + ub,                         # (H1, H2)
+            -a12k2 - a13k1,                     # (H2, O)
+            a12k2 - ub,                         # (H2, H1)
+            a13k1 + ub,                         # (H2, H2)
+        ]
+        chunks.append(torch.stack(rows, dim=1).reshape(-1, 3))
+    return torch.cat(chunks)
+
+
+def apply_chain_rule(dedq: torch.Tensor, positions: torch.Tensor,
+                     system: ChargeFluxSystem) -> torch.Tensor:
+    """The force term -dedq[q_i] * dq_i/dx_j summed into x_j over the
+    analytic COO Jacobian (the reference's multdQdX,
+    ReferenceCoulKernels.cpp:493-499); returns the force delta [N, 3]."""
+    dq_idx, dx_idx = jacobian_index_layout(system)
+    vals = charge_jacobian_values(positions, system)
+    contrib = -dedq[dq_idx][:, None] * vals
+    return torch.zeros_like(positions).index_add_(0, dx_idx, contrib)

@@ -21,8 +21,8 @@ device in f32 where JAX has the TPU in f32: the cell route takes "pme";
 the dense route "pallas" while the half-space k count
 Kx (2 Ky - 1)(2 Kz - 1) is below 4000 and the grid is within the
 structure-factor kernels' Ky / 2Kz limits, else "xla"; on the CPU or in
-f64, "xla".  Dense direct space with the dense-mesh PME raises
-``NotImplementedError`` (ROADMAP.md lists it).
+f64, "xla".  Dense direct space with ``recip_method="pme"`` takes the
+dense-mesh SPME (``pme.pme_reciprocal_energy``).
 
 The walk and the spread take their kernels or their plain versions by the
 system's ``kernel_route``, fixed when it is built: a system in f64 (the
@@ -36,6 +36,14 @@ overflow, a cell plane spacing below the cutoff, and (with a reused
 neighbor state on the PME route) drift past the PME patch slack.
 ``plain=True`` runs the plain versions of the kernels on any device — the
 reference the kernel path is held to.
+
+:func:`forces_manual` is the reference plugin's force algorithm: the
+fixed-charge gradient plus the explicit dE/dq . dq/dx chain rule over the
+analytic sparse Jacobian (``charges.apply_chain_rule``), the parity
+oracle of the autograd forces.  The phases of an evaluation run inside
+named ranges (``utils.profiling.phase_scope``: cf_charges, cf_binning,
+cf_direct, cf_exclusion, cf_reciprocal), as in the JAX package; they are
+host-side, so a CUDA graph replay pays nothing for them.
 """
 
 from __future__ import annotations
@@ -45,16 +53,26 @@ from typing import Dict
 import torch
 
 from . import cells
-from .charges import effective_charges
+from .charges import apply_chain_rule, effective_charges
 from .device import constant
 from .ewald import reciprocal_energy, self_energy
 from .ops.erfc import erf_over_r_eval, erfc_fast
 from .ops.structure_factor import kernels_take_grid
 from .pairs import box_volume, displacement, pair_matrix_mask, plane_widths
-from .pme import pme_cell_column_reciprocal_energy
+from .pme import pme_cell_column_reciprocal_energy, pme_reciprocal_energy
 from .rows import gather_planned
 from .system import ChargeFluxSystem
 from .units import ONE_4PI_EPS0
+from .utils.profiling import phase_scope
+
+
+def dispersion_energy(box, spec, dtype=None):
+    """Long-range LJ tail energy ``C / V`` (kJ/mol), with ``C`` the
+    coefficient ``create_system`` computed (``spec.tail_coeff``): no
+    position dependence, but a box dependence the virial pressure and the
+    barostat's volume moves see.  ``dtype`` is accepted for the JAX
+    package's signature: the result takes the box's type."""
+    return spec.tail_coeff / box_volume(box)
 
 
 def _lj_pair_terms(half_sig_sum, eps_prod, inv_r):
@@ -178,14 +196,6 @@ def resolve_recip_method(spec, dtype, device) -> str:
     return "xla"
 
 
-def _check_route(system: ChargeFluxSystem, recip: str):
-    if system.spec.direct_method != "cell" and recip == "pme":
-        raise NotImplementedError(
-            "the dense-mesh PME reciprocal (pme.pme_reciprocal_energy) is "
-            "not ported yet (ROADMAP.md); use direct_method='cell' or "
-            "recip_method='xla'/'pallas'")
-
-
 def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
                  plain: bool):
     """(blocks, ids, E_direct) of the cell route: binning (or the reused
@@ -195,16 +205,21 @@ def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
     The poison multiplies sum(x) so every force is NaN too."""
     spec = system.spec
     dtype, dev = positions.dtype, positions.device
-    if nb is None:
-        slots, inv_slot, overflow = cells.build_cell_list_full(
-            positions.detach(), system.box, spec.cell_grid, spec.cell_capacity)
-        wrap = None
-    else:
-        slots, inv_slot, overflow = nb.slots, nb.inv_slot, nb.overflow
-        wrap = nb.wrap
-    blocks = cells.blockify(positions, q, system, slots, inv_slot, wrap=wrap)
+    with phase_scope("cf_binning"):
+        if nb is None:
+            slots, inv_slot, overflow = cells.build_cell_list_full(
+                positions.detach(), system.box, spec.cell_grid,
+                spec.cell_capacity)
+            wrap = None
+        else:
+            slots, inv_slot, overflow = nb.slots, nb.inv_slot, nb.overflow
+            wrap = nb.wrap
+        blocks = cells.blockify(positions, q, system, slots, inv_slot,
+                                wrap=wrap)
     ids = slots.reshape(blocks.x.shape)
-    e_dir = cells.direct_energy_on_blocks(blocks, ids, system, plain=plain)
+    with phase_scope("cf_direct"):
+        e_dir = cells.direct_energy_on_blocks(blocks, ids, system,
+                                              plain=plain)
     grid = constant(spec.cell_grid, dtype, dev)
     bad = (overflow > 0) | torch.any(plane_widths(system.box) / grid
                                      < spec.cutoff)
@@ -220,43 +235,59 @@ def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
 
 def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
                                     system: ChargeFluxSystem, nb=None,
+                                    include_recip: bool = True,
                                     plain: bool = False
                                     ) -> Dict[str, torch.Tensor]:
     """Energy breakdown {self, [dispersion,] direct, exclusion, reciprocal}
     under PBC, {pair} otherwise, treating the effective charges as an
-    independent input."""
+    independent input: the gradient with respect to ``q`` of the sum is the
+    reference's dE/dq vector.  ``include_recip=False`` leaves the
+    reciprocal term out (for a caller with its own k-space estimator,
+    ``rbe``)."""
     spec = system.spec
     if not spec.pbc:
-        return {"pair": _dense_pair_energy(positions, q, system)}
+        with phase_scope("cf_direct"):
+            return {"pair": _dense_pair_energy(positions, q, system)}
     plain = plain or system.kernel_route == "plain"
     dtype = positions.dtype
     recip = resolve_recip_method(spec, dtype, positions.device)
-    _check_route(system, recip)
     comps: Dict[str, torch.Tensor] = {}
     comps["self"] = self_energy(q, spec.alpha)
     if spec.tail_coeff is not None:
-        comps["dispersion"] = spec.tail_coeff / box_volume(system.box)
+        comps["dispersion"] = dispersion_energy(system.box, spec, dtype)
 
+    blocks = ids = None
     if spec.direct_method == "cell":
         blocks, ids, comps["direct"] = _cell_direct(positions, q, system, nb,
                                                     recip, plain)
-        comps["exclusion"] = _exclusion_correction(positions, q, system,
-                                                   subtract_direct=True)
+        with phase_scope("cf_exclusion"):
+            comps["exclusion"] = _exclusion_correction(
+                positions, q, system, subtract_direct=True)
     else:
-        comps["direct"] = _dense_pair_energy(positions, q, system)
-        comps["exclusion"] = _exclusion_correction(positions, q, system,
-                                                   subtract_direct=False)
-    if recip == "pme":
-        comps["reciprocal"] = pme_cell_column_reciprocal_energy(
-            blocks, ids, system, plain=plain)
-    else:
-        comps["reciprocal"] = reciprocal_energy(
-            positions, q, system.box, spec.alpha, spec.kmax, method=recip,
-            plain=plain)
+        with phase_scope("cf_direct"):
+            comps["direct"] = _dense_pair_energy(positions, q, system)
+        with phase_scope("cf_exclusion"):
+            comps["exclusion"] = _exclusion_correction(
+                positions, q, system, subtract_direct=False)
+    if not include_recip:
+        return comps
+    with phase_scope("cf_reciprocal"):
+        if recip == "pme" and blocks is not None:
+            comps["reciprocal"] = pme_cell_column_reciprocal_energy(
+                blocks, ids, system, plain=plain)
+        elif recip == "pme":
+            comps["reciprocal"] = pme_reciprocal_energy(
+                positions, q, system.box, spec.alpha, spec.pme_grid,
+                spec.pme_order)
+        else:
+            comps["reciprocal"] = reciprocal_energy(
+                positions, q, system.box, spec.alpha, spec.kmax,
+                method=recip, plain=plain)
     return comps
 
 
 def energy_fixed_charges(positions, q, system, nb=None, plain: bool = False):
+    """Total energy (kJ/mol) at fixed charges ``q``."""
     total = 0.0
     for v in energy_components_fixed_charges(positions, q, system, nb=nb,
                                              plain=plain).values():
@@ -275,8 +306,16 @@ def _energy(positions: torch.Tensor, system: ChargeFluxSystem, nb=None,
             plain: bool = False) -> torch.Tensor:
     """Total potential energy (kJ/mol) with geometry-dependent charges;
     ``nb`` is an optional reused neighbor state (neighbors.py)."""
-    q = effective_charges(positions, system)
+    with phase_scope("cf_charges"):
+        q = effective_charges(positions, system)
     return energy_fixed_charges(positions, q, system, nb=nb, plain=plain)
+
+
+def energy(positions: torch.Tensor, system: ChargeFluxSystem, nb=None,
+           plain: bool = False) -> torch.Tensor:
+    """Total potential energy (kJ/mol) with geometry-dependent charges
+    (differentiable in ``positions``)."""
+    return _energy(positions, system, nb=nb, plain=plain)
 
 
 def energy_and_forces(positions: torch.Tensor, system: ChargeFluxSystem,
@@ -287,3 +326,27 @@ def energy_and_forces(positions: torch.Tensor, system: ChargeFluxSystem,
         e = _energy(x, system, nb=nb, plain=plain)
         (g,) = torch.autograd.grad(e, x)
     return e.detach(), -g
+
+
+def forces(positions: torch.Tensor, system: ChargeFluxSystem, nb=None,
+           plain: bool = False) -> torch.Tensor:
+    """F = -dE/dx including the charge-flux chain rule, by autograd."""
+    return energy_and_forces(positions, system, nb=nb, plain=plain)[1]
+
+
+def forces_manual(positions: torch.Tensor, system: ChargeFluxSystem,
+                  plain: bool = False) -> torch.Tensor:
+    """The reference plugin's force algorithm: the fixed-charge gradient
+    -dE/dx|_q plus the explicit chain rule -dE/dq . dq/dx over the analytic
+    sparse Jacobian (ReferenceCoulKernels.cpp:493-499).  Equals
+    :func:`forces` to round-off; kept as the parity oracle of the
+    reference's algorithm."""
+    x = positions.detach()
+    with phase_scope("cf_charges"):
+        q = effective_charges(x, system)
+    xg = x.clone().requires_grad_(True)
+    qg = q.detach().requires_grad_(True)
+    with torch.enable_grad():
+        e = energy_fixed_charges(xg, qg, system, plain=plain)
+        gx, dedq = torch.autograd.grad(e, (xg, qg))
+    return -gx + apply_chain_rule(dedq, x, system)

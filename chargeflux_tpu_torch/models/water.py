@@ -1,9 +1,10 @@
-"""Flexible 3-site water boxes with charge flux, and the rigid box
-(torch counterpart of ``chargeflux_tpu.models.water``).
+"""Flexible 3-site water boxes with charge flux, the rigid box, the
+non-periodic cluster and the water-box PDB on-ramp (torch counterpart of
+``chargeflux_tpu.models.water``).
 
-:func:`water_box` and :func:`rigid_water_box` draw from the same NumPy
-generator in the same order as the JAX package, so for equal arguments the
-positions are bit-identical.
+:func:`water_box`, :func:`rigid_water_box` and :func:`water_cluster` draw
+from the same NumPy generator in the same order as the JAX package, so for
+equal arguments the positions are bit-identical.
 """
 
 from __future__ import annotations
@@ -147,3 +148,76 @@ def water_box(n_side: int = 6, flux: str = "bond_angle", cutoff: float = 0.9,
     positions = _lattice(n_side, density_spacing, rng, perturb=0.02)
     masses = np.tile(np.array(WATER_MASSES), n_w)
     return force, positions, masses, box
+
+
+def water_cluster(n_side: int = 5, spacing: float = 0.31,
+                  flux: str = "bond_angle", seed: int = 0, **system_kwargs):
+    """Non-periodic n_side^3-water cluster on a jittered lattice.
+
+    Returns (force, positions [3*n^3, 3], masses [3*n^3]).  n_side=5 gives
+    the 125-water cluster of BASELINE.md.  ``system_kwargs`` is accepted
+    for the JAX package's signature and unused."""
+    rng = np.random.default_rng(seed)
+    force = CoulForce()
+    n_w = n_side ** 3
+    _build(force, n_w, flux)
+    pos = []
+    for ix in range(n_side):
+        for iy in range(n_side):
+            for iz in range(n_side):
+                center = spacing * np.array([ix, iy, iz], dtype=np.float64)
+                center += 0.02 * rng.standard_normal(3)
+                pos.append(_one_water(center, rng))
+    positions = np.concatenate(pos, axis=0)
+    masses = np.tile(np.array(WATER_MASSES), n_w)
+    return force, positions, masses
+
+
+WATER_RESIDUES = frozenset({"HOH", "WAT", "SOL", "TIP3", "TIP", "H2O"})
+
+
+def water_system_from_pdb(path: str, flux: str = "bond_angle",
+                          cutoff: float = 0.9, ewald_tol: float = 1e-4):
+    """Build a flux-water system from a water-box PDB file.
+
+    Waters are recognized by residue (HOH/WAT/SOL/TIP3/TIP/H2O), each
+    needing one O and two H in a contiguous (resname, resseq) run, so
+    boxes past the resseq-9999 wrap parse correctly; atoms are reordered
+    to the (O, H1, H2) molecule template.  Returns (force, positions,
+    masses, box, perm) with ``positions == pdb positions[perm]``; ``box``
+    is the CRYST1 cell ([3] nm or triclinic [3, 3]; None for a vacuum
+    cluster)."""
+    from ..utils.trajectory import read_pdb
+
+    pdb = read_pdb(path)
+    groups = []
+    prev = None
+    for i, (rn, rs) in enumerate(zip(pdb.resnames, pdb.resseq)):
+        if rn.upper() not in WATER_RESIDUES:
+            raise ValueError(
+                f"atom {i}: residue {rn!r} is not a recognized water "
+                f"residue ({sorted(WATER_RESIDUES)}); this builder handles "
+                f"pure water boxes")
+        if (rn, rs) != prev:
+            groups.append(((rn, rs), []))
+            prev = (rn, rs)
+        groups[-1][1].append(i)
+    perm = []
+    for key, idx in groups:
+        sym = [pdb.symbols[i].upper() for i in idx]
+        o_idx = [i for i, s in zip(idx, sym) if s.startswith("O")]
+        h_idx = [i for i, s in zip(idx, sym) if s.startswith("H")]
+        if len(o_idx) != 1 or len(h_idx) != 2:
+            raise ValueError(
+                f"residue {key}: expected 1 O + 2 H in a contiguous "
+                f"run, got {sym} (water atoms must be adjacent in the "
+                f"file; interleaved-residue PDBs are not supported)")
+        perm.extend([o_idx[0], h_idx[0], h_idx[1]])
+    perm = np.asarray(perm)
+    n_w = len(perm) // 3
+    force = (_periodic_force(cutoff, ewald_tol) if pdb.box is not None
+             else CoulForce())
+    _build(force, n_w, flux)
+    positions = pdb.positions[perm]
+    masses = np.tile(np.array(WATER_MASSES), n_w)
+    return force, positions, masses, pdb.box, perm

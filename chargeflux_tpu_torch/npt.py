@@ -118,6 +118,14 @@ class Molecules(NamedTuple):
         return self.first_idx.shape[0]
 
 
+def bonded_rows(bonded) -> tuple:
+    """The index arrays of ``bonded`` that join atoms into molecules: bonds,
+    angles and, where there are any, torsions (a torsion alone may join
+    two fragments)."""
+    return tuple(a for a in (bonded.bond_idx, bonded.angle_idx,
+                             bonded.torsion_idx) if a is not None)
+
+
 def molecules(system, extra_idx: tuple = (), dtype=None) -> Molecules:
     """:func:`molecule_index` as :class:`Molecules` on the system's device
     (counts in ``dtype``, default the system's)."""
@@ -412,7 +420,7 @@ def _npt_langevin_driver(positions, velocities, system, masses, dt: float,
                 stacklevel=3)
     extra = tuple(extra_mol_idx)
     if bonded is not None and extra == ():
-        extra = (bonded.bond_idx, bonded.angle_idx)
+        extra = bonded_rows(bonded)
     mols = _molecules_for(system, extra, dtype)
     e_at = proposal_energy(system, bonded, energy_fn)
 

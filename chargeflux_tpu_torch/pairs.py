@@ -13,6 +13,11 @@ import math
 import torch
 
 
+def delta_direct(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """Displacement a -> b without PBC: pb - pa."""
+    return pb - pa
+
+
 def delta_periodic(pa: torch.Tensor, pb: torch.Tensor,
                    box: torch.Tensor) -> torch.Tensor:
     """Minimum-image displacement a -> b."""
@@ -107,6 +112,15 @@ def metric_k2(g: torch.Tensor, ax, ay, az):
     return (g[0, 0] * ax * ax + g[1, 1] * ay * ay + g[2, 2] * az * az
             + 2.0 * (g[0, 1] * ax * ay + g[0, 2] * ax * az
                      + g[1, 2] * ay * az))
+
+
+def safe_norm(d: torch.Tensor, dim: int = -1):
+    """(r, r^2) with a grad-safe sqrt: where r^2 == 0 the norm is 0 with
+    zero gradient instead of NaN (the double-where trick)."""
+    r2 = torch.sum(d * d, dim=dim)
+    nonzero = r2 > 0
+    r = torch.where(nonzero, torch.sqrt(torch.where(nonzero, r2, 1.0)), 0.0)
+    return r, r2
 
 
 def pair_matrix_mask(n: int, exclusions: torch.Tensor) -> torch.Tensor:

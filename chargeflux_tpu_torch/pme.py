@@ -1,8 +1,16 @@
-"""Smooth particle-mesh Ewald reciprocal space on the cell blocks (torch
-counterpart of ``chargeflux_tpu.pme``).
+"""Smooth particle-mesh Ewald reciprocal space (torch counterpart of
+``chargeflux_tpu.pme``).
 
 E_rec = sum_m D(m) |Q^(m)|^2 with Q the charge mesh spread by order-p
-cardinal B-splines and D the influence function.  The spread is the
+cardinal B-splines and D the influence function.
+
+The dense-mesh route (:func:`pme_reciprocal_energy`, the reciprocal of
+``direct_method="dense"`` with ``recip_method="pme"``) spreads with dense
+per-axis weight matrices W[i, g] = M_p((u_i - g) mod G) over the whole mesh
+and one product [Gx Gy, N] @ [N, Gz] in IEEE f32 (``device.ieee_matmul``),
+on fractional coordinates, so it serves triclinic boxes too.
+
+The cell route's spread is the
 cell-column route of the JAX package's ``pme_cell_pallas_reciprocal_energy``:
 each cell's atoms touch only a static patch of the mesh, so per cell
 column the compact x/y weights and the order-p z taps go to
@@ -21,9 +29,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .device import constant, device_key
+from .device import constant, device_key, ieee_matmul
 from .ops.pme_spread import fold_padded_axis, spread_columns
-from .pairs import box_inverse, box_volume, metric_k2, reciprocal_metric
+from .pairs import (box_inverse, box_volume, frac_coords, metric_k2,
+                    reciprocal_metric)
 from .units import ONE_4PI_EPS0
 
 # Order 8: the spline order never enters a contraction shape, so a higher
@@ -91,6 +100,41 @@ def bspline(t: torch.Tensor, order: int) -> torch.Tensor:
     """Cardinal B-spline M_p(t), support (0, p), with the analytic
     derivative identity in its backward."""
     return _BSpline.apply(t, order)
+
+
+def spread_weights(u: torch.Tensor, grid_n: int, order: int) -> torch.Tensor:
+    """Dense per-axis spread weights W[i, g] = M_p((u_i - g) mod G) [N, G]
+    for ``u``, the fractional coordinate scaled to [0, G); entries outside
+    the spline support are exactly zero."""
+    g = torch.arange(grid_n, device=u.device).to(u.dtype)
+    t = u[:, None] - g[None, :]
+    t = t - grid_n * torch.floor(t / grid_n)        # (u - g) mod G
+    return bspline(t, order)
+
+
+def _spread_grid(wx, wy, wz, q):
+    """Q[x, y, z] = sum_i q_i Wx[i,x] Wy[i,y] Wz[i,z] as one product
+    [Gx Gy, N] @ [N, Gz] (IEEE f32 on the card, no scatter)."""
+    n, gx = wx.shape
+    gy = wy.shape[1]
+    a = ((q[:, None] * wx)[:, :, None] * wy[:, None, :]).reshape(n, gx * gy)
+    return ieee_matmul(a.transpose(0, 1), wz).reshape(gx, gy, wz.shape[1])
+
+
+def pme_reciprocal_energy(positions: torch.Tensor, q: torch.Tensor,
+                          box: torch.Tensor, alpha: float, grid,
+                          order: int = DEFAULT_ORDER) -> torch.Tensor:
+    """Dense-mesh SPME reciprocal energy (forces and dE/dq by autograd):
+    the drop-in for ``ewald.reciprocal_energy`` on the dense route, with
+    accuracy set by (grid, order) — see :func:`pme_grid_size`."""
+    dtype = positions.dtype
+    frac = frac_coords(positions, box)
+    frac = frac - torch.floor(frac).detach()
+    u = frac * constant(grid, dtype, positions.device)
+    wx, wy, wz = (spread_weights(u[:, a], grid[a], order) for a in range(3))
+    qhat = torch.fft.rfftn(_spread_grid(wx, wy, wz, q.to(dtype)))
+    d = influence_function(tuple(grid), box, alpha, order, dtype)
+    return torch.sum(d * (qhat.real * qhat.real + qhat.imag * qhat.imag))
 
 
 def _bspline_dft_sq(grid_n: int, order: int) -> np.ndarray:

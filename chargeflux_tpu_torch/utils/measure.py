@@ -6,7 +6,11 @@
 PATH is 30k (the default), 216, rigid, respa, npt, or one of the other
 NVE configs of the JAX package's bench.py: 4k, 100k, tri30k, hetero30k
 (:func:`bench_path`, burned in as the 30k path); or csvr / nhc, the CSVR
-and Nose-Hoover chain NVT drivers on the burned-in 30k box.
+and Nose-Hoover chain NVT drivers on the burned-in 30k box; onramp30k,
+Langevin NVT on the peptide-in-water PDB read through the on-ramp
+(:func:`onramp_path`, 31,926 atoms); rbe / rbe100k, random batch Ewald NVT
+(p = 128, friction 20/ps) on the burned-in 30k / 100k box, with the SPME
+Langevin step at the same settings timed in the same process.
 
 ``--path 30k`` (the default) starts from the cell + SPME main path's system
 (``water_box(n_side=22, flux="bond_angle", cutoff=0.72)``, 31,944 atoms,
@@ -61,6 +65,7 @@ import subprocess
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 DT_PS = 5e-4              # 0.5 fs, as the JAX package's bench.py
@@ -468,6 +473,262 @@ def respa_path(device, n_side: int = 22, cutoff: float = 0.72,
                                    seconds=burn_s, occupancy=occ, vmax=vmax))
 
 
+# The on-ramp's residue tables (the JAX package's examples/run_peptide_pdb.py):
+# a 3-atom peptide-like backbone (N, CA, C) with intra flux bonds,
+# exclusions, harmonic geometry and "-" links to the previous residue, and
+# flexible flux water; as ResidueParams keyword arguments, filled in from
+# the water model's constants by :func:`peptide_tables`.
+GLY_TABLE = dict(
+    atoms={"N": (0.25, 0.21, 0.2, 14.007),
+           "CA": (-0.1, 0.23, 0.15, 12.011),
+           "C": (-0.15, 0.22, 0.12, 12.011)},
+    flux_bonds=[("N", "CA", 0.35, 0.146), ("CA", "C", 0.3, 0.152)],
+    exclusions=[("N", "CA"), ("CA", "C"), ("N", "C")],
+    bonds=[("N", "CA", 60000.0, 0.14), ("CA", "C", 60000.0, 0.14)],
+    angles=[("N", "CA", "C", 300.0, 3.0)],
+    link_exclusions=[("-C", "N"), ("-CA", "N")],
+    link_flux_bonds=[("-C", "N", 0.4, 0.133)],
+    link_bonds=[("-C", "N", 70000.0, 0.135)],
+    link_angles=[("-CA", "-C", "N", 280.0, 3.0)],
+)
+TORSION_K, TORSION_N, TORSION_PHI0 = 2.0, 3.0, 0.0   # backbone, kJ/mol
+
+
+def peptide_tables(residue_params=None) -> dict:
+    """{"GLY": ..., "HOH": ...} as ``residue_params(**kwargs)`` (the
+    port's ``models.ResidueParams`` by default; the tests pass the JAX
+    package's to build the same system there)."""
+    from ..models import water as w
+
+    if residue_params is None:
+        from ..models import ResidueParams as residue_params
+    hoh = dict(
+        atoms={"O": (w.Q_O, w.SIG_O, w.EPS_O, 15.999),
+               "H1": (w.Q_H, w.SIG_H, w.EPS_H, 1.008),
+               "H2": (w.Q_H, w.SIG_H, w.EPS_H, 1.008)},
+        flux_bonds=[("O", "H1", w.K_BOND, w.R_OH),
+                    ("O", "H2", w.K_BOND, w.R_OH)],
+        flux_angles=[("H1", "O", "H2", w.K_ANGLE, w.ANGLE_HOH)],
+        exclusions=[("O", "H1"), ("O", "H2"), ("H1", "H2")],
+        bonds=[("O", "H1", w.KB_OH, w.R_OH), ("O", "H2", w.KB_OH, w.R_OH)],
+        angles=[("H1", "O", "H2", w.KA_HOH, w.ANGLE_HOH)],
+    )
+    return {"GLY": residue_params(**GLY_TABLE),
+            "HOH": residue_params(**hoh)}
+
+
+def write_peptide_pdb(path, n_res: int = 16, n_side: int = 22,
+                      seed: int = 11, resseq_gap_after=None):
+    """The JAX package's examples/run_peptide_pdb.py input at any size: an
+    ``n_res``-residue GLY backbone row (N, CA, C, 0.135 nm apart) along x
+    through the box centre of an ``n_side``^3 water lattice (0.31 nm
+    apart), the row's lattice sites left out, written by
+    ``utils.trajectory.write_pdb`` with a CRYST1 box.  At n_side 22 and 16
+    residues: 10,626 waters and 48 backbone atoms, 31,926 atoms in a
+    6.82 nm box.  ``resseq_gap_after`` numbers the residues after that one
+    two higher (a chain break).  Returns (positions, box)."""
+    from ..models.water import _one_water
+    from .trajectory import write_pdb
+
+    rng = np.random.default_rng(seed)
+    spacing = 0.31
+    box = np.full(3, n_side * spacing)
+    pos, names, resnames, resseq = [], [], [], []
+    for r in range(n_res):
+        num = r + 1 + (2 if resseq_gap_after is not None
+                       and r >= resseq_gap_after else 0)
+        for j, nm in enumerate(("N", "CA", "C")):
+            pos.append([0.12 + 0.135 * (3 * r + j), box[1] / 2, box[2] / 2]
+                       + 0.01 * rng.standard_normal(3))
+            names.append(nm)
+            resnames.append("GLY")
+            resseq.append(num)
+    k = 0
+    mid = n_side // 2
+    first = max(resseq) + 1
+    for ix in range(n_side):
+        for iy in range(n_side):
+            for iz in range(n_side):
+                if iy == mid and iz == mid:
+                    continue                        # the chain's row
+                c = spacing * (np.array([ix, iy, iz]) + 0.5)
+                pos.extend(_one_water(c + 0.01 * rng.standard_normal(3),
+                                      rng))
+                names.extend(["O", "H1", "H2"])
+                resnames.extend(["HOH"] * 3)
+                resseq.extend([first + k] * 3)
+                k += 1
+    pos = np.asarray(pos)
+    write_pdb(path, pos, box=box, names=names, resnames=resnames,
+              resseq=resseq, symbols=[nm[0] for nm in names])
+    return pos, box
+
+
+def backbone_torsions(n_res: int, first: int = 0):
+    """The backbone's torsion rows (N-CA-C-N, CA-C-N-CA, C-N-CA-C at each
+    residue junction: every 4 consecutive backbone atoms) with
+    k = 2 kJ/mol, n = 3, phi0 = 0, as ``BondedParams.create`` keywords."""
+    idx = first + np.arange(3 * n_res - 3)[:, None] + np.arange(4)[None, :]
+    t = idx.shape[0]
+    return dict(torsion_idx=idx, torsion_k=np.full(t, TORSION_K),
+                torsion_n=np.full(t, TORSION_N),
+                torsion_phi0=np.full(t, TORSION_PHI0))
+
+
+def onramp_system(path, device, cutoff: float = 0.72, grid=(8, 8, 8),
+                  n_res: int = 16):
+    """The on-ramp's f32 system from the PDB at ``path``:
+    ``system_from_pdb`` with :func:`peptide_tables`, ``create_system`` on
+    the cell + SPME route (``grid`` forced, or the planner's for None;
+    capacity ``suggest_capacity(margin=1.05)``), and the bonded terms with
+    the backbone torsions.  Returns (force, x, masses, box, bonded,
+    system)."""
+    from ..bonded import BondedParams
+    from ..cells import suggest_capacity
+    from ..models import system_from_pdb
+
+    force, pos, masses, box, bonded_kw = system_from_pdb(
+        path, peptide_tables(), cutoff=cutoff)
+    if grid is None:
+        grid = force.create_system(box=box, direct_method="cell",
+                                   device="cpu").spec.cell_grid
+    cap = suggest_capacity(pos, box, grid, margin=1.05)
+    system = build_system(force, box, cap, device, grid=grid)
+    bonded = BondedParams.create(box=box, pbc=True, device=device,
+                                 **bonded_kw, **backbone_torsions(n_res))
+    x = torch.tensor(pos, dtype=torch.float32, device=device)
+    m = torch.tensor(masses, dtype=torch.float32, device=device)
+    return force, x, m, box, bonded, system
+
+
+def langevin_path(force, system, x, masses, box, bonded, device,
+                  burn_steps: int = 400, seed: int = 0):
+    """A flexible system's NVT set-up, as :func:`respa_path` burns in:
+    Maxwell velocities at 300 K, ``burn_steps`` (rounded up to whole
+    chunks) of 0.5 fs BAOAB at friction 20/ps on a capacity-1.35 twin, the
+    capacity re-provisioned from the relaxed occupancy (margin 1.10) and
+    ``rebuild_every`` from the relaxed max speed (times 1.2, at least
+    8 nm/ps).  Returns a dict: system, state, bonded, rebuild_every,
+    masses, generator, e_fns (``make_nb_energy_fn``), info."""
+    from ..cells import suggest_capacity
+    from ..integrate import (init_state_nb, langevin_trajectory_nb,
+                             make_nb_energy_fn, maxwell_velocities)
+    from ..neighbors import suggest_rebuild_interval
+
+    grid = system.spec.cell_grid
+    pos = x.detach().cpu().double().numpy()
+    burn_sys = build_system(force, box, max(
+        system.spec.cell_capacity,
+        suggest_capacity(pos, box, grid, margin=1.35)), device,
+        dtype=x.dtype, grid=grid)
+    e_fn, init_nb = make_nb_energy_fn(burn_sys, bonded=bonded)
+    every_b = suggest_rebuild_interval(burn_sys, DT_PS, max_speed=24.0,
+                                       cap=10)
+    n_burn = -(-burn_steps // every_b) * every_b
+    gen = torch.Generator(device).manual_seed(seed)
+    s0 = init_state_nb(x, maxwell_velocities(masses, TEMP, gen,
+                                             dtype=x.dtype),
+                       e_fn, init_nb)
+    t0 = time.perf_counter()
+    s_eq, kes = langevin_trajectory_nb(s0, e_fn, init_nb, masses, DT_PS,
+                                       TEMP, 20.0, gen, n_burn, every_b)
+    if not torch.isfinite(kes).all():
+        raise RuntimeError("Langevin burn-in NaN-poisoned")
+    burn_s = time.perf_counter() - t0
+    system, occ = _reprovision(force, system, s_eq.positions)
+    vmax = float(s_eq.velocities.norm(dim=-1).max())
+    rebuild_every = suggest_rebuild_interval(
+        system, DT_PS, max_speed=max(8.0, 1.2 * vmax), cap=40)
+    e_fns = make_nb_energy_fn(system, bonded=bonded)
+    state = init_state_nb(s_eq.positions, s_eq.velocities, *e_fns)
+    return dict(system=system, state=state, bonded=bonded,
+                rebuild_every=rebuild_every, masses=masses, generator=gen,
+                e_fns=e_fns, info=dict(chunk=every_b, steps=n_burn,
+                                       seconds=burn_s, occupancy=occ,
+                                       vmax=vmax))
+
+
+def onramp_path(device, n_side: int = 22, n_res: int = 16,
+                cutoff: float = 0.72, grid=(8, 8, 8), burn_steps: int = 400,
+                directory=None):
+    """onramp30k: the JAX package's "PDB + parameter table -> Context"
+    workflow at the main-path size.  :func:`write_peptide_pdb` writes the
+    peptide-in-water PDB (31,926 atoms at the defaults) into ``directory``
+    (a temporary one by default), :func:`onramp_system` reads it back
+    through ``system_from_pdb`` into an f32 cell + SPME system on the
+    forced 8^3 grid with the backbone torsions, and
+    :func:`langevin_path` burns it in.  Returns that dict plus pdb (the
+    file's path), force, box and pdb_positions (the positions written)."""
+    import os
+    import tempfile
+
+    if directory is None:
+        directory = tempfile.mkdtemp(prefix="onramp")
+    pdb = os.path.join(directory, "peptide_water.pdb")
+    written, _ = write_peptide_pdb(pdb, n_res=n_res, n_side=n_side)
+    force, x, m, box, bonded, system = onramp_system(
+        pdb, device, cutoff=cutoff, grid=grid, n_res=n_res)
+    path = langevin_path(force, system, x, m, box, bonded, device,
+                         burn_steps=burn_steps)
+    path.update(pdb=pdb, force=force, box=box, pdb_positions=written)
+    return path
+
+
+def langevin_drive(path: dict):
+    """:func:`nve_drive` of a Langevin NVT path (:func:`langevin_path`):
+    ``langevin_trajectory_nb`` at 0.5 fs, 300 K, friction 5/ps, drawing
+    from the path's generator; records: the kinetic energies."""
+    from ..integrate import langevin_trajectory_nb, make_nb_energy_fn
+
+    fns = {False: path["e_fns"], True: make_nb_energy_fn(
+        path["system"], bonded=path["bonded"], plain=True)}
+
+    def drive(n_steps, graph=True, plain=False):
+        return langevin_trajectory_nb(
+            path["state"], *fns[plain], path["masses"], DT_PS, TEMP,
+            FRICTION, path["generator"], n_steps, path["rebuild_every"],
+            graph=graph)
+    return drive, fns[False][0], fns[False][1]
+
+
+RBE_SAMPLES = 128         # p, the JAX package's choice at 0.5 fs, 20/ps
+RBE_FRICTION = 20.0       # 1/ps
+
+
+def rbe_drive(system, state, rebuild_every, masses, bonded, generator,
+              n_samples: int = RBE_SAMPLES):
+    """:func:`nve_drive` of random batch Ewald NVT on a burned-in state:
+    ``rbe_langevin_trajectory_nb`` at 0.5 fs, 300 K, friction 20/ps, p =
+    ``n_samples`` k-vectors a step, drawing from ``generator``; records:
+    the kinetic energies.  ``plain`` runs the kernels' plain versions."""
+    from ..rbe import make_rbe_nb_energy_fn, rbe_langevin_trajectory_nb
+
+    fns = {p: make_rbe_nb_energy_fn(system, n_samples, bonded=bonded,
+                                    plain=p) for p in (False, True)}
+
+    def drive(n_steps, graph=True, plain=False):
+        return rbe_langevin_trajectory_nb(
+            state, *fns[plain], masses, DT_PS, TEMP, RBE_FRICTION,
+            generator, n_steps, rebuild_every, graph=graph)
+    return drive, fns[False][0], fns[False][1]
+
+
+def spme_langevin_drive(system, state, rebuild_every, masses, bonded,
+                        generator):
+    """The SPME counterpart of :func:`rbe_drive` (``langevin_trajectory_nb``
+    at the same dt, temperature and friction): the step RBE replaces."""
+    from ..integrate import langevin_trajectory_nb, make_nb_energy_fn
+
+    fns = {p: make_nb_energy_fn(system, bonded=bonded, plain=p)
+           for p in (False, True)}
+
+    def drive(n_steps, graph=True, plain=False):
+        return langevin_trajectory_nb(
+            state, *fns[plain], masses, DT_PS, TEMP, RBE_FRICTION,
+            generator, n_steps, rebuild_every, graph=graph)
+    return drive, fns[False][0], fns[False][1]
+
+
 def npt_path(device, n_side: int = 22, cutoff: float = 0.72,
              grid=(8, 8, 8), burn_steps: int = 400, seed: int = 0):
     """The JAX package's ``bench.py npt`` set-up (``bench_npt``): flexible
@@ -561,12 +822,12 @@ def proposal_work(path: dict):
     terms, the acceptance), at the driver's starting width, drawing from
     the default generator (which a graph capture registers); returns the
     potential after the attempt."""
-    from ..npt import (BAR_TO_KJ_MOL_NM3, isotropic_attempt, molecules,
-                       proposal_energy)
+    from ..npt import (BAR_TO_KJ_MOL_NM3, bonded_rows, isotropic_attempt,
+                       molecules, proposal_energy)
     from ..pairs import box_volume
 
     system, bonded, x = path["system"], path["bonded"], path["state"].positions
-    mols = molecules(system, (bonded.bond_idx, bonded.angle_idx))
+    mols = molecules(system, bonded_rows(bonded))
     e_at = proposal_energy(system, bonded)
     box = system.box
     dv = 0.01 * box_volume(box)       # npt_langevin_trajectory's dv_frac
@@ -873,7 +1134,11 @@ def window(run, n_steps: int, activities) -> dict:
     """One ``torch.profiler`` window over ``run()``: per step, the host
     wall time, the device busy time (union of the device events'
     intervals), the device events, and the idle share ``1 - busy / wall``;
-    with the trace's device events."""
+    with the trace's device events and ``phases``, the device time of the
+    kernels launched inside each of the energy's named scopes
+    (``utils.profiling.phase_scope``: cf_charges, cf_binning, cf_direct,
+    cf_exclusion, cf_reciprocal; forward only: the autograd backward runs
+    outside them), per step, where the window traced the CPU."""
     from torch.profiler import profile as torch_profile
 
     with torch_profile(activities=activities) as prof:
@@ -889,9 +1154,17 @@ def window(run, n_steps: int, activities) -> dict:
                          for e in events]) / 1e3
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events)) / 1e3
+    phases = {}
+    for avg in prof.key_averages():
+        if avg.key.startswith("cf_"):
+            us = getattr(avg, "device_time_total", None)
+            if us is None:
+                us = avg.cuda_time_total
+            phases[avg.key] = us / 1e3 / n_steps
     return {"events": events, "wall": wall / n_steps, "busy": busy / n_steps,
             "per_step": len(events) / n_steps, "span": span / n_steps,
-            "idle": 1 - busy / wall, "idle_span": 1 - busy / span}
+            "idle": 1 - busy / wall, "idle_span": 1 - busy / span,
+            "phases": phases}
 
 
 def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
@@ -985,6 +1258,10 @@ def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
               f"{w['per_step']:.0f} device events per step); idle share "
               f"{w['idle']:.3f} of the wall, {w['idle_span']:.3f} of the "
               f"device span {w['span']:.3f} ms/step", flush=True)
+        if w["phases"]:
+            print("  forward device time by phase scope: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(w["phases"].items()))
+                + " ms/step", flush=True)
         per_kernel = {}
         for e in w["events"]:
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
@@ -1004,6 +1281,48 @@ def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
               f"step(s), {ms / steps:.4f} ms per step (a CUDA graph of "
               f"{GRAPH_REPS} calls, median of {ROUNDS}); share of the "
               f"step's device busy time {share}", flush=True)
+
+
+def rbe_profile(system, state, rebuild_every, masses, bonded, device):
+    """``profile`` of random batch Ewald NVT (:func:`rbe_drive`, p = 128,
+    20/ps) on a burned-in state, then, in the same process, RBE at p = 512
+    and the SPME Langevin step at the same settings
+    (:func:`spme_langevin_drive`): ms/step and mean temperature of each
+    replayed, in turns (p 128, p 512, SPME, SPME, p 512, p 128), ten
+    rebuild chunks each."""
+    from ..units import BOLTZ
+
+    gen = torch.Generator(device).manual_seed(0)
+    drive, owner, init_nb = rbe_drive(system, state, rebuild_every, masses,
+                                      bonded, gen)
+    profile(drive, owner, init_nb, state, rebuild_every, DT_PS)
+    drives = {
+        f"rbe p {RBE_SAMPLES}": drive,
+        "rbe p 512": rbe_drive(system, state, rebuild_every, masses, bonded,
+                               torch.Generator(device).manual_seed(2),
+                               n_samples=512)[0],
+        "spme": spme_langevin_drive(system, state, rebuild_every, masses,
+                                    bonded, torch.Generator(
+                                        device).manual_seed(1))[0]}
+    for d in drives.values():
+        timed(d, rebuild_every)                    # capture
+    n_steps = 10 * rebuild_every
+    times = {name: [] for name in drives}
+    temps = {name: [] for name in drives}
+    order = list(drives)
+    for name in order + order[::-1]:
+        ms, kes = timed(drives[name], n_steps)
+        if not torch.isfinite(kes).all():
+            raise RuntimeError(f"timed run ({name}) NaN-poisoned")
+        times[name].append(ms)
+        temps[name].append(float((2.0 * kes.double() / (
+            3 * state.positions.shape[0] * BOLTZ)).mean()))
+    print(f"RBE vs SPME Langevin, friction {RBE_FRICTION}/ps, {n_steps} "
+          f"replayed steps each from the same state (CUDA events around "
+          f"the call): " + "; ".join(
+              f"{k} {['%.3f' % t for t in v]} ms/step, mean T "
+              f"{['%.1f' % t for t in temps[k]]} K"
+              for k, v in times.items()), flush=True)
 
 
 def f64_control(system, state, rebuild_every, masses, bonded):
@@ -1036,13 +1355,15 @@ def main(argv=None):
     ap.add_argument("what", choices=("profile", "f64"))
     ap.add_argument("--path", choices=("30k", "216", "rigid", "respa", "npt",
                                        "csvr", "nhc", "4k", "100k", "tri30k",
-                                       "hetero30k"),
+                                       "hetero30k", "onramp30k", "rbe",
+                                       "rbe100k"),
                     default="30k")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure: needs a CUDA device")
     if args.what == "f64" and args.path in ("rigid", "respa", "npt", "csvr",
-                                            "nhc"):
+                                            "nhc", "onramp30k", "rbe",
+                                            "rbe100k"):
         raise SystemExit("measure f64: NVE paths only")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1075,6 +1396,17 @@ def main(argv=None):
         rebuild_every = 10
         print(f"216 path: {system.n_atoms} atoms, dense, kmax "
               f"{system.spec.kmax}, from the lattice at rest", flush=True)
+    elif args.path == "onramp30k":
+        path = onramp_path(dev)
+        state, rebuild_every = path["state"], path["rebuild_every"]
+        system = path["system"]
+        print(f"onramp30k path: {system.n_atoms} atoms from the peptide "
+              f"PDB, burned in ({path['info']}); capacity "
+              f"{system.spec.cell_capacity}, rebuild_every {rebuild_every}",
+              flush=True)
+        drive, owner, init_nb = langevin_drive(path)
+        profile(drive, owner, init_nb, state, rebuild_every, dt_ps)
+        return
     elif args.path in ("rigid", "respa"):
         path = (rigid_path if args.path == "rigid" else respa_path)(dev)
         state, rebuild_every = path["state"], path["rebuild_every"]
@@ -1093,8 +1425,9 @@ def main(argv=None):
             parts = {f"bonded substeps ({N_INNER} BAOAB substeps)":
                      substep_work(path)}
     else:
-        force, x, m, box, bonded, system0 = bench_path(
-            "30k" if args.path in ("csvr", "nhc") else args.path, dev)
+        base = {"csvr": "30k", "nhc": "30k", "rbe": "30k",
+                "rbe100k": "100k"}.get(args.path, args.path)
+        force, x, m, box, bonded, system0 = bench_path(base, dev)
         system, state, rebuild_every, info = burn_in(force, system0, x, m,
                                                      box, bonded)
         print(f"{args.path} path: {system.n_atoms} atoms, cells "
@@ -1103,6 +1436,9 @@ def main(argv=None):
               f"{rebuild_every}, vmax {info['vmax']:.2f} nm/ps", flush=True)
     if args.what == "f64":
         f64_control(system, state, rebuild_every, m, bonded)
+        return
+    if args.path in ("rbe", "rbe100k"):
+        rbe_profile(system, state, rebuild_every, m, bonded, dev)
         return
     if args.path in ("csvr", "nhc"):
         drive, owner, init_nb = thermostat_drive(

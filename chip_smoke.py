@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a),
-nvcc and a CUDA build of PyTorch.  It drives nine paths of the port: the
+nvcc and a CUDA build of PyTorch.  It drives thirteen paths of the port: the
 30k cell + SPME path (the JAX package's ``bench.py 30k``), the 216-water
 dense + classical-Ewald path (``bench.py 216``), rigid and RESPA NVT at
 the 30k box (``bench.py rigid``, ``respa``), the 30k box on a sheared
 triclinic lattice (``bench.py tri30k``), the solvated chain
-(``bench.py hetero30k``), NPT at the 30k box (``bench.py npt``) and the
-CSVR and Nose-Hoover chain thermostats on it.  Phases, in order:
+(``bench.py hetero30k``), NPT at the 30k box (``bench.py npt``), the
+CSVR and Nose-Hoover chain thermostats on it, the PDB on-ramp at the 30k
+size (onramp30k), random batch Ewald NVT at the 30k box (rbe30k), the
+216-water box on the dense-mesh SPME (dense216) and the 125-water cluster
+(cluster).  Phases, in order:
 
 1. CUDA present (else exit non-zero), the card's name and power limit;
 2. build the CUDA kernels from ``chargeflux_tpu_torch/csrc``;
@@ -98,7 +101,47 @@ CSVR and Nose-Hoover chain thermostats on it.  Phases, in order:
    chunk check of 5c for each (CSVR from one generator state), 200
    replayed steps each; CSVR's mean temperature within 10 % of 300 K,
    the chain's conserved-quantity drift printed;
-8. a JSON line with each kernel's numbers, then the last line
+9. onramp30k (``utils.measure.onramp_path``): a peptide-in-water PDB
+   written by the port's ``write_pdb`` (a 16-residue GLY backbone row
+   through the 22^3 water lattice, 10,626 waters + 48 backbone atoms =
+   31,926 atoms, the JAX package's examples/run_peptide_pdb.py layout),
+   read back through ``system_from_pdb`` with that example's residue
+   tables at cutoff 0.72, f32 cell + SPME on the forced 8^3 grid, the
+   backbone torsions (k 2 kJ/mol, n 3, phi0 0) through
+   ``BondedParams.create``; 400 steps of 20/ps Langevin on a
+   capacity-1.35 twin, capacity re-provisioned, ``rebuild_every`` from
+   the relaxed max speed; the chunk check of 5c from one generator state;
+   200 replayed BAOAB steps at 300 K, 5/ps, 0.5 fs (mean temperature
+   within 10 %, the walk and both spreads launched, ms/step and ns/day);
+   then on the final state a PDB frame and a 10-frame DCD written and
+   read back (to the formats' precision), a checkpoint saved and loaded
+   bit-equal, ``diagnose_nan`` reporting no cause, and the O-O
+   ``radial_distribution`` first peak within 0.25-0.32 nm;
+9b. rbe30k: random batch Ewald NVT (p = 128, 20/ps, 0.5 fs, 300 K) on
+   phase 5's burned-in 30k state: the chunk check (the k-vector draws
+   included), 200 replayed steps (finite, the walk launched and no
+   spread; the mean temperature printed: the estimator's noise heats the
+   box by ~1/p), 200 more at p = 512 (mean temperature within 10 %),
+   beside the SPME Langevin step at the same settings in this call; the
+   estimator's exact expectation (``rbe.estimator_moments``: S(k)
+   enumerated over its tables) against the SPME reciprocal energy
+   (<= 1e-4 of sum|E_c|), and its mean over 64 draws at p = 128 within 5
+   standard errors of SPME, the error from the exact variance (the
+   terms' heavy tail makes the draws' own spread understate it); 2^20
+   k-vectors drawn on the card against the tables' per-axis
+   probabilities (every bin within 5 standard deviations);
+9c. dense216: water_box(n_side=6, cutoff=0.9) on direct_method="dense",
+   recip_method="pme": f32 against f64 on the card (force RMS relative
+   <= 1e-4), f64 dense SPME against f64 classical Ewald at the system's
+   kmax (|dE| <= 1e-4 of the components' summed magnitudes, phase 4's
+   scale), ``forces_manual`` against the autograd
+   forces in f64 (<= 1e-10 relative);
+9d. cluster: the non-periodic 125-water ``water_cluster(n_side=5)`` with
+   its bonded terms, 1,600 replayed Langevin steps (0.5 fs, 300 K,
+   2/ps), ``total_dipole`` every 4 steps, a finite
+   ``infrared_spectrum`` of the 400 samples and its peak in the
+   60-130 THz stretch band;
+10. a JSON line with each kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero before the last
@@ -757,11 +800,11 @@ def check_chunks(phase, drive, rebuild_every, gen=None):
 
 
 def run_nvt(phase, label, path, drive, dt_ps, params=None):
-    """Phases 5c / 5d: the chunk check, then N_STEPS timed replayed steps
-    with the launch counts reset before them; checks finite energies, the
-    spread and walk kernels' launches, the mean kinetic temperature and,
-    with ``params``, the constraint residual.  Returns (launches, ms/step,
-    eager ms/step)."""
+    """Phases 5c / 5d / 9: the chunk check, then N_STEPS timed replayed
+    steps with the launch counts reset before them; checks finite energies,
+    the spread and walk kernels' launches, the mean kinetic temperature
+    and, with ``params``, the constraint residual.  Returns (launches,
+    ms/step, eager ms/step, the final state)."""
     from chargeflux_tpu_torch.constraints import constraint_residuals
     from chargeflux_tpu_torch.units import BOLTZ
     from chargeflux_tpu_torch.utils.measure import ns_per_day
@@ -795,7 +838,374 @@ def run_nvt(phase, label, path, drive, dt_ps, params=None):
     if res is not None and not res <= RESIDUAL_TOL:
         fail(f"phase {phase}: constraint residual {res:.3e} nm^2 exceeds "
              f"{RESIDUAL_TOL:g}")
-    return check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager
+    return check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager, \
+        final
+
+
+PDB_TOL_NM = 5e-5 + 1e-9   # PDB columns: 1e-3 Angstrom, rounded
+DCD_REL_TOL = 2e-7         # DCD: f32 Angstrom, relative to max |x|
+
+
+def onramp_utilities(path, final, tmp):
+    """Phase 9's utilities on onramp30k's final state: a PDB frame and a
+    10-frame DCD (ten further replayed rebuild chunks) read back to the
+    formats' precision, a checkpoint loaded back bit-equal,
+    ``diagnose_nan`` with no cause, and the O-O radial distribution's
+    first peak; returns that peak (nm)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from chargeflux_tpu_torch.integrate import langevin_trajectory_nb
+    from chargeflux_tpu_torch.utils import (DCDWriter, diagnose_nan,
+                                            load_checkpoint, radial_distribution,
+                                            read_dcd, read_pdb, save_checkpoint,
+                                            write_pdb)
+    from chargeflux_tpu_torch.utils.measure import DT_PS, FRICTION, TEMP
+
+    system, masses, every = path["system"], path["masses"], path["rebuild_every"]
+    e_fn, init_nb = path["e_fns"]
+    x = final.positions
+    pdb = os.path.join(tmp, "final.pdb")
+    write_pdb(pdb, x, box=path["box"], masses=masses)
+    d_pdb = float(np.abs(read_pdb(pdb).positions
+                         - x.double().cpu().numpy()).max())
+    frames, state = [], final
+    dcd = os.path.join(tmp, "run.dcd")
+    with DCDWriter(dcd, system.n_atoms, dt_ps=DT_PS, interval=every) as w:
+        for _ in range(10):
+            state, kes = langevin_trajectory_nb(
+                state, e_fn, init_nb, masses, DT_PS, TEMP, FRICTION,
+                path["generator"], every, every)
+            if not torch.isfinite(kes).all():
+                fail("phase 9: non-finite energies in the DCD frames")
+            w.write(state.positions, box=system.box)
+            frames.append(state.positions.double().cpu().numpy())
+    back, cells = read_dcd(dcd)
+    frames = np.stack(frames)
+    d_dcd = float(np.abs(back - frames).max())
+    tol_dcd = DCD_REL_TOL * float(np.abs(frames).max())
+    ckpt = os.path.join(tmp, "state")
+    save_checkpoint(ckpt, final, step=N_STEPS)
+    loaded, step = load_checkpoint(ckpt, final)
+    same = (step == N_STEPS and all(
+        torch.equal(getattr(loaded, f), getattr(final, f))
+        for f in ("positions", "velocities", "forces", "potential"))
+        and all(torch.equal(getattr(loaded.nb, f), getattr(final.nb, f))
+                for f in ("slots", "inv_slot", "wrap", "x_ref", "overflow")))
+    rep = diagnose_nan(x, system, nb=final.nb, dt=DT_PS)
+    names = read_pdb(path["pdb"]).names
+    oxy = [i for i, nm in enumerate(names) if nm == "O"]
+    with torch.no_grad():
+        r, g = radial_distribution(x, system.box, oxy, oxy, r_max=0.8,
+                                   n_bins=160)
+    peak = float(r[int(torch.argmax(g))])
+    print(f"phase 9 utilities: PDB frame max |diff| {d_pdb:.3e} nm (limit "
+          f"{PDB_TOL_NM:.3e}); 10-frame DCD max |diff| {d_dcd:.3e} nm "
+          f"(limit {tol_dcd:.3e}), {len(cells)} cell records; checkpoint "
+          f"loaded bit-equal: {same}; diagnose_nan: {rep['cause']}; O-O "
+          f"g(r) over {len(oxy)} oxygens: first peak {peak:.4f} nm, "
+          f"g_max {float(g.max()):.3f}", flush=True)
+    if not d_pdb <= PDB_TOL_NM:
+        fail("phase 9: the PDB frame does not read back")
+    if not (d_dcd <= tol_dcd and back.shape == frames.shape):
+        fail("phase 9: the DCD frames do not read back")
+    if not same:
+        fail("phase 9: the checkpoint did not load back bit-equal")
+    if rep["cause"] != "none":
+        fail(f"phase 9: diagnose_nan reports {rep['cause']}")
+    if not 0.25 <= peak <= 0.32:
+        fail(f"phase 9: the O-O first peak {peak:.4f} nm is outside "
+             f"0.25-0.32 nm")
+    return peak
+
+
+def run_onramp(dev):
+    """Phase 9: onramp30k, the PDB on-ramp at the 30k size.  Returns
+    (launches, ms/step, eager ms/step, the line's fields)."""
+    import tempfile
+
+    import numpy as np
+
+    from chargeflux_tpu_torch.utils.measure import (DT_PS, langevin_drive,
+                                                    ns_per_day, onramp_path)
+    from chargeflux_tpu_torch.utils.trajectory import read_pdb
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = onramp_path(dev, directory=tmp)
+        system, bonded = path["system"], path["bonded"]
+        d_read = float(np.abs(read_pdb(path["pdb"]).positions
+                              - path["pdb_positions"]).max())
+        rem = {"flux": dict(system.spec.flux_template.remainder),
+               "exclusions": dict(system.spec.excl_template.remainder),
+               "bonded": dict(bonded.template.remainder)}
+        print(f"phase 9 onramp30k: {system.n_atoms} atoms from the port's "
+              f"PDB ({path['pdb_positions'].shape[0]} written, read back "
+              f"within {d_read:.2e} nm), {path['force'].getNumFluxBonds()} "
+              f"flux bonds, {bonded.torsion_idx.shape[0]} backbone "
+              f"torsions; remainder rows {rem}; cells "
+              f"{system.spec.cell_grid}, PME {system.spec.pme_grid}",
+              flush=True)
+        if system.n_atoms != 31926:
+            fail(f"phase 9: {system.n_atoms} atoms, not 31,926")
+        if not d_read <= PDB_TOL_NM:
+            fail("phase 9: the written PDB does not read back")
+        drive, _, _ = langevin_drive(path)
+        launches, ms, ms_eager, final = run_nvt("9", "onramp30k NVT", path,
+                                                drive, DT_PS)
+        peak = onramp_utilities(path, final, tmp)
+    seconds = time.perf_counter() - t0
+    print(f"phase 9 took {seconds:.1f} s (host clock)", flush=True)
+    return launches, ms, ms_eager, {
+        "ns_per_day": ns_per_day(DT_PS, ms), "rebuild_every":
+        path["rebuild_every"], "oo_peak_nm": peak,
+        "remainder_flux_bonds": rem["flux"].get("bonds", 0),
+        "seconds": seconds}
+
+
+RBE_DRAWS = 64      # phase 9b's estimator draws
+RBE_FREQ_DRAWS = 1 << 20   # k-vectors drawn for the sampler's frequencies
+# p of phase 9b's temperature check: the estimator's force noise heats
+# the box by ~1/p (+57 K at p = 128, 20/ps, 0.5 fs on the 30k box on an
+# NVIDIA H100: PERF.md), so the 10 % check runs at four times the JAX
+# package's p
+RBE_CHECK_SAMPLES = 512
+
+
+def run_rbe(dev, ctx):
+    """Phase 9b: random batch Ewald NVT on phase 5's burned-in 30k state,
+    beside the SPME Langevin step at the same settings.  Returns (launches,
+    the line's fields)."""
+    import numpy as np
+    import torch
+
+    from chargeflux_tpu_torch.charges import effective_charges
+    from chargeflux_tpu_torch.energy import energy_components_fixed_charges
+    from chargeflux_tpu_torch.rbe import (estimator_moments,
+                                          rbe_reciprocal_energy,
+                                          sample_integers)
+    from chargeflux_tpu_torch.units import BOLTZ
+    from chargeflux_tpu_torch.utils.measure import (RBE_FRICTION,
+                                                    RBE_SAMPLES, rbe_drive,
+                                                    spme_langevin_drive)
+
+    t0 = time.perf_counter()
+    system, s1, every, bonded, m = ctx
+    gen = torch.Generator(dev).manual_seed(0)
+    drive, e_fn, _ = rbe_drive(system, s1, every, m, bonded, gen)
+    tables = e_fn.tables
+    print(f"phase 9b rbe30k: p = {RBE_SAMPLES}, friction {RBE_FRICTION}/ps, "
+          f"rebuild_every {every}; tables of {[len(n) for n in tables.nvals]} "
+          f"integers per axis, Z {tables.z_const:.6f}", flush=True)
+    ms_eager, _ = check_chunks("9b", drive, every, gen)
+    rem = N_STEPS % every or max(1, every // 2)
+    launches, ms, final, kes = timed_run(drive)
+    t_mean = float((2.0 * kes / (3 * system.n_atoms * BOLTZ)).mean())
+    g4 = torch.Generator(dev).manual_seed(1)
+    drive4, _, _ = rbe_drive(system, s1, every, m, bonded, g4,
+                             n_samples=RBE_CHECK_SAMPLES)
+    drive4(2 * every + rem)                                  # capture
+    launches4, ms4, _, kes4 = timed_run(drive4)
+    t_mean4 = float((2.0 * kes4 / (3 * system.n_atoms * BOLTZ)).mean())
+    g2 = torch.Generator(dev).manual_seed(0)
+    spme, _, _ = spme_langevin_drive(system, s1, every, m, bonded, g2)
+    spme(2 * every + rem)                                    # capture
+    _, ms_spme, _, _ = timed_run(spme)
+    print(f"phase 9b rbe30k NVT: {N_STEPS} steps as CUDA graph replays, "
+          f"{ms:.3f} ms/step at p = {RBE_SAMPLES} (CUDA events, incl. the "
+          f"eager final evaluation; eager {ms_eager:.3f}), {ms4:.3f} at p = "
+          f"{RBE_CHECK_SAMPLES}; SPME Langevin at the same settings in this "
+          f"call {ms_spme:.3f} ms/step (RBE / SPME {ms / ms_spme:.3f}, "
+          f"{ms4 / ms_spme:.3f}); mean temperature {t_mean:.2f} K at p = "
+          f"{RBE_SAMPLES} (the estimator's noise heats; no check), "
+          f"{t_mean4:.2f} K at p = {RBE_CHECK_SAMPLES}; launches {launches}, "
+          f"{launches4}", flush=True)
+    if not abs(t_mean4 / 300.0 - 1.0) <= T_TOL:
+        fail(f"phase 9b: mean temperature {t_mean4:.2f} K at p = "
+             f"{RBE_CHECK_SAMPLES} is not within {T_TOL:.0%} of 300 K")
+    for counts in (launches, launches4):
+        if not (counts["direct_walk"] > 0 and counts["spread_fwd"] == 0
+                and counts["spread_bwd"] == 0):
+            fail("phase 9b: RBE must run the walk kernel and no spread")
+    x = s1.positions
+    with torch.no_grad():
+        q = effective_charges(x, system)
+        comps = energy_components_fixed_charges(x, q, system)
+        e_spme = float(comps["reciprocal"])
+        scale = sum(abs(float(v)) for v in comps.values())
+        draws = torch.stack([rbe_reciprocal_energy(x, q, tables, RBE_SAMPLES,
+                                                   gen)
+                             for _ in range(RBE_DRAWS)]).double()
+        e_exact, var = estimator_moments(x.double(), q.double(), tables)
+    mean, se_sample = float(draws.mean()), float(draws.std() / RBE_DRAWS ** 0.5)
+    se = (float(var) / (RBE_SAMPLES * RBE_DRAWS)) ** 0.5
+    z = (mean - e_spme) / se
+    d_exact = abs(float(e_exact) - e_spme) / scale
+    print(f"phase 9b estimator at the start state: mean of {RBE_DRAWS} "
+          f"draws {mean:.3f} kJ/mol; its exact expectation (S(k) enumerated "
+          f"over the tables) {float(e_exact):.3f}, SPME reciprocal "
+          f"{e_spme:.3f}, |exact - SPME| / sum|E_c| {d_exact:.3e} (limit "
+          f"1e-4); standard error {se:.3f} from the exact variance "
+          f"(the draws' own {se_sample:.3f}: the terms are heavy-tailed); "
+          f"(mean - SPME) / se = {z:.3f} (limit 5; "
+          f"{(mean - e_spme) / se_sample:.3f} on the draws' own)",
+          flush=True)
+    if not d_exact <= 1e-4:
+        fail("phase 9b: the RBE estimator's expectation is not the SPME "
+             "reciprocal energy")
+    with torch.no_grad():
+        n = sample_integers(tables, RBE_FREQ_DRAWS, gen, dev).cpu().numpy()
+    worst = 0.0
+    for ax in range(3):
+        prob = np.exp(tables.logp[ax] - tables.logp[ax].max())
+        prob /= prob.sum()
+        counts = np.bincount(n[:, ax] - tables.nvals[ax][0],
+                             minlength=len(prob))
+        expect = RBE_FREQ_DRAWS * prob
+        worst = max(worst, float(np.max(np.abs(counts - expect) / (
+            np.sqrt(expect * (1.0 - prob)) + 1.0))))
+    print(f"phase 9b sampler on the card: {RBE_FREQ_DRAWS} k-vectors, "
+          f"largest per-axis bin deviation from the tables' probabilities "
+          f"{worst:.2f} standard deviations (limit 5)", flush=True)
+    if not worst <= 5.0:
+        fail("phase 9b: the card's k-vector draws do not follow the tables")
+    if not abs(z) <= 5.0:
+        fail("phase 9b: the RBE estimator's mean is not within 5 standard "
+             "errors of the SPME reciprocal energy")
+    seconds = time.perf_counter() - t0
+    print(f"phase 9b took {seconds:.1f} s (host clock)", flush=True)
+    return {"direct_walk": launches["direct_walk"]}, {
+        "ms_per_step": ms, "ms_per_step_eager": ms_eager,
+        "ms_per_step_p512": ms4, "t_mean_k": t_mean, "t_mean_k_p512": t_mean4,
+        "ms_per_step_spme_same_call": ms_spme, "estimator_z": z,
+        "estimator_se": se, "estimator_se_of_draws": se_sample,
+        "estimator_exact_vs_spme": d_exact, "sampler_worst_sigma": worst,
+        "seconds": seconds}
+
+
+def run_dense_pme(dev):
+    """Phase 9c: dense216 on the dense-mesh SPME.  Returns the line's
+    fields."""
+    import torch
+
+    from chargeflux_tpu_torch.energy import (energy_and_forces,
+                                             energy_components,
+                                             forces_manual)
+    from chargeflux_tpu_torch.models import water_box
+    from chargeflux_tpu_torch.utils.measure import interleaved_ms
+
+    t0 = time.perf_counter()
+    force, pos, _, box = water_box(n_side=6, cutoff=0.9)
+
+    def build(dtype, recip):
+        return force.create_system(box=box, dtype=dtype,
+                                   direct_method="dense", recip_method=recip,
+                                   device=dev)
+
+    s32, s64, s64e = (build(torch.float32, "pme"), build(torch.float64, "pme"),
+                      build(torch.float64, "xla"))
+    x64 = torch.tensor(pos, dtype=torch.float64, device=dev)
+    x32 = x64.float()
+    e32, f32 = energy_and_forces(x32, s32)
+    e64, f64 = energy_and_forces(x64, s64)
+    e_ew, _ = energy_and_forces(x64, s64e)
+    f_man = forces_manual(x64, s64)
+    rms = float(torch.sqrt(torch.mean((f32.double() - f64) ** 2)
+                           / torch.mean(f64 ** 2)))
+    # the scale of phase 4: the sum of the components' magnitudes (the
+    # total cancels to a few hundred kJ/mol at the lattice start)
+    with torch.no_grad():
+        scale = sum(abs(float(v)) for v in
+                    energy_components(x64, s64e).values())
+    d_ew = abs(float(e64) - float(e_ew)) / scale
+    d_man = float((f_man - f64).abs().max() / f64.abs().max())
+    ms = interleaved_ms([lambda: energy_and_forces(x32, s32)])[0]
+    print(f"phase 9c dense216: {s32.n_atoms} atoms, PME mesh "
+          f"{s32.spec.pme_grid} order {s32.spec.pme_order}, kmax "
+          f"{s32.spec.kmax}; E f32 {float(e32):.6f} f64 {float(e64):.6f} "
+          f"classical Ewald f64 {float(e_ew):.6f} kJ/mol; force RMS rel f32 "
+          f"vs f64 {rms:.3e} (limit 1e-4); |E_pme - E_ewald| "
+          f"/ sum|E_c| {d_ew:.3e} (limit 1e-4; / |E_ewald| "
+          f"{abs(float(e64) - float(e_ew)) / abs(float(e_ew)):.3e}); "
+          f"forces_manual vs autograd f64 max rel "
+          f"{d_man:.3e} (limit 1e-10); f32 energy_and_forces "
+          f"{ms:.4f} ms per call (CUDA graph of 20 calls, median of 7)",
+          flush=True)
+    if not (torch.isfinite(f32).all() and rms <= 1e-4):
+        fail("phase 9c: f32 dense SPME forces disagree with f64")
+    if not d_ew <= 1e-4:
+        fail("phase 9c: dense SPME disagrees with classical Ewald")
+    if not d_man <= 1e-10:
+        fail("phase 9c: forces_manual disagrees with the autograd forces")
+    seconds = time.perf_counter() - t0
+    print(f"phase 9c took {seconds:.1f} s (host clock)", flush=True)
+    return {"force_rms_f32_f64": rms, "rel_e_vs_ewald": d_ew,
+            "forces_manual_rel": d_man, "ms_energy_and_forces": ms,
+            "seconds": seconds}
+
+
+CLUSTER_STEPS, CLUSTER_EVERY = 1600, 4
+
+
+def run_cluster(dev):
+    """Phase 9d: the 125-water cluster, Langevin with the total dipole
+    every 4 steps and its IR line shape.  Returns the line's fields."""
+    import numpy as np
+    import torch
+
+    from chargeflux_tpu_torch.integrate import (init_state,
+                                                langevin_trajectory,
+                                                make_energy_fn,
+                                                maxwell_velocities)
+    from chargeflux_tpu_torch.models import water_bonded_params, water_cluster
+    from chargeflux_tpu_torch.units import BOLTZ
+    from chargeflux_tpu_torch.utils import infrared_spectrum, total_dipole
+    from chargeflux_tpu_torch.utils.measure import DT_PS, TEMP
+
+    t0 = time.perf_counter()
+    force, pos, masses = water_cluster(n_side=5, seed=11)
+    system = force.create_system(dtype=torch.float32, device=dev)
+    bonded = water_bonded_params(len(masses) // 3, device=dev)
+    e_fn = make_energy_fn(system, bonded=bonded)
+    m = torch.tensor(masses, dtype=torch.float32, device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    x = torch.tensor(pos, dtype=torch.float32, device=dev)
+    state = init_state(x, maxwell_velocities(m, TEMP, gen,
+                                             dtype=torch.float32), e_fn)
+    dips, kes = [], []
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(CLUSTER_STEPS // CLUSTER_EVERY):
+        state, ke = langevin_trajectory(state, e_fn, m, DT_PS, TEMP, 2.0, gen,
+                                        CLUSTER_EVERY)
+        with torch.no_grad():
+            dips.append(total_dipole(state.positions, system))
+        kes.append(ke)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / CLUSTER_STEPS
+    kes = torch.cat(kes).double()
+    dips = torch.stack(dips).double().cpu().numpy()
+    freq, inten = infrared_spectrum(dips, CLUSTER_EVERY * DT_PS)
+    band = (freq >= 60.0) & (freq <= 130.0)
+    peak = float(freq[band][np.argmax(inten[band])])
+    t_mean = float((2.0 * kes / (3 * system.n_atoms * BOLTZ)).mean())
+    print(f"phase 9d cluster: {system.n_atoms} atoms, non-periodic, "
+          f"{CLUSTER_STEPS} Langevin steps in calls of {CLUSTER_EVERY} "
+          f"(each a CUDA graph replay, its final energy and the dipole "
+          f"eager), {ms:.3f} ms/step (CUDA events); mean temperature "
+          f"{t_mean:.2f} K; {len(dips)} dipole samples, IR stretch-band "
+          f"peak {peak:.2f} THz (60-130 THz band, resolution "
+          f"{float(freq[1]):.3f} THz)", flush=True)
+    if not (np.isfinite(inten).all() and np.isfinite(dips).all()
+            and torch.isfinite(kes).all()):
+        fail("phase 9d: non-finite dipoles, spectrum or energies")
+    seconds = time.perf_counter() - t0
+    print(f"phase 9d took {seconds:.1f} s (host clock)", flush=True)
+    return {"ms_per_step": ms, "ir_peak_thz": peak, "t_mean_k": t_mean,
+            "seconds": seconds}
 
 
 def run_rigid(dev):
@@ -805,7 +1215,8 @@ def run_rigid(dev):
 
     path = rigid_path(dev)
     drive, _, _ = rigid_drive(path)
-    return run_nvt("5c", "rigid NVT", path, drive, DT_RIGID, path["params"])
+    return run_nvt("5c", "rigid NVT", path, drive, DT_RIGID,
+                   path["params"])[:3]
 
 
 def run_respa(dev):
@@ -815,7 +1226,7 @@ def run_respa(dev):
 
     path = respa_path(dev)
     drive, _, _ = respa_drive(path)
-    return run_nvt("5d", "RESPA NVT", path, drive, DT_PS * N_INNER)
+    return run_nvt("5d", "RESPA NVT", path, drive, DT_PS * N_INNER)[:3]
 
 
 def check_launches(launches, path, ok):
@@ -983,11 +1394,17 @@ def main():
     ms_h, ms_eager_h = run_hetero(dev)
     launches_n, ms_n, ms_eager_n, npt_fields = run_npt(dev)
     thermo, nhc_drift = run_thermostats(dev, ctx30k)
+    launches_o, ms_o, ms_eager_o, onramp_fields = run_onramp(dev)
+    launches_b, rbe_fields = run_rbe(dev, ctx30k)
+    dense_fields = run_dense_pme(dev)
+    cluster_fields = run_cluster(dev)
     for name, count in {**launches, **launches_d, **launches_t}.items():
         results[name]["launches"] = count
     for key, counts in (("launches_rigid", launches_r),
                         ("launches_respa", launches_m),
-                        ("launches_npt", launches_n)):
+                        ("launches_npt", launches_n),
+                        ("launches_onramp30k", launches_o),
+                        ("launches_rbe30k", launches_b)):
         for name, count in counts.items():
             results[name][key] = count
     from chargeflux_tpu_torch.utils.measure import ns_per_day
@@ -1014,6 +1431,10 @@ def main():
                       "ms_per_step_nhc": thermo["nhc"][0],
                       "ms_per_step_nhc_eager": thermo["nhc"][1],
                       "nhc_conserved_drift": nhc_drift,
+                      "ms_per_step_onramp30k": ms_o,
+                      "ms_per_step_onramp30k_eager": ms_eager_o,
+                      "onramp30k": onramp_fields, "rbe30k": rbe_fields,
+                      "dense216": dense_fields, "cluster": cluster_fields,
                       "chunk_capture_30k": capture}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1450,3 +1450,70 @@ def test_kernels_agree_with_plain_after_replayed_volume_moves(
     e_p, f_p = energy_and_forces(x, moved, plain=True)
     assert abs(float(e_k - e_p)) <= 1e-5 * abs(float(e_p))
     assert _max_rel(f_k, f_p) <= 1e-3
+
+
+def _kernel_vs_plain(energy_fn, x):
+    """(kernel, plain) energy and forces of ``energy_fn(x, plain)`` checked
+    within phase 4's limits: |dE| <= 1e-5 sum |E_c|-scale, force RMS rel
+    <= 1e-4."""
+    (e_k, f_k), (e_p, f_p) = energy_fn(x, False), energy_fn(x, True)
+    assert torch.isfinite(f_k).all() and bool(torch.isfinite(e_k))
+    rms = torch.sqrt(torch.mean((f_k - f_p) ** 2) / torch.mean(f_p ** 2))
+    assert float(rms) <= 1e-4
+    return e_k, e_p
+
+
+def test_onramp_first_evaluation_kernel_route_matches_plain(tmp_path):
+    """onramp30k's system (the peptide-in-water PDB written and read back
+    at 31,926 atoms, backbone torsions) at its first evaluation: the
+    kernel route against the plain route in f32, within phase 4's limits;
+    the walk and both spread kernels launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from chargeflux_tpu_torch.bonded import bonded_energy
+    from chargeflux_tpu_torch.utils.measure import (onramp_system,
+                                                    write_peptide_pdb)
+
+    dev = torch.device("cuda", 0)
+    path = str(tmp_path / "pep.pdb")
+    write_peptide_pdb(path)
+    _, x, _, _, bonded, system = onramp_system(path, dev)
+    assert system.n_atoms == 31926 and system.kernel_route == "cuda"
+    assert bonded.torsion_idx.shape == (45, 4)
+    ops.reset_launch_counts()
+    e_k, e_p = _kernel_vs_plain(
+        lambda xx, plain: energy_and_forces(xx, system, plain=plain), x)
+    counts = ops.launch_counts()
+    assert all(counts[k] >= 1 for k in ("direct_walk", "spread_fwd",
+                                        "spread_bwd"))
+    with torch.no_grad():
+        scale = sum(abs(float(v)) for v in energy_components(
+            x, system, plain=True).values())
+    assert abs(float(e_k - e_p)) <= 1e-5 * scale
+    assert bool(torch.isfinite(bonded_energy(x, bonded)))
+
+
+def test_rbe_energy_function_kernel_route_matches_plain(setup):
+    """The RBE energy function on the walk kernel against its plain route
+    on the same k-vector draw (one generator state), f32; no spread
+    kernel runs (the estimator replaces the mesh)."""
+    from chargeflux_tpu_torch.neighbors import build_neighbor_state
+    from chargeflux_tpu_torch.rbe import make_rbe_nb_energy_fn
+
+    s = setup
+    dev = s["x"].device
+    fns = {p: make_rbe_nb_energy_fn(s["system"], 64, plain=p)[0]
+           for p in (False, True)}
+    nb = build_neighbor_state(s["x"], s["system"])
+    gen = torch.Generator(dev)
+
+    def run(xx, plain):
+        gen.manual_seed(5)
+        e, f, _ = fns[plain](xx, nb, gen)
+        return e, f
+
+    ops.reset_launch_counts()
+    e_k, e_p = _kernel_vs_plain(run, s["x"])
+    counts = ops.launch_counts()
+    assert counts["direct_walk"] >= 1 and counts["spread_fwd"] == 0
+    assert abs(float(e_k - e_p)) <= 1e-5 * abs(float(e_p))

@@ -6,6 +6,7 @@ forces in f64 on the cell and dense routes, neutrality, the NumPy oracle,
 and a short NVE run through the heterogeneous bonded terms."""
 
 import dataclasses
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,11 +18,14 @@ import oracle
 from chargeflux_tpu import energy_and_forces as jax_energy_and_forces
 from chargeflux_tpu.models import salt_water_box as jax_salt
 from chargeflux_tpu.models import solvated_chain_box as jax_chain
-from chargeflux_tpu_torch import energy, integrate
+from chargeflux_tpu_torch import integrate
 from chargeflux_tpu_torch.bonded import BondedParams
 from chargeflux_tpu_torch.models import salt_water_box, solvated_chain_box
 
 from torch_helpers import port_system, rel_err
+
+# the module: the package attribute "energy" is the function, as in JAX
+energy = importlib.import_module("chargeflux_tpu_torch.energy")
 
 torch.set_num_threads(2)
 

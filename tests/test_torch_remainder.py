@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from chargeflux_tpu.models import water_bonded_params as jax_bonded_params
-from chargeflux_tpu_torch import energy, rows
+from chargeflux_tpu_torch import rows
 from chargeflux_tpu_torch.bonded import bonded_energy
 from chargeflux_tpu_torch.charges import effective_charges
 from chargeflux_tpu_torch.models import water_bonded_params
@@ -25,6 +25,8 @@ from torch_helpers import untemplated, water_systems
 jenergy = importlib.import_module("chargeflux_tpu.energy")
 jbonded = importlib.import_module("chargeflux_tpu.bonded")
 jcharges = importlib.import_module("chargeflux_tpu.charges")
+# the module: the package attribute "energy" is the function, as in JAX
+energy = importlib.import_module("chargeflux_tpu_torch.energy")
 
 torch.set_num_threads(2)
 

@@ -17,7 +17,7 @@ import torch
 from chargeflux_tpu import cells as jcells
 from chargeflux_tpu.charges import effective_charges as jax_charges
 from chargeflux_tpu.models import water_box as jax_water_box
-from chargeflux_tpu_torch import cells, energy, ewald, pairs, pme
+from chargeflux_tpu_torch import cells, ewald, pairs, pme
 from chargeflux_tpu_torch.charges import effective_charges
 from chargeflux_tpu_torch.models import water_box
 from chargeflux_tpu_torch.neighbors import build_neighbor_state
@@ -27,6 +27,9 @@ from chargeflux_tpu_torch.utils.measure import shear_box
 from test_torch_direct_walk import _kernel_traversal
 from test_triclinic import _oracle_triclinic, _shear
 from torch_helpers import port_blocks, port_system, rel_err
+
+# the module: the package attribute "energy" is the function, as in JAX
+energy = importlib.import_module("chargeflux_tpu_torch.energy")
 
 jenergy = importlib.import_module("chargeflux_tpu.energy")
 jpairs = importlib.import_module("chargeflux_tpu.pairs")
