@@ -29,8 +29,15 @@ carries ``device``: the card's name and power limit from ``nvidia-smi``.
 
 Not ported: ``vs_baseline`` and ``last_measured_tpu_ms`` (TPU targets and
 TPU times), and the CPU fallback: without CUDA this raises unless
-``--device cpu`` is given (the tests' small runs).  ``replicas`` exits
-non-zero naming the ROADMAP item that ports it.
+``--device cpu`` is given (the tests' small runs).
+
+The replicas line (``ms_per_step_64x216_replica_ensemble``: ms per step
+of x <- x - 1e-9 grad E for each of 64 replicas of the 216-water box,
+``utils.measure.replicas_path`` / ``replica_drive``) times bench.py's
+k1 = 3 and k2 = 13 steps, 5 repetitions, on the route
+``recip_method="auto"`` takes for a batch (``route``), and in the same
+call the other reciprocal route: ``route_ms`` holds both, "xla" the plain
+batched product and "pallas" the batched structure-factor kernels.
 
 The npt line (``ms_per_npt_md_step_30k_ewald_f32``: ms per NPT step, the
 attempt and its re-binning amortised over the barostat interval) adds
@@ -60,10 +67,12 @@ from .pme import pme_cell_column_reciprocal_energy
 from .utils import measure
 
 CONFIGS = ("216", "4k", "30k", "100k", "tri30k", "hetero30k", "rigid",
-           "respa", "npt")
+           "respa", "npt", "replicas")
 #: Configurations of the JAX package's bench.py the port does not run yet,
-#: and the ROADMAP item that ports each.
-NOT_PORTED = {"replicas": "ROADMAP A.9 (parallel/replicas.py)"}
+#: and the ROADMAP item that ports each (none left).
+NOT_PORTED = {}
+REPLICA_STEPS = (3, 13)    # bench.py replicas' k1, k2
+REPLICA_REPS = 5           # and its repetitions
 NPT_ATTEMPTS = 100         # attempts of the npt line's acceptance call
 REPS = 7                   # bench.py's repetitions of the paired timing
 WARM_S = 10.0              # bench.py's warm-up under sustained load (card)
@@ -335,6 +344,29 @@ def bench_npt(dev, steps=None, path=None) -> dict:
             "energies_finite": bool(torch.isfinite(es).all())}
 
 
+def bench_replicas(dev, steps=None, n_replicas=None) -> dict:
+    """bench.py's replicas config: ms per step of the 64 x 216 ensemble
+    on both reciprocal routes in one call (the headline on the route
+    "auto" takes for a batch, ``parallel.replicas.vmap_friendly_system``)."""
+    n_replicas = n_replicas or measure.REPLICAS
+    k1, k2 = (steps, 13 * steps // 3) if steps else REPLICA_STEPS
+    auto = measure.replicas_path(dev, n_replicas).get("system")
+    route = auto.spec.recip_method
+    route_ms, e_last = {}, {}
+    for recip in ("xla", "pallas"):
+        path = measure.replicas_path(dev, n_replicas, recip=recip)
+        drive, _owner = measure.replica_drive(path)
+        route_ms[recip], e_last[recip] = paired_ms(drive, k1, k2, dev,
+                                                   REPLICA_REPS)
+    ms = route_ms[route]
+    return {"metric": f"ms_per_step_{n_replicas}x216_replica_ensemble",
+            "value": ms, "unit": "ms", "route": route, "route_ms": route_ms,
+            "replicas": n_replicas, "atoms": auto.n_atoms,
+            "steps": [k1, k2], "card": card_state(dev),
+            "energy": e_last[route], "energy_other_route": e_last[
+                "pallas" if route == "xla" else "xla"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config", nargs="?", default="30k",
@@ -349,7 +381,10 @@ def main(argv=None):
         raise SystemExit(f"bench {args.config}: not ported yet, "
                          f"{NOT_PORTED[args.config]}")
     dev = resolve_device(args.device)
-    if args.config == "npt":
+    if args.config == "replicas":
+        line = bench_replicas(dev, args.steps)
+        finite = math.isfinite(line["energy"])
+    elif args.config == "npt":
         line = bench_npt(dev, args.steps)
         finite = math.isfinite(line["energy"]) and line["energies_finite"]
     elif args.config in ("rigid", "respa"):

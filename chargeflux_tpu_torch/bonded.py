@@ -26,7 +26,7 @@ from .topology import TemplateSet, detect_templates
 def _bond_e(p1, p2, k, r0, box, pbc):
     d = displacement(p1, p2, box, pbc)
     r = torch.sqrt(torch.sum(d * d, dim=-1))
-    return 0.5 * torch.sum(k * (r - r0) ** 2)
+    return 0.5 * torch.sum(k * (r - r0) ** 2, dim=-1)
 
 
 def _angle_e(p1, p2, p3, k, theta0, box, pbc):
@@ -36,7 +36,7 @@ def _angle_e(p1, p2, p3, k, theta0, box, pbc):
     r23 = torch.sqrt(torch.sum(d23 * d23, dim=-1))
     cost = torch.sum(d21 * d23, dim=-1) / (r21 * r23)
     theta = torch.arccos(torch.clamp(cost, -1.0, 1.0))
-    return 0.5 * torch.sum(k * (theta - theta0) ** 2)
+    return 0.5 * torch.sum(k * (theta - theta0) ** 2, dim=-1)
 
 
 def _torsion_e(p0, p1, p2, p3, k, n, phi0, box, pbc):
@@ -167,15 +167,19 @@ class BondedParams:
 
 def bonded_energy(positions: torch.Tensor,
                   bonded: BondedParams) -> torch.Tensor:
-    """Total bond + angle + torsion energy (kJ/mol)."""
+    """Total bond + angle + torsion energy (kJ/mol).  The templated rows
+    take positions with leading replica axes ([..., N, 3] -> [...]); the
+    gathered rows take one system."""
     box, pbc = bonded.box, bonded.pbc
     e = torch.zeros((), dtype=positions.dtype, device=positions.device)
+    lead = positions.shape[:-2]
     b0 = a0 = 0
     if bonded.template is not None:
         for tpl in bonded.template.templates:
             off, s, c = tpl.offset, tpl.stride, tpl.count
-            pos_m = positions[off:off + c * s].reshape(c, s, 3)
-            p = [pos_m[:, l] for l in range(s)]
+            pos_m = positions[..., off:off + c * s, :].reshape(
+                lead + (c, s, 3))
+            p = [pos_m[..., l, :] for l in range(s)]
             rows = tpl.local_rows("bonds")
             if rows:
                 m = len(rows)

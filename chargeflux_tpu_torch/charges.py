@@ -57,8 +57,9 @@ def _template_dq_flat(positions, system: ChargeFluxSystem, tpl, starts):
     dtype = positions.dtype
     box, pbc = system.box, system.spec.pbc
     off, s, c = tpl.offset, tpl.stride, tpl.count
-    pos_m = positions[off:off + c * s].reshape(c, s, 3)
-    p = [pos_m[:, l] for l in range(s)]
+    lead = positions.shape[:-2]
+    pos_m = positions[..., off:off + c * s, :].reshape(lead + (c, s, 3))
+    p = [pos_m[..., l, :] for l in range(s)]
     slot_dq = [[] for _ in range(s)]
 
     bond_rows = tpl.local_rows("bonds")
@@ -103,10 +104,10 @@ def _template_dq_flat(positions, system: ChargeFluxSystem, tpl, starts):
             slot_dq[lh1].append(dq2)
             slot_dq[lh2].append(dq3)
 
-    zero = torch.zeros((c,), dtype=dtype, device=positions.device)
+    zero = torch.zeros(lead + (c,), dtype=dtype, device=positions.device)
     dq_slots = torch.stack(
-        [sum(sl[1:], sl[0]) if sl else zero for sl in slot_dq], dim=1)
-    return dq_slots.reshape(-1)
+        [sum(sl[1:], sl[0]) if sl else zero for sl in slot_dq], dim=-1)
+    return dq_slots.reshape(lead + (-1,))
 
 
 def _scatter_flux(q, positions, system: ChargeFluxSystem,
@@ -146,23 +147,26 @@ def _scatter_flux(q, positions, system: ChargeFluxSystem,
 def effective_charges(positions: torch.Tensor,
                       system: ChargeFluxSystem) -> torch.Tensor:
     """q_i = q0_i + the flux-bond/angle/water contributions [N]; every
-    term conserves the total charge."""
+    term conserves the total charge.  Positions with leading replica axes
+    ([..., N, 3] -> [..., N]) take the templated blocks; the remainder
+    rows take one system."""
     dtype = positions.dtype
     q = system.q0.to(dtype)
     ts = system.spec.flux_template
     if ts is None:
         return _scatter_flux(q, positions, system)
+    q = q.expand(positions.shape[:-1])
     starts = {"bonds": 0, "angles": 0, "waters": 0}
     pieces = []
     cursor = 0
     for tpl in ts.templates:
         off, end = tpl.offset, tpl.offset + tpl.count * tpl.stride
         dq = _template_dq_flat(positions, system, tpl, starts)
-        pieces.append(q[cursor:off])
-        pieces.append(q[off:end] + dq)
+        pieces.append(q[..., cursor:off])
+        pieces.append(q[..., off:end] + dq)
         cursor = end
-    pieces.append(q[cursor:])
-    q = torch.cat(pieces)
+    pieces.append(q[..., cursor:])
+    q = torch.cat(pieces, dim=-1)
     return _scatter_flux(q, positions, system, b0=starts["bonds"],
                          a0=starts["angles"], w0=starts["waters"])
 

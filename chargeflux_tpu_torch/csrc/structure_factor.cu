@@ -352,8 +352,12 @@ __device__ __forceinline__ void fwd_fma(const float (&cs)[kFwdRows / 2][4],
     }
 }
 
-// Grid (kx, ky groups of y_rows rows, n_splits atom ranges of split_len),
-// launched as clusters of the n_splits blocks of one tile.  A block's
+// Grid (R x kx, ky groups of y_rows rows, n_splits atom ranges of
+// split_len), launched as clusters of the n_splits blocks of one tile.  The
+// replica index r = blockIdx.x / kx only moves the pointers, by the
+// replica strides (in floats) of the x tables, the y tables, zq and A/B, so
+// each replica's slice of a batched launch is the single-system launch on
+// that replica, bit for bit.  A block's
 // owners() micro-tiles are each held by j_split threads, thread js of them
 // summing the atoms js, js + j_split, ... of every chunk.
 __global__ void __launch_bounds__(kFwdThreads)
@@ -361,15 +365,26 @@ sf_fwd_kernel(const float* __restrict__ cxT, const float* __restrict__ sxT,
               const float* __restrict__ cyT, const float* __restrict__ syT,
               const float* __restrict__ zq, float* __restrict__ a_out,
               float* __restrict__ b_out, int kx, int ky, int kz2, int n,
-              int y_rows, int j_split, int split_len, int wt, int wz) {
+              int y_rows, int j_split, int split_len, int wt, int wz,
+              long long s_x, long long s_y, long long s_z, long long s_ab) {
   extern __shared__ __align__(16) float fwd_smem[];
   coop::cluster_group cluster = coop::this_cluster();
+  {
+    const long long r = blockIdx.x / kx;
+    cxT += r * s_x;
+    sxT += r * s_x;
+    cyT += r * s_y;
+    syT += r * s_y;
+    zq += r * s_z;
+    a_out += r * s_ab;
+    b_out += r * s_ab;
+  }
   const int kzp = ceil4(kz2);
   const FwdSmem sm{y_rows, kzp, j_split};
   const int pair_w = sm.pair_w();
   float* pairs = fwd_smem + 2 * sm.stage();  // [kFwdChunk][pair_w]
   const int t = threadIdx.x;
-  const int x = blockIdx.x;
+  const int x = blockIdx.x % kx;
   const int y0 = blockIdx.y * y_rows;
   const int rows = min(y_rows, ky - y0);     // the tile's real rows
   const int col_groups = kzp / kFwdCols;
@@ -580,8 +595,23 @@ __global__ void sf_bwd_tables_kernel(
     const float* __restrict__ zq, const float* __restrict__ abar,
     const float* __restrict__ bbar, float* __restrict__ dcx,
     float* __restrict__ dsx, float* __restrict__ dcy,
-    float* __restrict__ dsy, int kx, int ky, int kz2, int n, bool pairs) {
+    float* __restrict__ dsy, int kx, int ky, int kz2, int n, bool pairs,
+    long long s_x, long long s_y, long long s_z, long long s_ab) {
   extern __shared__ __align__(16) float bwd_smem[];
+  {  // the replica (blockIdx.y) picks the data only
+    const long long r = blockIdx.y;
+    cxT += r * s_x;
+    sxT += r * s_x;
+    dcx += r * s_x;
+    dsx += r * s_x;
+    cyT += r * s_y;
+    syT += r * s_y;
+    dcy += r * s_y;
+    dsy += r * s_y;
+    zq += r * s_z;
+    abar += r * s_ab;
+    bbar += r * s_ab;
+  }
   const int kzp = ceil4(kz2);
   const int kyp = (ky + kRows - 1) / kRows * kRows;
   const int groups = kyp / kRows;     // row groups
@@ -680,8 +710,19 @@ __global__ void sf_bwd_zq_kernel(
     const float* __restrict__ cxT, const float* __restrict__ sxT,
     const float* __restrict__ cyT, const float* __restrict__ syT,
     const float* __restrict__ abar, const float* __restrict__ bbar,
-    float* __restrict__ dzq, int kx, int ky, int kz2, int n, bool pairs) {
+    float* __restrict__ dzq, int kx, int ky, int kz2, int n, bool pairs,
+    long long s_x, long long s_y, long long s_z, long long s_ab) {
   extern __shared__ __align__(16) float bwd_smem[];
+  {  // the replica (blockIdx.y) picks the data only
+    const long long r = blockIdx.y;
+    cxT += r * s_x;
+    sxT += r * s_x;
+    cyT += r * s_y;
+    syT += r * s_y;
+    abar += r * s_ab;
+    bbar += r * s_ab;
+    dzq += r * s_z;
+  }
   constexpr int kGroups = kTile / kZqPer;  // atom groups
   const int kzp = ceil4(kz2);
   const Slab sl{ky, kzp};
@@ -759,9 +800,10 @@ __global__ void sf_bwd_zq_kernel(
   }
 }
 
-bool bad_shape(int kx, int ky, int kz2, int n) {
+bool bad_shape(int kx, int ky, int kz2, int n, int reps) {
   return kx < 1 || ky < 1 || kz2 < 1 || n < 1 || ky > kMaxKy ||
-         kz2 > kMaxKz2;
+         kz2 > kMaxKz2 || reps < 1 || reps > 65535 ||
+         (long long)kx * reps > 0x7fffffffLL;
 }
 
 template <typename K>
@@ -783,9 +825,16 @@ int copy_width(uintptr_t ptr_bits, int len, int widest) {
 
 uintptr_t bits(const float* p) { return reinterpret_cast<uintptr_t>(p); }
 
+// The bits of a replica stride of ``s`` floats, or-ed into a pointer's
+// bits: every replica's pointer then meets the alignment the copy width
+// asks of the first.
+uintptr_t bits(long long s) {
+  return static_cast<uintptr_t>(s) * sizeof(float);
+}
+
 // abar/bbar rows copy as 8-byte pairs (see load_slab)
-bool pairs_ok(const float* abar, const float* bbar, int kz2) {
-  return copy_width(bits(abar) | bits(bbar), kz2, 2) == 2;
+bool pairs_ok(const float* abar, const float* bbar, int kz2, long long s_ab) {
+  return copy_width(bits(abar) | bits(bbar) | bits(s_ab), kz2, 2) == 2;
 }
 
 }  // namespace
@@ -818,11 +867,15 @@ int cf_sf_limits(int* max_ky, int* max_kz2, int* fwd_chunk, int* fwd_threads,
 // under the card's 227 KB), and
 // one of n_splits atom ranges of split_len atoms (a multiple of 4; the last
 // range may be short, none is empty; 1, 2, 4 or 8 of them, one cluster).
+// ``reps`` replicas R, each at the replica strides (floats) s_x of
+// cxT/sxT, s_y of cyT/syT, s_z of zq and s_ab of a/b, run in the same
+// launch (R = 1: the single-system launch; its strides are unused).
 int cf_sf_fwd(const float* cxT, const float* sxT, const float* cyT,
               const float* syT, const float* zq, float* a, float* b, int kx,
               int ky, int kz2, int n, int y_rows, int j_split, int n_splits,
-              int split_len, void* stream) {
-  if (bad_shape(kx, ky, kz2, n)) return (int)cudaErrorInvalidValue;
+              int split_len, int reps, long long s_x, long long s_y,
+              long long s_z, long long s_ab, void* stream) {
+  if (bad_shape(kx, ky, kz2, n, reps)) return (int)cudaErrorInvalidValue;
   if (y_rows < kFwdRows || y_rows % kFwdRows != 0 || y_rows > kFwdMaxRows ||
       j_split < 1 || j_split > kFwdMaxJSplit)
     return (int)cudaErrorInvalidValue;
@@ -838,16 +891,17 @@ int cf_sf_fwd(const float* cxT, const float* sxT, const float* cyT,
   const size_t smem = sizeof(float) * sm.floats();
   cudaError_t e = allow_smem(sf_fwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const int wt =
-      copy_width(bits(cxT) | bits(sxT) | bits(cyT) | bits(syT), n, 4);
-  const int wz = copy_width(bits(zq), kz2, 2);
+  const int wt = copy_width(bits(cxT) | bits(sxT) | bits(cyT) | bits(syT) |
+                                bits(s_x) | bits(s_y),
+                            n, 4);
+  const int wz = copy_width(bits(zq) | bits(s_z), kz2, 2);
   cudaLaunchAttribute cluster = {};
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = 1;
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = n_splits;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kx, y_groups, n_splits);
+  cfg.gridDim = dim3(kx * reps, y_groups, n_splits);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -855,16 +909,19 @@ int cf_sf_fwd(const float* cxT, const float* sxT, const float* cyT,
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, sf_fwd_kernel, cxT, sxT, cyT, syT, zq,
                                  a, b, kx, ky, kz2, n, y_rows, j_split,
-                                 split_len, wt, wz);
+                                 split_len, wt, wz, s_x, s_y, s_z, s_ab);
 }
 
-// Backward, phase tables: dcx/dsx [kx, n] and dcy/dsy [ky, n] are outputs.
+// Backward, phase tables: dcx/dsx [kx, n] and dcy/dsy [ky, n] are outputs
+// (replicas and strides as in cf_sf_fwd; the outputs share the strides of
+// the tables they are the cotangents of).
 int cf_sf_bwd_tables(const float* cxT, const float* sxT, const float* cyT,
                      const float* syT, const float* zq, const float* abar,
                      const float* bbar, float* dcx, float* dsx, float* dcy,
-                     float* dsy, int kx, int ky, int kz2, int n,
-                     void* stream) {
-  if (bad_shape(kx, ky, kz2, n)) return (int)cudaErrorInvalidValue;
+                     float* dsy, int kx, int ky, int kz2, int n, int reps,
+                     long long s_x, long long s_y, long long s_z,
+                     long long s_ab, void* stream) {
+  if (bad_shape(kx, ky, kz2, n, reps)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int kzp = ceil4(kz2), kyp = (ky + kRows - 1) / kRows * kRows;
   const size_t smem = sizeof(float) * ((size_t)2 * Slab{kyp, kzp}.floats() +
@@ -872,28 +929,31 @@ int cf_sf_bwd_tables(const float* cxT, const float* sxT, const float* cyT,
                                        (size_t)2 * (kyp / kRows) * kTile);
   cudaError_t e = allow_smem(sf_bwd_tables_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  sf_bwd_tables_kernel<<<(n + kTile - 1) / kTile, kTile * (kyp / kRows),
-                         smem, s>>>(cxT, sxT, cyT, syT, zq, abar, bbar, dcx,
-                                    dsx, dcy, dsy, kx, ky, kz2, n,
-                                    pairs_ok(abar, bbar, kz2));
+  sf_bwd_tables_kernel<<<dim3((n + kTile - 1) / kTile, reps),
+                         kTile * (kyp / kRows), smem, s>>>(
+      cxT, sxT, cyT, syT, zq, abar, bbar, dcx, dsx, dcy, dsy, kx, ky, kz2, n,
+      pairs_ok(abar, bbar, kz2, s_ab), s_x, s_y, s_z, s_ab);
   return (int)cudaGetLastError();
 }
 
-// Backward, zq: dzq [n, kz2] is the output.
+// Backward, zq: dzq [n, kz2] is the output (replicas and strides as in
+// cf_sf_fwd; dzq at the stride s_z of zq).
 int cf_sf_bwd_zq(const float* cxT, const float* sxT, const float* cyT,
                  const float* syT, const float* abar, const float* bbar,
-                 float* dzq, int kx, int ky, int kz2, int n, void* stream) {
-  if (bad_shape(kx, ky, kz2, n)) return (int)cudaErrorInvalidValue;
+                 float* dzq, int kx, int ky, int kz2, int n, int reps,
+                 long long s_x, long long s_y, long long s_z, long long s_ab,
+                 void* stream) {
+  if (bad_shape(kx, ky, kz2, n, reps)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int kzp = ceil4(kz2);
   const size_t smem = sizeof(float) * ((size_t)2 * Slab{ky, kzp}.floats() +
                                        (size_t)4 * ky * kTile);
   cudaError_t e = allow_smem(sf_bwd_zq_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  sf_bwd_zq_kernel<<<(n + kTile - 1) / kTile,
+  sf_bwd_zq_kernel<<<dim3((n + kTile - 1) / kTile, reps),
                      kTile / kZqPer * (kzp / kZqCols), smem, s>>>(
       cxT, sxT, cyT, syT, abar, bbar, dzq, kx, ky, kz2, n,
-      pairs_ok(abar, bbar, kz2));
+      pairs_ok(abar, bbar, kz2, s_ab), s_x, s_y, s_z, s_ab);
   return (int)cudaGetLastError();
 }
 

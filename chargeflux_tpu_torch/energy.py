@@ -93,7 +93,7 @@ def _excl_pair_energy(r, inv_r, qq, half_sig, eps, spec, subtract_direct):
         direct = (ONE_4PI_EPS0 * qq * inv_r * erfc_ar
                   + _lj_pair_terms(half_sig, eps, inv_r))
         e = e - torch.where(in_cut, direct, 0.0)
-    return torch.sum(e)
+    return torch.sum(e, dim=-1)
 
 
 def _pair_terms(p1, p2, q1, q2, s1, s2, e1, e2, system, subtract_direct,
@@ -124,17 +124,19 @@ def _exclusion_correction(positions, q, system: ChargeFluxSystem,
     sig = system.sigma.to(dtype)
     eps = system.epsilon.to(dtype)
     e0 = 0
+    lead = positions.shape[:-2]        # replica axes (templated rows only)
     if spec.excl_template is not None:
         for tpl in spec.excl_template.templates:
             off, s, c = tpl.offset, tpl.stride, tpl.count
             sl = slice(off, off + c * s)
-            pos_m = positions[sl].reshape(c, s, 3)
-            q_m = q[sl].reshape(c, s)
+            pos_m = positions[..., sl, :].reshape(lead + (c, s, 3))
+            q_m = q[..., sl].reshape(lead + (c, s))
             sig_m = sig[sl].reshape(c, s)
             eps_m = eps[sl].reshape(c, s)
             for (l1, l2) in tpl.local_rows("exclusions"):
                 total = total + _pair_terms(
-                    pos_m[:, l1], pos_m[:, l2], q_m[:, l1], q_m[:, l2],
+                    pos_m[..., l1, :], pos_m[..., l2, :], q_m[..., l1],
+                    q_m[..., l2],
                     sig_m[:, l1], sig_m[:, l2], eps_m[:, l1], eps_m[:, l2],
                     system, subtract_direct, template=True)
         e0 = spec.excl_template.covered("exclusions",
@@ -154,17 +156,19 @@ def _dense_pair_energy(positions, q, system: ChargeFluxSystem):
     """Masked all-pairs short-range energy.  Non-periodic: full 1/r Coulomb
     + LJ over every non-excluded pair.  Periodic: erfc(alpha r)/r Coulomb
     (f32 as 1/r - P(r^2), f64 through the exact erfc) + LJ over the
-    non-excluded minimum-image pairs within the cutoff."""
+    non-excluded minimum-image pairs within the cutoff.  Positions
+    [..., N, 3] give [...] energies: a leading replica axis makes
+    [R, N, N] pair tables."""
     spec = system.spec
-    d = displacement(positions[:, None, :], positions[None, :, :],
+    d = displacement(positions[..., :, None, :], positions[..., None, :, :],
                      system.box, spec.pbc)
     r2 = torch.sum(d * d, dim=-1)
-    mask = pair_matrix_mask(positions.shape[0], system.exclusions)
+    mask = pair_matrix_mask(positions.shape[-2], system.exclusions)
     if spec.pbc:
         mask = mask & (r2 < spec.cutoff * spec.cutoff)
     r2_safe = torch.where(mask, r2, 1.0)
     inv_r = torch.rsqrt(r2_safe)
-    qq = q[:, None] * q[None, :]
+    qq = q[..., :, None] * q[..., None, :]
     if not spec.pbc:
         coul = ONE_4PI_EPS0 * qq * inv_r
     elif positions.dtype == torch.float64:
@@ -176,7 +180,7 @@ def _dense_pair_energy(positions, q, system: ChargeFluxSystem):
     half_sig = 0.5 * (system.sigma[:, None] + system.sigma[None, :])
     eps = 4.0 * torch.sqrt(system.epsilon[:, None] * system.epsilon[None, :])
     lj = _lj_pair_terms(half_sig, eps, inv_r)
-    return torch.sum(torch.where(mask, coul + lj, 0.0))
+    return torch.sum(torch.where(mask, coul + lj, 0.0), dim=(-2, -1))
 
 
 def resolve_recip_method(spec, dtype, device) -> str:

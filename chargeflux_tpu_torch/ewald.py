@@ -86,8 +86,9 @@ def kgrid_tensors(kmax, dtype, device) -> KGridTensors:
 
 
 def phase_tables(positions, box, kmax):
-    """(cx, sx, cy, sy, cz, sz), each [N, K_axis]: cos and sin of
-    2 pi f n per axis.  The fractional coordinates are wrapped into [0, 1)
+    """(cx, sx, cy, sy, cz, sz), each [..., N, K_axis]: cos and sin of
+    2 pi f n per axis (positions [..., N, 3]: any leading replica axes
+    carry through).  The fractional coordinates are wrapped into [0, 1)
     with a detached floor (f32 phase accuracy; the periodic energy and its
     gradient are unchanged)."""
     dtype, dev = positions.dtype, positions.device
@@ -95,7 +96,7 @@ def phase_tables(positions, box, kmax):
     frac = frac - torch.floor(frac).detach()
     out = []
     for axis, nk in enumerate(kgrid_tensors(kmax, dtype, dev).n):
-        ph = 2.0 * math.pi * frac[:, axis:axis + 1] * nk[None, :]
+        ph = 2.0 * math.pi * frac[..., axis:axis + 1] * nk
         out += [torch.cos(ph), torch.sin(ph)]
     return tuple(out)
 
@@ -104,22 +105,24 @@ def kernel_inputs(positions, q, box, kmax):
     """(cxT, sxT, cyT, syT, zq) in the layouts of
     :func:`ops.structure_factor.structure_factor`."""
     cx, sx, cy, sy, cz, sz = phase_tables(positions, box, kmax)
-    zq = q[:, None] * torch.cat([cz, sz], dim=1)
-    return (cx.T.contiguous(), sx.T.contiguous(), cy.T.contiguous(),
-            sy.T.contiguous(), zq.contiguous())
+    zq = q[..., :, None] * torch.cat([cz, sz], dim=-1)
+    return tuple(t.transpose(-1, -2).contiguous() for t in (cx, sx, cy, sy)
+                 ) + (zq.contiguous(),)
 
 
 def assemble(a, b, kz: int):
-    """(s_cos, s_sin) [Kx*Ky, Kz] from the contractions A, B [Kx*Ky, 2Kz]
-    of the cos and sin xy tables with [cos_z | sin_z]."""
-    return a[:, :kz] - b[:, kz:], b[:, :kz] + a[:, kz:]
+    """(s_cos, s_sin) [..., Kx*Ky, Kz] from the contractions A, B
+    [..., Kx*Ky, 2Kz] of the cos and sin xy tables with [cos_z | sin_z]."""
+    return a[..., :kz] - b[..., kz:], b[..., :kz] + a[..., kz:]
 
 
 def structure_factors(positions, q, box, kmax, method: str = "xla",
                       plain: bool = False):
     """S(k) over the weighted half-space grid as (s_cos, s_sin), each
-    [Kx*Ky, Kz].  ``plain=True`` runs the kernel's plain version for
-    ``method="pallas"``."""
+    [..., Kx*Ky, Kz] for positions [..., N, 3] and charges [..., N] (a
+    leading replica axis goes through one batched product, or one batched
+    launch of each kernel).  ``plain=True`` runs the kernel's plain
+    version for ``method="pallas"``."""
     kz = 2 * kmax[2] - 1
     if method == "pallas":
         if positions.dtype != torch.float32:
@@ -132,10 +135,12 @@ def structure_factors(positions, q, box, kmax, method: str = "xla",
     if method != "xla":
         raise ValueError(f"unknown structure-factor method {method!r}")
     cx, sx, cy, sy, cz, sz = phase_tables(positions, box, kmax)
-    cxy, sxy = xy_tables(cx.T, sx.T, cy.T, sy.T)       # [Kx*Ky, N]
-    cz_sz = torch.cat([cz, sz], dim=1)                 # [N, 2Kz]
-    return assemble(ieee_matmul(cxy * q, cz_sz), ieee_matmul(sxy * q, cz_sz),
-                    kz)
+    cxy, sxy = xy_tables(*(t.transpose(-1, -2)
+                           for t in (cx, sx, cy, sy)))  # [.., Kx*Ky, N]
+    cz_sz = torch.cat([cz, sz], dim=-1)                 # [.., N, 2Kz]
+    qr = q[..., None, :]
+    return assemble(ieee_matmul(cxy * qr, cz_sz),
+                    ieee_matmul(sxy * qr, cz_sz), kz)
 
 
 def reciprocal_energy_from_sf(s_cos, s_sin, box, alpha: float, kmax):
@@ -158,7 +163,8 @@ def reciprocal_energy_from_sf(s_cos, s_sin, box, alpha: float, kmax):
     eak = torch.exp(-k2_safe * (0.25 / (alpha * alpha))) / k2_safe
     wk = grid.w * eak
     const = 4.0 * math.pi * ONE_4PI_EPS0 / box_volume(box)
-    return const * torch.sum(wk * (s_cos * s_cos + s_sin * s_sin))
+    return const * torch.sum(wk * (s_cos * s_cos + s_sin * s_sin),
+                             dim=(-2, -1))
 
 
 def reciprocal_energy(positions, q, box, alpha: float, kmax,
@@ -171,5 +177,5 @@ def reciprocal_energy(positions, q, box, alpha: float, kmax,
 
 
 def self_energy(q: torch.Tensor, alpha: float) -> torch.Tensor:
-    """E_self = -k_e * alpha/sqrt(pi) * sum q_i^2."""
-    return -ONE_4PI_EPS0 * alpha / SQRT_PI * torch.sum(q * q)
+    """E_self = -k_e * alpha/sqrt(pi) * sum q_i^2 (per leading replica)."""
+    return -ONE_4PI_EPS0 * alpha / SQRT_PI * torch.sum(q * q, dim=-1)

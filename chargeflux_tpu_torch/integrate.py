@@ -267,15 +267,17 @@ class Chunk:
     capture's side stream; each call replays it.  :meth:`load` copies the
     caller's masses in, and a replay runs from the caller's generator
     state and hands back the state it reached.  ``keep`` holds the
-    objects whose ids are in the chunk's key (see :func:`chunk_key`)."""
+    objects whose ids are in the chunk's key (see :func:`chunk_key`).
+    ``potential_shape`` is the shape of the step's potential: [R] for a
+    replica ensemble (``parallel.replicas``)."""
 
     def __init__(self, make_step, rebuild, k: int, carry_like, graph: bool,
                  masses, generator=None, keep=(), make_head=None,
-                 record_shape=()):
+                 record_shape=(), potential_shape=()):
         self.rebuild, self.k = rebuild, k
         self.carry = tuple(torch.empty_like(t) for t in carry_like)
         like = self.carry[0]
-        self.potential = like.new_empty(())
+        self.potential = like.new_empty(tuple(potential_shape))
         self.es = like.new_empty((k,) + tuple(record_shape))
         self.head_records = None  # static buffers after the first head
         self.nb = None            # static NeighborState after the first rebuild

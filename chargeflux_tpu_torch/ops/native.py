@@ -89,6 +89,7 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ll = ctypes.c_longlong
         lib.cf_spread_limits.argtypes = [ctypes.POINTER(i)] * 3
         lib.cf_walk_limits.argtypes = [ctypes.POINTER(i)] * 2
         lib.cf_sf_limits.argtypes = [ctypes.POINTER(i)] * 9
@@ -96,9 +97,10 @@ def library() -> ctypes.CDLL:
         lib.cf_spread_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.cf_direct_walk.argtypes = ([p] * 11 + [i, f, f, i, i, i, i]
                                        + [p] * 3 + [p])
-        lib.cf_sf_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
-        lib.cf_sf_bwd_tables.argtypes = [p] * 11 + [i] * 4 + [p]
-        lib.cf_sf_bwd_zq.argtypes = [p] * 7 + [i] * 4 + [p]
+        # the structure-factor kernels end in (R, the replica strides)
+        lib.cf_sf_fwd.argtypes = [p] * 7 + [i] * 9 + [ll] * 4 + [p]
+        lib.cf_sf_bwd_tables.argtypes = [p] * 11 + [i] * 5 + [ll] * 4 + [p]
+        lib.cf_sf_bwd_zq.argtypes = [p] * 7 + [i] * 5 + [ll] * 4 + [p]
         for fn in (lib.cf_spread_limits, lib.cf_walk_limits,
                    lib.cf_sf_limits, lib.cf_spread_fwd, lib.cf_spread_bwd,
                    lib.cf_direct_walk, lib.cf_sf_fwd, lib.cf_sf_bwd_tables,

@@ -9,7 +9,11 @@ Counterpart of ``chargeflux_tpu.ops.pallas_recip`` (``make_structure_factor_fn``
     sxy[(kx, ky), n] = sx[kx, n] cy[ky, n] + cx[kx, n] sy[ky, n]
 
 over the transposed per-axis phase tables cxT/sxT [Kx, N], cyT/syT [Ky, N]
-and the charge-folded z table zq = q [cos_z | sin_z] [N, 2Kz].  Its forward
+and the charge-folded z table zq = q [cos_z | sin_z] [N, 2Kz], or over a
+batch of R replicas, every table with a leading [R] axis (the JAX
+package's vmap of its ``pallas_call``): one launch per kernel for all R,
+whose replica index only picks the data, so each replica's slice equals
+the single-system launch on it bit for bit.  Its forward
 and the two halves of its backward each go through a wrapper — ``sf_fwd``,
 ``sf_bwd_tables`` (cotangents of the four phase tables) and ``sf_bwd_zq``
 (cotangent of zq): on a CPU tensor the wrapper runs the plain version; on a
@@ -36,7 +40,8 @@ import torch
 from . import native
 from ..device import ieee_matmul
 
-#: Kernel launches since the last reset, per wrapper.
+#: Kernel launches since the last reset, per wrapper (a launch over a
+#: replica batch counts one, as a single system's does).
 LAUNCHES = {"sf_fwd": 0, "sf_bwd_tables": 0, "sf_bwd_zq": 0}
 #: Per wrapper, the kernel it counts, as a profiler trace names it.
 SYMBOLS = {"sf_fwd": "sf_fwd_kernel", "sf_bwd_tables": "sf_bwd_tables_kernel",
@@ -135,16 +140,19 @@ def thread_atoms(plan: ForwardPlan, lo: int, hi: int, js: int):
 
 
 def xy_tables(cxT, sxT, cyT, syT):
-    """(cxy, sxy), each [Kx*Ky, N]: the combined x/y phase tables."""
-    kx, n = cxT.shape
-    ky = cyT.shape[0]
-    cxy = cxT[:, None, :] * cyT[None, :, :] - sxT[:, None, :] * syT[None, :, :]
-    sxy = sxT[:, None, :] * cyT[None, :, :] + cxT[:, None, :] * syT[None, :, :]
-    return cxy.reshape(kx * ky, n), sxy.reshape(kx * ky, n)
+    """(cxy, sxy), each [..., Kx*Ky, N]: the combined x/y phase tables."""
+    kx, n = cxT.shape[-2:]
+    ky = cyT.shape[-2]
+    lead = cxT.shape[:-2]
+    cxy = (cxT[..., :, None, :] * cyT[..., None, :, :]
+           - sxT[..., :, None, :] * syT[..., None, :, :])
+    sxy = (sxT[..., :, None, :] * cyT[..., None, :, :]
+           + cxT[..., :, None, :] * syT[..., None, :, :])
+    return cxy.reshape(lead + (kx * ky, n)), sxy.reshape(lead + (kx * ky, n))
 
 
 def sf_fwd_plain(cxT, sxT, cyT, syT, zq):
-    """(A, B) = (cxy @ zq, sxy @ zq)."""
+    """(A, B) = (cxy @ zq, sxy @ zq) (batched over any leading axes)."""
     cxy, sxy = xy_tables(cxT, sxT, cyT, syT)
     return ieee_matmul(cxy, zq), ieee_matmul(sxy, zq)
 
@@ -153,21 +161,26 @@ def sf_bwd_tables_plain(cxT, sxT, cyT, syT, zq, abar, bbar):
     """(dcxT, dsxT, dcyT, dsyT) for the cotangents (abar, bbar) of (A, B):
     with gc = abar zq^T and gs = bbar zq^T per (kx, ky, n), reduced over ky
     for the x tables and over kx for the y tables."""
-    kx, n = cxT.shape
-    ky = cyT.shape[0]
-    gc = ieee_matmul(abar, zq.T).reshape(kx, ky, n)
-    gs = ieee_matmul(bbar, zq.T).reshape(kx, ky, n)
-    dcx = torch.sum(gc * cyT[None] + gs * syT[None], dim=1)
-    dsx = torch.sum(-gc * syT[None] + gs * cyT[None], dim=1)
-    dcy = torch.sum(gc * cxT[:, None] + gs * sxT[:, None], dim=0)
-    dsy = torch.sum(-gc * sxT[:, None] + gs * cxT[:, None], dim=0)
+    kx, n = cxT.shape[-2:]
+    ky = cyT.shape[-2]
+    shape = cxT.shape[:-2] + (kx, ky, n)
+    zqt = zq.transpose(-1, -2)
+    gc = ieee_matmul(abar, zqt).reshape(shape)
+    gs = ieee_matmul(bbar, zqt).reshape(shape)
+    cy, sy = cyT[..., None, :, :], syT[..., None, :, :]
+    cx, sx = cxT[..., :, None, :], sxT[..., :, None, :]
+    dcx = torch.sum(gc * cy + gs * sy, dim=-2)
+    dsx = torch.sum(-gc * sy + gs * cy, dim=-2)
+    dcy = torch.sum(gc * cx + gs * sx, dim=-3)
+    dsy = torch.sum(-gc * sx + gs * cx, dim=-3)
     return dcx, dsx, dcy, dsy
 
 
 def sf_bwd_zq_plain(cxT, sxT, cyT, syT, abar, bbar):
-    """dzq = cxy^T abar + sxy^T bbar, [N, 2Kz]."""
+    """dzq = cxy^T abar + sxy^T bbar, [..., N, 2Kz]."""
     cxy, sxy = xy_tables(cxT, sxT, cyT, syT)
-    return ieee_matmul(cxy.T, abar) + ieee_matmul(sxy.T, bbar)
+    return (ieee_matmul(cxy.transpose(-1, -2), abar)
+            + ieee_matmul(sxy.transpose(-1, -2), bbar))
 
 
 def _refusal(named, ky: int, kz2: int, n: int):
@@ -196,17 +209,24 @@ def kernels_take_grid(ky: int, kz2: int) -> bool:
 
 
 def _check(cxT, sxT, cyT, syT, zq=None, abar=None, bbar=None):
-    """Raise unless every input is what the kernels take; returns
-    (Kx, Ky, 2Kz, N)."""
-    kx, n = cxT.shape
-    ky = cyT.shape[0]
+    """Raise unless every input is what the kernels take: all tables
+    [Kx, N]-shaped or all with one leading replica axis [R, ...]; returns
+    (R, Kx, Ky, 2Kz, N), R = 0 for unbatched tables."""
+    batched = cxT.ndim == 3
+    reps = cxT.shape[0] if batched else 0
+    kx, n = cxT.shape[-2:]
+    ky = cyT.shape[-2]
     named = [("cxT", cxT), ("sxT", sxT), ("cyT", cyT), ("syT", syT)]
     named += [(k, t) for k, t in (("zq", zq), ("abar", abar), ("bbar", bbar))
               if t is not None]
-    kz2 = (zq if zq is not None else abar).shape[1]
+    kz2 = (zq if zq is not None else abar).shape[-1]
     refusal = _refusal([(k, t.dtype, t.device) for k, t in named], ky, kz2, n)
     if refusal is not None:
         raise refusal[0](refusal[1])
+    lead = (reps,) if batched else ()
+    if cxT.ndim not in (2, 3) or (batched and not 1 <= reps <= 65535):
+        raise ValueError("structure-factor kernel: tables must be [Kx, N] "
+                         "or [R, Kx, N] with 1 <= R <= 65535")
     for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"structure-factor kernel: {name} must be "
@@ -214,31 +234,43 @@ def _check(cxT, sxT, cyT, syT, zq=None, abar=None, bbar=None):
         if t.device != cxT.device:
             raise ValueError("structure-factor kernel: inputs on different "
                              "devices")
-    if sxT.shape != (kx, n) or cyT.shape != (ky, n) or syT.shape != (ky, n):
+    if (sxT.shape != lead + (kx, n) or cyT.shape != lead + (ky, n)
+            or syT.shape != lead + (ky, n)):
         raise ValueError("structure-factor kernel: the phase tables must be "
-                         "cxT/sxT [Kx, N] and cyT/syT [Ky, N]")
-    if zq is not None and zq.shape != (n, kz2):
+                         "cxT/sxT [Kx, N] and cyT/syT [Ky, N], all with or "
+                         "all without the replica axis")
+    if zq is not None and zq.shape != lead + (n, kz2):
         raise ValueError("structure-factor kernel: zq must be [N, 2Kz]")
     for t in (abar, bbar):
-        if t is not None and t.shape != (kx * ky, kz2):
+        if t is not None and t.shape != lead + (kx * ky, kz2):
             raise ValueError("structure-factor kernel: abar/bbar must be "
                              "[Kx*Ky, 2Kz]")
-    return kx, ky, kz2, n
+    return reps, kx, ky, kz2, n
+
+
+def _launch_args(reps, kx, ky, kz2, n):
+    """The trailing (R, replica strides) of a launch: R = 1 with unused
+    strides for unbatched tables; the strides of contiguous [R, ...]
+    tables otherwise (x tables, y tables, zq, A/B)."""
+    return (max(reps, 1), kx * n, ky * n, n * kz2, kx * ky * kz2)
 
 
 def sf_fwd(cxT, sxT, cyT, syT, zq):
     """Forward contraction: plain version on the CPU, the CUDA kernel on the
-    card (one launch by :func:`plan_forward`'s plan, no scratch)."""
+    card (one launch by :func:`plan_forward`'s plan, no scratch; for [R, ...]
+    tables one launch over every replica, each on the single system's
+    plan)."""
     if cxT.device.type == "cpu":
         return sf_fwd_plain(cxT, sxT, cyT, syT, zq)
-    kx, ky, kz2, n = _check(cxT, sxT, cyT, syT, zq=zq)
+    reps, kx, ky, kz2, n = _check(cxT, sxT, cyT, syT, zq=zq)
     plan = plan_forward(kx, ky, kz2, n, forward_limits())
-    a = torch.empty((kx * ky, kz2), dtype=torch.float32, device=cxT.device)
+    a = torch.empty(((reps,) if reps else ()) + (kx * ky, kz2),
+                    dtype=torch.float32, device=cxT.device)
     b = torch.empty_like(a)
     err = native.library().cf_sf_fwd(
         *(t.data_ptr() for t in (cxT, sxT, cyT, syT, zq, a, b)), kx, ky, kz2,
         n, plan.y_rows, plan.j_split, plan.n_splits, plan.split_len,
-        native.stream_ptr(cxT))
+        *_launch_args(reps, kx, ky, kz2, n), native.stream_ptr(cxT))
     native.check(err, "cf_sf_fwd")
     LAUNCHES["sf_fwd"] += 1
     return a, b
@@ -249,11 +281,13 @@ def sf_bwd_tables(cxT, sxT, cyT, syT, zq, abar, bbar):
     the card."""
     if cxT.device.type == "cpu":
         return sf_bwd_tables_plain(cxT, sxT, cyT, syT, zq, abar, bbar)
-    kx, ky, kz2, n = _check(cxT, sxT, cyT, syT, zq=zq, abar=abar, bbar=bbar)
+    reps, kx, ky, kz2, n = _check(cxT, sxT, cyT, syT, zq=zq, abar=abar,
+                                  bbar=bbar)
     outs = [torch.empty_like(t) for t in (cxT, sxT, cyT, syT)]
     err = native.library().cf_sf_bwd_tables(
         *(t.data_ptr() for t in (cxT, sxT, cyT, syT, zq, abar, bbar, *outs)),
-        kx, ky, kz2, n, native.stream_ptr(cxT))
+        kx, ky, kz2, n, *_launch_args(reps, kx, ky, kz2, n),
+        native.stream_ptr(cxT))
     native.check(err, "cf_sf_bwd_tables")
     LAUNCHES["sf_bwd_tables"] += 1
     return tuple(outs)
@@ -264,11 +298,13 @@ def sf_bwd_zq(cxT, sxT, cyT, syT, abar, bbar):
     card."""
     if cxT.device.type == "cpu":
         return sf_bwd_zq_plain(cxT, sxT, cyT, syT, abar, bbar)
-    kx, ky, kz2, n = _check(cxT, sxT, cyT, syT, abar=abar, bbar=bbar)
-    dzq = torch.empty((n, kz2), dtype=torch.float32, device=cxT.device)
+    reps, kx, ky, kz2, n = _check(cxT, sxT, cyT, syT, abar=abar, bbar=bbar)
+    dzq = torch.empty(((reps,) if reps else ()) + (n, kz2),
+                      dtype=torch.float32, device=cxT.device)
     err = native.library().cf_sf_bwd_zq(
         *(t.data_ptr() for t in (cxT, sxT, cyT, syT, abar, bbar, dzq)),
-        kx, ky, kz2, n, native.stream_ptr(cxT))
+        kx, ky, kz2, n, *_launch_args(reps, kx, ky, kz2, n),
+        native.stream_ptr(cxT))
     native.check(err, "cf_sf_bwd_zq")
     LAUNCHES["sf_bwd_zq"] += 1
     return dzq
@@ -298,6 +334,7 @@ class _StructureFactor(torch.autograd.Function):
 
 
 def structure_factor(cxT, sxT, cyT, syT, zq, plain: bool = False):
-    """(A, B) [Kx*Ky, 2Kz], differentiable in all five tables (see the
-    module docstring for the contraction and the layouts)."""
+    """(A, B) [Kx*Ky, 2Kz] (or [R, Kx*Ky, 2Kz] over a replica batch),
+    differentiable in all five tables (see the module docstring for the
+    contraction and the layouts)."""
     return _StructureFactor.apply(cxT, sxT, cyT, syT, zq, plain)

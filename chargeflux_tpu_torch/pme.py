@@ -329,3 +329,167 @@ def pme_cell_column_reciprocal_energy(blocks, ids, system,
     spreads with the plain version on any device."""
     return mesh_energy(spread_columns(*column_spread_inputs(blocks, ids, system),
                                       plain=plain), system)
+
+
+# ---------------------------------------------------------------------------
+# The halo route's distributed spread (parallel/halo.py)
+# ---------------------------------------------------------------------------
+
+
+def _spread_patches(qwlx, wly, wlz):
+    """Per-cell patch contraction P[c, x, y, z] = sum_a qwlx[c, a, x]
+    wly[c, a, y] wlz[c, a, z]: one batched product [C, Wx Wy, cap] @ [C,
+    cap, Wz] in IEEE f32 on the card (the JAX package's "x3" precision)."""
+    c, cap, wx = qwlx.shape
+    wy = wly.shape[-1]
+    a = (qwlx[..., :, None] * wly[..., None, :]).reshape(c, cap, wx * wy)
+    return ieee_matmul(a.transpose(1, 2), wlz).reshape(c, wx, wy,
+                                                      wlz.shape[-1])
+
+
+@lru_cache(maxsize=None)
+def _placement(origins, w: int, grid_n: int, dtype, device):
+    """The 0/1 placement [n_cells * w, grid_n] of :func:`_fold_axis`."""
+    t = np.zeros((len(origins), w, grid_n))
+    for c, o in enumerate(origins):
+        for j in range(w):
+            t[c, j, (o + j) % grid_n] = 1.0
+    return torch.as_tensor(t.reshape(-1, grid_n), device=device).to(dtype)
+
+
+def _fold_axis(parts, origins, grid_n: int, patch_axis: int, cell_axis: int):
+    """Overlap-add a cell-indexed patch axis onto the grid axis:
+    out[..., g] = sum_{c, w} parts[.., c, .., w, ..] [g == (origins[c] + w)
+    mod G], the other axes of ``parts`` first in their order, then the
+    grid axis (the JAX package's ``dot_general`` against a static 0/1
+    placement; exact in IEEE f32)."""
+    c, w = parts.shape[cell_axis], parts.shape[patch_axis]
+    rest = [a for a in range(parts.ndim) if a not in (cell_axis, patch_axis)]
+    moved = parts.permute(*rest, cell_axis, patch_axis)
+    keep = moved.shape[:-2]
+    t = _placement(tuple(int(o) for o in origins), w, grid_n, parts.dtype,
+                   device_key(parts.device))
+    out = ieee_matmul(moved.reshape(-1, c * w), t)
+    return out.reshape(keep + (grid_n,))
+
+
+def _pad_to_cell_multiple(grid_n: int, n_cells: int) -> int:
+    """Smallest mesh extent >= grid_n divisible by n_cells, preferring the
+    first 5-smooth multiple within +25 % (a finer mesh only lowers the PME
+    error)."""
+    gm = -(-grid_n // n_cells) * n_cells
+    cand = gm
+    while cand <= gm + (gm + 3) // 4:
+        if good_fft_size(cand) == cand:
+            return cand
+        cand += n_cells
+    return gm
+
+
+def pme_halo_mesh(spec, pad_y: bool = False) -> Tuple[int, int, int]:
+    """SPME mesh of the halo route (``parallel/halo.py``): x padded up to a
+    multiple of cell_grid[0], so the patch origins along x are a uniform
+    pattern (c * stride) plus one per-rank slab offset; with ``pad_y`` (the
+    2-D x-by-y decomposition) y the same; z, and otherwise y, keep the
+    single-device mesh.  A cell-grid axis with a factor outside {2, 3, 5}
+    takes the smallest multiple."""
+    gmx = _pad_to_cell_multiple(spec.pme_grid[0], spec.cell_grid[0])
+    gmy = (_pad_to_cell_multiple(spec.pme_grid[1], spec.cell_grid[1])
+           if pad_y else spec.pme_grid[1])
+    return (gmx, gmy, spec.pme_grid[2])
+
+
+def pme_halo_local_mesh(g8, ids, system, dev: int,
+                        mesh_grid: Tuple[int, int, int],
+                        dev_y=None) -> torch.Tensor:
+    """Partial SPME charge mesh [Gx, Gy, Gz] of one rank's slab blocks (the
+    halo route's g8 layout [gxl, gy(l), gz, cap, 8]: x|y|z|q|hs|se|valid|0
+    with wrapped coordinates); the sum over the ranks is the full charge
+    mesh.  ``mesh_grid`` from :func:`pme_halo_mesh`; for the 2-D
+    decomposition pass the rank's y index ``dev_y`` and a ``pad_y`` mesh.
+    The spread weights, patch contraction and folds are the cell route's
+    (:func:`_cell_patch_weights`), so on a matching mesh the two routes
+    agree to reduction-order rounding."""
+    spec = system.spec
+    dtype, device = g8.dtype, g8.device
+    box = system.box
+    order = spec.pme_order
+    gxl, ngy, ngz, cap, _ = g8.shape
+    gmx, gmy, gmz = mesh_grid
+    ngx = spec.cell_grid[0]
+    stride = gmx // ngx
+    if stride * ngx != gmx:
+        raise ValueError(f"mesh x {gmx} not divisible by cell grid {ngx}")
+    local_y = ngy != spec.cell_grid[1]
+    if local_y:
+        stride_y = gmy // spec.cell_grid[1]
+        if stride_y * spec.cell_grid[1] != gmy or dev_y is None:
+            raise ValueError(
+                "2-D halo spread needs pme_halo_mesh(spec, pad_y=True) "
+                "and the rank's y index")
+    qv = torch.where(ids < system.n_atoms, g8[..., 3], 0.0)
+    ex, ey, ez = spec.pme_slack
+    if box.ndim == 2:
+        inv = box_inverse(box)
+        cx_ = (g8[..., 0] * inv[0, 0] + g8[..., 1] * inv[1, 0]
+               + g8[..., 2] * inv[2, 0])
+        cy_ = g8[..., 1] * inv[1, 1] + g8[..., 2] * inv[2, 1]
+        cz_ = g8[..., 2] * inv[2, 2]
+        lx = ly = lz = 1.0
+    else:
+        cx_, cy_, cz_ = g8[..., 0], g8[..., 1], g8[..., 2]
+        lx, ly, lz = box[0], box[1], box[2]
+
+    def taps(u, origins, w, axis):
+        shape = [1] * 5
+        shape[axis] = len(origins)
+        base = constant(origins.tolist(), dtype, device).reshape(shape)
+        j = torch.arange(w, device=device).to(dtype)
+        return bspline(u[..., None] - (base + j), order)
+
+    # x: uniform local origins (c stride - order - ex) plus the slab offset
+    wx = stride + order + 2 + 2 * ex
+    orgx = dev * (gxl * stride) + np.arange(gxl) * stride - order - ex
+    wlx = taps(cx_ * (gmx / lx), orgx, wx, 0)
+    if local_y:
+        wy = stride_y + order + 2 + 2 * ey
+        orgy = (dev_y * (ngy * stride_y) + np.arange(ngy) * stride_y
+                - order - ey)
+        wly = taps(cy_ * (gmy / ly), orgy, wy, 1)
+    else:
+        wly, orgy, wy = _cell_patch_weights(cy_, ngy, gmy, ly, ey, 1, order,
+                                            dtype)
+    wlz, orgz, wz = _cell_patch_weights(cz_, ngz, gmz, lz, ez, 2, order,
+                                        dtype)
+    nc = gxl * ngy * ngz
+    qwlx = (qv[..., None] * wlx).reshape(nc, cap, wx)
+    patches = _spread_patches(qwlx, wly.reshape(nc, cap, wy),
+                              wlz.reshape(nc, cap, wz))
+    patches = patches.reshape(gxl, ngy, ngz, wx, wy, wz)
+    b = _fold_axis(patches, orgz, gmz, patch_axis=5, cell_axis=2)
+    if local_y:
+        py = (ngy - 1) * stride_y + wy
+        b = _fold_axis(b, np.arange(ngy) * stride_y, py, patch_axis=3,
+                       cell_axis=1)
+    else:
+        b = _fold_axis(b, orgy, gmy, patch_axis=3, cell_axis=1)
+    # x onto a local extent with relative origins (never wraps), then
+    # wrap-folded onto the mesh and rotated into place
+    px = (gxl - 1) * stride + wx
+    loc = _fold_axis(b, np.arange(gxl) * stride, px, patch_axis=1,
+                     cell_axis=0).permute(2, 1, 0)      # [Px, Py|Gy, Gz]
+    out = loc.new_zeros((gmx,) + tuple(loc.shape[1:]))
+    for k0 in range(0, px, gmx):
+        seg = loc[k0:min(k0 + gmx, px)]
+        out = out + torch.nn.functional.pad(
+            seg, (0, 0, 0, 0, 0, gmx - seg.shape[0]))
+    out = torch.roll(out, dev * (gxl * stride) - (order + ex), dims=0)
+    if local_y:
+        outy = out.new_zeros((gmx, gmy, gmz))
+        for k0 in range(0, py, gmy):
+            seg = out[:, k0:min(k0 + gmy, py)]
+            outy = outy + torch.nn.functional.pad(
+                seg, (0, 0, 0, gmy - seg.shape[1]))
+        out = torch.roll(outy, dev_y * (ngy * stride_y) - (order + ey),
+                         dims=1)
+    return out

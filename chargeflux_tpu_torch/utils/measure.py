@@ -111,9 +111,10 @@ def kernel_bound(name: str, **dims) -> dict:
       tap cotangents (1 + 2 order) per pair with both.  With every weight
       nonzero (wx = wy = order, n_real = n_col rows) these are the dense
       (2 order + 1) and (4 order + 5) per (column, x, y, row) term.
-    sf_fwd / sf_bwd_tables / sf_bwd_zq (kx, ky, kz2, n): two [Kx Ky, N]
-      by [N, 2Kz] products (4 Kx Ky N 2Kz); forming cxy, sxy costs 6 per
-      (kx, ky, n), the tables' epilogue 16.
+    sf_fwd / sf_bwd_tables / sf_bwd_zq (kx, ky, kz2, n[, reps]): two
+      [Kx Ky, N] by [N, 2Kz] products (4 Kx Ky N 2Kz); forming cxy, sxy
+      costs 6 per (kx, ky, n), the tables' epilogue 16; a batched launch
+      over ``reps`` replicas does ``reps`` times the work.
     direct_walk (n_pairs, n_slots, n_cells, ncoef[, box_floats]): each of
       the n_pairs in-cutoff pairs once, 51 + 4 (ncoef - 1) flops (the
       Horner pair of P and dP is 4 per coefficient; the j-side updates are
@@ -143,9 +144,10 @@ def kernel_bound(name: str, **dims) -> dict:
         k, n = d["kx"] * d["ky"], d["n"]
         tables = 2 * (d["kx"] + d["ky"]) * n     # cx, sx, cy, sy
         bwd_tables = name == "sf_bwd_tables"      # reads and writes them
-        flops = k * n * (4 * d["kz2"] + (16 if bwd_tables else 6))
-        nbytes = F32 * ((2 if bwd_tables else 1) * tables + n * d["kz2"]
-                        + 2 * k * d["kz2"])
+        reps = d.get("reps", 1)
+        flops = reps * k * n * (4 * d["kz2"] + (16 if bwd_tables else 6))
+        nbytes = reps * F32 * ((2 if bwd_tables else 1) * tables
+                               + n * d["kz2"] + 2 * k * d["kz2"])
     elif name == "direct_walk":
         flops = d["n_pairs"] * (51 + 4 * (d["ncoef"] - 1))
         nbytes = (F32 * (11 * d["n_slots"] + d["n_cells"] * (1 + 27 + 81)
@@ -268,6 +270,75 @@ def dense_path(device):
     m = torch.tensor(masses, dtype=torch.float32, device=device)
     bonded = water_bonded_params(len(masses) // 3, box=box, device=device)
     return force, x, m, box, bonded, system
+
+
+#: Replicas of bench.py's ``replicas`` config.
+REPLICAS = 64
+#: bench.py replicas' step: x <- x - DESCENT * grad E for every replica.
+DESCENT = 1e-9
+
+
+def replicas_path(device, n_replicas: int = REPLICAS, recip=None) -> dict:
+    """bench.py's ``replicas`` config at full width, nothing cut:
+    ``water_box(n_side=6, flux="bond_angle")`` (648 atoms, cutoff 0.9,
+    dense direct space, classical Ewald), f32, through
+    ``parallel.replicas.vmap_friendly_system``; ``n_replicas`` copies each
+    moved by 0.01 nm normals from ``np.random.default_rng(0)``.
+    ``recip`` pins the reciprocal route ("xla": the plain batched product;
+    "pallas": the batched structure-factor kernels).  Returns {force,
+    system, x [R, N, 3], masses [N], box}."""
+    import dataclasses
+
+    from ..models import water_box
+    from ..parallel.replicas import vmap_friendly_system
+
+    force, pos, masses, box = water_box(n_side=6, flux="bond_angle")
+    system = vmap_friendly_system(force.create_system(
+        box=box, dtype=torch.float32, device=device))
+    if recip is not None:
+        system = system._swap(spec=dataclasses.replace(system.spec,
+                                                       recip_method=recip))
+    rng = np.random.default_rng(0)
+    batch = np.stack([pos + 0.01 * rng.standard_normal(pos.shape)
+                      for _ in range(n_replicas)])
+    return {"force": force, "system": system, "box": box,
+            "x": torch.tensor(batch, dtype=torch.float32, device=device),
+            "masses": torch.tensor(masses, dtype=torch.float32,
+                                   device=device)}
+
+
+def replica_drive(path: dict, plain: bool = False):
+    """(drive, owner) of bench.py's replicas step: ``drive(n_steps,
+    graph=True)`` runs x <- x - DESCENT grad E for every replica of the
+    path's batch, ``n_steps`` times, in chunks of
+    ``parallel.replicas.STEPS_PER_CHUNK`` steps, each a CUDA graph replay
+    on the card (``graph=False``: the same chunks eagerly); returns (final
+    x, [n_steps] energies summed over the replicas).  ``owner`` keeps the
+    chunks."""
+    from ..integrate import Chunk, _chunk_getter, _run_chunks
+    from ..parallel.replicas import (STEPS_PER_CHUNK, _forces,
+                                     replica_energy_fn)
+
+    e_fn = replica_energy_fn(path["system"], plain=plain)
+    x0 = path["x"]
+    ones = torch.ones(x0.shape[1], dtype=x0.dtype, device=x0.device)
+
+    def make_step(_m, _g):
+        def step(carry, _nb):
+            e, f = _forces(e_fn, carry[0])
+            return (carry[0] + DESCENT * f,), e, torch.sum(e)
+        return step
+
+    def drive(n_steps, graph=True):
+        def make(k):
+            return Chunk(make_step, None, k, (x0,), graph, ones,
+                         potential_shape=(x0.shape[0],))
+
+        get = _chunk_getter(e_fn, graph, x0, ones, ("descent", DESCENT),
+                            make)
+        last, es = _run_chunks(get, (x0,), n_steps, STEPS_PER_CHUNK, ones)
+        return last.x.clone(), es
+    return drive, e_fn
 
 
 #: (n_side, cutoff) of the water boxes the structure-factor kernels are

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a),
-nvcc and a CUDA build of PyTorch.  It drives thirteen paths of the port: the
+nvcc and a CUDA build of PyTorch.  It drives sixteen paths of the port: the
 30k cell + SPME path (the JAX package's ``bench.py 30k``), the 216-water
 dense + classical-Ewald path (``bench.py 216``), rigid and RESPA NVT at
 the 30k box (``bench.py rigid``, ``respa``), the 30k box on a sheared
@@ -12,8 +12,10 @@ triclinic lattice (``bench.py tri30k``), the solvated chain
 (``bench.py hetero30k``), NPT at the 30k box (``bench.py npt``), the
 CSVR and Nose-Hoover chain thermostats on it, the PDB on-ramp at the 30k
 size (onramp30k), random batch Ewald NVT at the 30k box (rbe30k), the
-216-water box on the dense-mesh SPME (dense216) and the 125-water cluster
-(cluster).  Phases, in order:
+216-water box on the dense-mesh SPME (dense216), the 125-water cluster
+(cluster), the 64 x 216 replica ensemble (``bench.py replicas``), its
+temperature REMD and the halo route in a world of one (halo1).  Phases,
+in order:
 
 1. CUDA present (else exit non-zero), the card's name and power limit;
 2. build the CUDA kernels from ``chargeflux_tpu_torch/csrc``;
@@ -141,7 +143,31 @@ size (onramp30k), random batch Ewald NVT at the 30k box (rbe30k), the
    2/ps), ``total_dipole`` every 4 steps, a finite
    ``infrared_spectrum`` of the 400 samples and its peak in the
    60-130 THz stretch band;
-10. a JSON line with each kernel's numbers, then the last line
+10. replicas: the JAX package's ``bench.py replicas`` at full width (64
+   replicas of the 216-water box, f32, ``utils.measure.replicas_path``):
+   the three structure-factor kernels batched over the replicas (one
+   launch each) against their batched plain versions (phase 3b's
+   tolerances), timed beside their bound and one batched matmul, and
+   each replica's slice bit-equal to the single-system launch on it;
+   ``replica_energy_and_forces`` on "xla" and on "pallas" against a loop
+   of single-system ``energy_and_forces`` (|dE| <= 1e-5 of sum|E_c|,
+   force RMS <= 1e-5 relative); the bench step (x <- x - 1e-9 grad E) as
+   graph replays on both routes (ms/step), the batched kernels launched
+   once a step on the "pallas" run (counts reset before it); one
+   ``replica_nve_trajectory`` chunk graph bit-equal to graph=False;
+10b. REMD of that ensemble on a geometric 300-450 K ladder (5/ps, 0.5 fs,
+   a sweep every 10 steps) after 800 steps at 20/ps: replays bit-equal to
+   graph=False from one generator state, new noise on a further call,
+   the configurations kept as a multiset at dt = 0, every slot's mean
+   temperature within 10 % of its target; acceptance per parity, ms/step;
+10c. halo1: ``parallel.halo`` in a world of one (an NCCL group of one
+   rank, decomposition (1, 1)) at the 30k box in f32 against the
+   single-system kernel route (|dE| <= 1e-5 of sum|E_c|, force RMS <=
+   1e-5) and at a 4k box in f64 against the plain route (1e-10), each on
+   the halo PME mesh and on classical Ewald, with ms per evaluation and
+   the collectives issued; NVE over the halo energy with the NCCL
+   all-reduces inside the chunk graphs, bit-equal to graph=False;
+11. a JSON line with each kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero before the last
@@ -175,6 +201,14 @@ KERNELS = {
     "sf_bwd_tables": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:157",
                       "216"),
     "sf_bwd_zq": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:172", "216"),
+    # the structure-factor kernels batched over the replicas of phase 10
+    # (one launch for all 64; the JAX package's vmap of the same calls)
+    "sf_fwd_x64": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:145",
+                   "replicas"),
+    "sf_bwd_tables_x64": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:157",
+                          "replicas"),
+    "sf_bwd_zq_x64": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:172",
+                      "replicas"),
 }
 N_STEPS = 200
 T_TOL = 0.10          # the NVT phases' mean temperature, relative to 300 K
@@ -1337,6 +1371,430 @@ def run_dense_md(x, masses, bonded, system):
             ms_eager)
 
 
+REPLICA_STEPS = 100        # phase 10's timed bench steps per route
+REMD_LADDER = (300.0, 450.0)  # K, geometric over the 64 slots
+REMD_FRICTION = 5.0        # 1/ps
+REMD_EVERY = 10            # steps per exchange sweep
+REMD_BURN_STEPS = 800      # steps of 20/ps burn-in
+REMD_CALLS = 20            # production calls of REMD_CALL_STEPS each
+REMD_CALL_STEPS = 20
+HALO_TOL_F32 = 1e-5        # |dE| / sum|E_c| and force RMS, f32 30k box
+HALO_TOL_F64 = 1e-10       # energy and force RMS relative, f64 4k box
+
+
+def check_batched_sf(path, results):
+    """Phase 10: the three structure-factor kernels batched over the 64
+    replicas (one launch each) against their batched plain versions
+    (phase 3b's tolerances), timed beside their bound (R x the 216 work)
+    and one batched matmul of the core product; and each replica's slice
+    of a batched launch against the single-system launch on that replica,
+    bit for bit."""
+    import torch
+
+    from chargeflux_tpu_torch import ewald
+    from chargeflux_tpu_torch.charges import effective_charges
+    from chargeflux_tpu_torch.ops import structure_factor as sf
+    from chargeflux_tpu_torch.utils.measure import kernel_bound
+
+    system, x = path["system"], path["x"]
+    spec = system.spec
+    r = x.shape[0]
+    with torch.no_grad():
+        q = effective_charges(x, system)
+        tabs = ewald.kernel_inputs(x, q, system.box, spec.kmax)
+    a, b = (t.requires_grad_(True) for t in sf.sf_fwd_plain(*tabs))
+    e = ewald.reciprocal_energy_from_sf(
+        *ewald.assemble(a, b, tabs[4].shape[-1] // 2), system.box,
+        spec.alpha, spec.kmax)
+    abar, bbar = (t.contiguous()
+                  for t in torch.autograd.grad(e.sum(), (a, b)))
+    kx, n = tabs[0].shape[1:]
+    dims = dict(kx=kx, ky=tabs[2].shape[1], kz2=tabs[4].shape[2], n=n,
+                reps=r)
+    shape = "R {reps} Kx {kx} Ky {ky} 2Kz {kz2} N {n}".format(**dims)
+    with torch.no_grad():
+        left = torch.cat(sf.xy_tables(*tabs[:4]), dim=1)   # [R, 2KxKy, N]
+        left_t = left.transpose(1, 2).contiguous()
+        bars = torch.cat([abar, bbar], dim=1)               # [R, 2KxKy, 2Kz]
+        zq, zq_t = tabs[4], tabs[4].transpose(1, 2).contiguous()
+    cases = {
+        "sf_fwd_x64": (lambda: sf.sf_fwd(*tabs),
+                       lambda: sf.sf_fwd_plain(*tabs), 1e-5,
+                       lambda: (torch.matmul(left, zq),)),
+        "sf_bwd_tables_x64": (
+            lambda: sf.sf_bwd_tables(*tabs, abar, bbar),
+            lambda: sf.sf_bwd_tables_plain(*tabs, abar, bbar), 2e-5,
+            lambda: (torch.matmul(bars, zq_t),)),
+        "sf_bwd_zq_x64": (
+            lambda: (sf.sf_bwd_zq(*tabs[:4], abar, bbar),),
+            lambda: (sf.sf_bwd_zq_plain(*tabs[:4], abar, bbar),), 2e-5,
+            lambda: (torch.matmul(left_t, bars),)),
+    }
+    for name, (kern, plain, tol, library) in cases.items():
+        fields = compare(name, kern, plain, tol,
+                         f"phase 10 batched ({shape})",
+                         kernel_bound(name[:-4], **dims), library)
+        results[name] = kernel_entry(name, {**fields, "replicas": r})
+    with torch.no_grad():
+        batched = (sf.sf_fwd(*tabs), sf.sf_bwd_tables(*tabs, abar, bbar),
+                   (sf.sf_bwd_zq(*tabs[:4], abar, bbar),))
+        same = True
+        for i in range(r):
+            one = [t[i] for t in tabs]
+            single = (sf.sf_fwd(*one),
+                      sf.sf_bwd_tables(*one, abar[i], bbar[i]),
+                      (sf.sf_bwd_zq(*one[:4], abar[i], bbar[i]),))
+            same &= all(torch.equal(u[i], v) for bt, st in zip(batched, single)
+                        for u, v in zip(bt, st))
+        torch.cuda.synchronize()
+    print(f"phase 10 batched kernels: each replica's slice equals the "
+          f"single-system launch on it bit for bit ({r} replicas, 3 "
+          f"kernels): {same}", flush=True)
+    if not same:
+        fail("phase 10: a batched launch differs from the single-system "
+             "launches")
+
+
+def run_replicas(dev, results):
+    """Phase 10: bench.py's replicas config at full width (64 x 216, f32)
+    on both reciprocal routes: the batched kernels (check_batched_sf),
+    ``replica_energy_and_forces`` against a loop of single-system
+    ``energy_and_forces`` on the kernel route, the bench step timed as
+    graph replays, the kernels' launches on the "pallas" route's timed
+    run, and one ``replica_nve_trajectory`` chunk graph against
+    ``graph=False``, bit for bit."""
+    import torch
+
+    from chargeflux_tpu_torch import ops
+    from chargeflux_tpu_torch.energy import (energy_and_forces,
+                                             energy_components,
+                                             resolve_recip_method)
+    from chargeflux_tpu_torch.integrate import MDState
+    from chargeflux_tpu_torch.parallel.replicas import (
+        _forces, replica_energy_and_forces, replica_energy_fn,
+        replica_nve_trajectory)
+    from chargeflux_tpu_torch.utils.measure import (DT_PS, replica_drive,
+                                                    replicas_path)
+
+    t0 = time.perf_counter()
+    auto = replicas_path(dev)
+    route = auto["system"].spec.recip_method
+    paths = {rt: replicas_path(dev, recip=rt) for rt in ("xla", "pallas")}
+    x, m = auto["x"], auto["masses"]
+    r, n = x.shape[:2]
+    print(f"phase 10 replicas: {r} x {n} atoms, f32, dense, kmax "
+          f"{auto['system'].spec.kmax}; recip_method 'auto' for a batch -> "
+          f"{route!r}", flush=True)
+    check_batched_sf(paths["pallas"], results)
+
+    single = auto["force"].create_system(box=auto["box"], dtype=torch.float32,
+                                         device=dev)
+    s_route = resolve_recip_method(single.spec, torch.float32, dev)
+    ref_e, ref_f, scale = [], [], []
+    for i in range(r):
+        e, f = energy_and_forces(x[i], single)
+        ref_e.append(e)
+        ref_f.append(f)
+        with torch.no_grad():
+            scale.append(sum(float(v.abs()) for v in
+                             energy_components(x[i], single).values()))
+    ref_e, ref_f = torch.stack(ref_e), torch.stack(ref_f)
+    ef = {}
+    for rt, path in paths.items():
+        e, f = replica_energy_and_forces(x, path["system"])
+        d_e = max(float((e[i] - ref_e[i]).abs()) / scale[i] for i in range(r))
+        d_f = float(torch.sqrt(torch.mean((f.double() - ref_f.double()) ** 2))
+                    / torch.sqrt(torch.mean(ref_f.double() ** 2)))
+        ef[rt] = (d_e, d_f)
+        print(f"phase 10 replica_energy_and_forces on {rt!r} against "
+              f"{r} single-system energy_and_forces ({s_route!r}): max "
+              f"|dE| / sum|E_c| {d_e:.3e}, force RMS relative {d_f:.3e} "
+              f"(limits 1e-5)", flush=True)
+        if not (d_e <= 1e-5 and d_f <= 1e-5):
+            fail(f"phase 10: the {rt!r} batch disagrees with the "
+                 f"single-system loop")
+
+    ms, launches = {}, None
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for rt in ("xla", "pallas"):
+        drive, _owner = replica_drive(paths[rt])
+        drive(REPLICA_STEPS)                     # captures, then replays
+        torch.cuda.synchronize()
+        if rt == "pallas":
+            ops.reset_launch_counts()
+        a.record()
+        _xf, es = drive(REPLICA_STEPS)
+        b.record()
+        torch.cuda.synchronize()
+        if rt == "pallas":
+            launches = ops.launch_counts()
+        ms[rt] = a.elapsed_time(b) / REPLICA_STEPS
+        if not torch.isfinite(es).all():
+            fail(f"phase 10: non-finite energies on the {rt!r} route")
+    print(f"phase 10 bench step (x <- x - 1e-9 grad E, {r} replicas): "
+          f"{REPLICA_STEPS} steps as CUDA graph replays, 'xla' "
+          f"{ms['xla']:.4f} ms/step, 'pallas' {ms['pallas']:.4f} ms/step "
+          f"(CUDA events); launches on the 'pallas' run {launches}",
+          flush=True)
+    for name in ("sf_fwd", "sf_bwd_tables", "sf_bwd_zq"):
+        if launches[name] != REPLICA_STEPS:
+            fail(f"phase 10: {name} launched {launches[name]} times in "
+                 f"{REPLICA_STEPS} batched steps")
+        results[name + "_x64"]["launches"] = launches[name]
+    if any(launches[k] for k in ("spread_fwd", "spread_bwd", "direct_walk",
+                                 "direct_walk_tri")):
+        fail("phase 10: the dense replica path launched a cell-route kernel")
+
+    e_fn = replica_energy_fn(paths["pallas"]["system"])
+    e0, f0 = _forces(e_fn, x)
+    s0 = MDState(x, torch.zeros_like(x), f0, e0)
+    runs = [replica_nve_trajectory(s0, e_fn, m, DT_PS, 10, graph=g)
+            for g in (False, True, True)]
+    same = all(torch.equal(u, v) for out in runs[1:] for u, v in (
+        (runs[0][1], out[1]), (runs[0][0].positions, out[0].positions),
+        (runs[0][0].velocities, out[0].velocities)))
+    print(f"phase 10 replica_nve_trajectory: one 10-step chunk graph "
+          f"(capture, then a replay) against graph=False, energies, "
+          f"positions and velocities bit-equal: {same}", flush=True)
+    if not same:
+        fail("phase 10: replica NVE replays differ from graph=False")
+    seconds = time.perf_counter() - t0
+    print(f"phase 10 took {seconds:.1f} s (host clock)", flush=True)
+    return {"route_auto": route, "ms_per_step": ms,
+            "energy_force_rel": ef, "seconds": seconds}, paths[route]
+
+
+def run_remd(dev, path):
+    """Phase 10b: temperature REMD of the 64 x 216 ensemble (flexible
+    water: the water bonds and angles added) on a geometric 300-450 K
+    ladder (5/ps, 0.5 fs, a sweep every 10 steps) after a 20/ps burn-in: replays against graph=False from one generator state, new
+    noise on a further call, the multiset of configurations kept exactly
+    at dt = 0, every slot's mean temperature within T_TOL of its target;
+    the acceptance of each parity and ms/step."""
+    import numpy as np
+    import torch
+
+    from chargeflux_tpu_torch.integrate import MDState, maxwell_velocities
+    from chargeflux_tpu_torch.models import water_bonded_params
+    from chargeflux_tpu_torch.parallel import remd_langevin_trajectory
+    from chargeflux_tpu_torch.parallel.replicas import (_forces,
+                                                        pairing_tables,
+                                                        replica_energy_fn)
+    from chargeflux_tpu_torch.units import BOLTZ
+    from chargeflux_tpu_torch.utils.measure import DT_PS
+
+    t0 = time.perf_counter()
+    system, x, m = path["system"], path["x"], path["masses"]
+    r, n = x.shape[:2]
+    lo, hi = REMD_LADDER
+    temps = lo * (hi / lo) ** (np.arange(r) / (r - 1))
+    gen = torch.Generator(dev).manual_seed(1010)
+    v0 = torch.stack([maxwell_velocities(m, float(t), gen,
+                                         dtype=torch.float32)
+                      for t in temps])
+    # flexible water: the replicas' energy with the water bonds and angles
+    e_fn = replica_energy_fn(system, bonded=water_bonded_params(
+        n // 3, box=path["box"], device=dev))
+    e0, f0 = _forces(e_fn, x)
+    state, _, _ = remd_langevin_trajectory(
+        MDState(x, v0, f0, e0), e_fn, m, DT_PS, temps, 20.0, gen,
+        REMD_BURN_STEPS, REMD_EVERY)
+
+    def run(graph, steps=2 * REMD_EVERY, seed=29, dt=DT_PS):
+        if seed is not None:
+            gen.manual_seed(seed)
+        return remd_langevin_trajectory(state, e_fn, m, dt, temps,
+                                        REMD_FRICTION, gen, steps,
+                                        REMD_EVERY, graph=graph)
+
+    eager, first, replay = run(False), run(True), run(True)
+    same = all(torch.equal(u, v) for out in (first, replay) for u, v in (
+        (eager[0].positions, out[0].positions),
+        (eager[0].velocities, out[0].velocities), (eager[1], out[1]),
+        (eager[2], out[2])))
+    fresh = not torch.equal(run(True, seed=None)[0].positions,
+                            replay[0].positions)
+    still = run(True, steps=4 * REMD_EVERY, dt=0.0)
+    kept = torch.equal(
+        torch.sort(state.positions.reshape(r, -1), dim=0).values,
+        torch.sort(still[0].positions.reshape(r, -1), dim=0).values)
+    print(f"phase 10b REMD chunks: 2 sweeps from one generator state, "
+          f"replays bit-equal to graph=False: {same}; a further call draws "
+          f"new noise: {fresh}; dt = 0, 4 sweeps ({int(still[2].sum())} "
+          f"swaps): configurations kept as a multiset: {kept}", flush=True)
+    if not (same and fresh and kept):
+        fail("phase 10b: the REMD chunk checks failed")
+
+    gen.manual_seed(77)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t_slot, acc = [], []
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(REMD_CALLS):
+        state, pots, accepts = remd_langevin_trajectory(
+            state, e_fn, m, DT_PS, temps, REMD_FRICTION, gen,
+            REMD_CALL_STEPS, REMD_EVERY)
+        t_slot.append(torch.sum(m[:, None] * state.velocities ** 2,
+                                dim=(1, 2)) / (3 * n * BOLTZ))
+        acc.append(accepts)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / (REMD_CALLS * REMD_CALL_STEPS)
+    t_mean = torch.stack(t_slot).double().mean(0).cpu().numpy()
+    acc = torch.stack(acc).cpu().numpy()          # [calls, sweeps, pairs]
+    (_l0, _h0, ok0), (_l1, _h1, ok1) = pairing_tables(r)
+    acc_even = float(acc[:, 0::2][..., np.asarray(ok0)].mean())
+    acc_odd = float(acc[:, 1::2][..., np.asarray(ok1)].mean())
+    dev_t = np.abs(t_mean / temps - 1.0)
+    print(f"phase 10b REMD: {REMD_CALLS} calls of {REMD_CALL_STEPS} steps "
+          f"(a sweep every {REMD_EVERY}), {ms:.4f} ms/step (CUDA events, "
+          f"each call's copy-in and graph replays); swap acceptance even "
+          f"pairs {acc_even:.3f}, odd pairs {acc_odd:.3f}; slot mean "
+          f"temperatures {t_mean[0]:.1f} K (target {temps[0]:.1f}) .. "
+          f"{t_mean[-1]:.1f} K (target {temps[-1]:.1f}), largest relative "
+          f"deviation {dev_t.max():.4f} (limit {T_TOL})", flush=True)
+    if not np.isfinite(t_mean).all() or dev_t.max() > T_TOL:
+        fail("phase 10b: a slot's mean temperature is off its target")
+    seconds = time.perf_counter() - t0
+    print(f"phase 10b took {seconds:.1f} s (host clock)", flush=True)
+    return {"ms_per_step": ms, "accept_even": acc_even,
+            "accept_odd": acc_odd, "t_dev_max": float(dev_t.max()),
+            "seconds": seconds}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def halo_case(label, system, x, tol, f32):
+    """One halo comparison in phase 10c: ``make_halo_energy_fn`` over the
+    group of one against the single-system ``energy_and_forces`` on the
+    same system; returns (ms per evaluation, collectives of one)."""
+    import torch
+
+    from chargeflux_tpu_torch.energy import (energy_and_forces,
+                                             energy_components)
+    from chargeflux_tpu_torch.parallel import shard
+    from chargeflux_tpu_torch.parallel.halo import make_halo_energy_fn
+
+    e_ref, f_ref = energy_and_forces(x, system)
+    e_fn = make_halo_energy_fn(system, None)
+
+    def ef():
+        xg = x.detach().clone().requires_grad_(True)
+        e = e_fn(xg)
+        (g,) = torch.autograd.grad(e, xg)
+        return e.detach(), -g
+
+    shard.reset_collectives()
+    e, f = ef()
+    coll = dict(shard.COLLECTIVES)
+    if f32:
+        with torch.no_grad():
+            scale = sum(float(v.abs()) for v in
+                        energy_components(x, system).values())
+        d_e = float((e.double() - e_ref.double()).abs()) / scale
+        what = "|dE| / sum|E_c|"
+    else:
+        d_e = float((e - e_ref).abs() / e_ref.abs())
+        what = "|dE| / |E|"
+    d_f = float(torch.sqrt(torch.mean((f.double() - f_ref.double()) ** 2))
+                / torch.sqrt(torch.mean(f_ref.double() ** 2)))
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ef()
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(3):
+        ef()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / 3
+    print(f"phase 10c halo {label}: {what} {d_e:.3e}, force RMS relative "
+          f"{d_f:.3e} (limits {tol}); {ms:.3f} ms per evaluation (energy "
+          f"and forces, eager, CUDA events); collectives of one "
+          f"evaluation {coll}", flush=True)
+    if not (torch.isfinite(f).all() and d_e <= tol and d_f <= tol):
+        fail(f"phase 10c: the halo route disagrees ({label})")
+    return ms, coll
+
+
+def run_halo(dev):
+    """Phase 10c: the halo route in a world of one (an NCCL group of one
+    rank, decomposition (1, 1)) at the 30k box in f32 against the
+    single-system kernel route, and at a 4k box in f64 against the plain
+    route, each on classical Ewald and on the halo PME mesh; then NVE
+    over the halo energy with its chunks captured as CUDA graphs against
+    graph=False."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from chargeflux_tpu_torch.integrate import init_state, nve_trajectory
+    from chargeflux_tpu_torch.models import water_box
+    from chargeflux_tpu_torch.parallel.halo import (halo_decomp,
+                                                    make_halo_energy_fn)
+    from chargeflux_tpu_torch.pme import pme_halo_mesh
+    from chargeflux_tpu_torch.utils.measure import bench_path
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    out = {}
+    try:
+        _f, x, _m, _b, _bd, system = bench_path("30k", dev)
+        spec = system.spec
+        if halo_decomp(system, 1) != (1, 1):
+            fail("phase 10c: no (1, 1) decomposition of the 30k grid")
+        print(f"phase 10c: 30k cells {spec.cell_grid}, PME mesh "
+              f"{spec.pme_grid}, halo mesh {pme_halo_mesh(spec)}",
+              flush=True)
+        for rt in ("pme", "xla"):
+            sys_rt = system._swap(spec=dataclasses.replace(
+                spec, recip_method=rt, pme_grid=pme_halo_mesh(spec)))
+            out[f"30k_{rt}"] = halo_case(f"30k f32 {rt!r} vs the kernel "
+                                         f"route", sys_rt, x, HALO_TOL_F32,
+                                         True)
+        force, pos, _mm, box = water_box(n_side=11, flux="bond_angle",
+                                         cutoff=0.8)
+        x64 = torch.tensor(pos, dtype=torch.float64, device=dev)
+        for rt in ("pme", "xla"):
+            s64 = force.create_system(box=box, dtype=torch.float64,
+                                      direct_method="cell", recip_method=rt,
+                                      device=dev)
+            s64 = s64._swap(spec=dataclasses.replace(
+                s64.spec, pme_grid=pme_halo_mesh(s64.spec)))
+            out[f"4k_{rt}"] = halo_case(
+                f"4k f64 {rt!r} (cells {s64.spec.cell_grid}) vs the plain "
+                f"route", s64, x64, HALO_TOL_F64, False)
+        # NVE over the halo energy: its NCCL all-reduces inside the chunks'
+        # CUDA graphs, against graph=False
+        e_fn = make_halo_energy_fn(s64, None)
+        masses = torch.full((x64.shape[0],), 10.0, dtype=torch.float64,
+                            device=dev)
+        s0 = init_state(x64, torch.zeros_like(x64), e_fn)
+        runs = [nve_trajectory(s0, e_fn, masses, 2e-5, 20, graph=g)
+                for g in (False, True, True)]
+        same = all(torch.equal(u, v) for r in runs[1:] for u, v in (
+            (runs[0][1], r[1]), (runs[0][0].positions, r[0].positions)))
+        print(f"phase 10c NVE over the halo energy (4k f64, 20 steps, 10-step "
+              f"chunks with NCCL all-reduces captured in CUDA graphs): "
+              f"replays bit-equal to graph=False: {same}", flush=True)
+        if not same:
+            fail("phase 10c: halo NVE replays differ from graph=False")
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    print(f"phase 10c took {seconds:.1f} s (host clock)", flush=True)
+    return {k: {"ms_per_eval": v[0], "collectives": v[1]}
+            for k, v in out.items()} | {"seconds": seconds}
+
+
 def main():
     if not (ROOT / "chargeflux_tpu_torch" / "__init__.py").is_file():
         fail("run from the root of a checkout (chargeflux_tpu_torch/ missing)")
@@ -1398,6 +1856,9 @@ def main():
     launches_b, rbe_fields = run_rbe(dev, ctx30k)
     dense_fields = run_dense_pme(dev)
     cluster_fields = run_cluster(dev)
+    replicas_fields, rpath = run_replicas(dev, results)
+    remd_fields = run_remd(dev, rpath)
+    halo_fields = run_halo(dev)
     for name, count in {**launches, **launches_d, **launches_t}.items():
         results[name]["launches"] = count
     for key, counts in (("launches_rigid", launches_r),
@@ -1435,6 +1896,8 @@ def main():
                       "ms_per_step_onramp30k_eager": ms_eager_o,
                       "onramp30k": onramp_fields, "rbe30k": rbe_fields,
                       "dense216": dense_fields, "cluster": cluster_fields,
+                      "replicas": replicas_fields, "remd": remd_fields,
+                      "halo1": halo_fields,
                       "chunk_capture_30k": capture}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""The port's public surface: ``__all__`` of the package, ``models`` and
-``utils`` equal the JAX package's (the multi-device ``parallel`` package is
-not ported yet, and the JAX lists name none of it), each name resolves, no
+"""The port's public surface: ``__all__`` of the package, ``models``,
+``utils``, ``parallel`` and ``runtime`` equal the JAX package's, each name
+resolves, no
 module of the port imports jax or the JAX package, and the profiling
 helpers: the energy's named phases in a ``torch.profiler`` table, the
 trace file and the step timer on the CPU."""
@@ -15,9 +15,12 @@ import torch
 import chargeflux_tpu
 import chargeflux_tpu.models
 import chargeflux_tpu.parallel
+import chargeflux_tpu.runtime
 import chargeflux_tpu.utils
 import chargeflux_tpu_torch
 import chargeflux_tpu_torch.models
+import chargeflux_tpu_torch.parallel
+import chargeflux_tpu_torch.runtime
 import chargeflux_tpu_torch.utils
 
 from torch_helpers import jax_water
@@ -25,15 +28,15 @@ from torch_helpers import jax_water
 PORT = pathlib.Path(chargeflux_tpu_torch.__file__).parent
 PAIRS = {"package": (chargeflux_tpu, chargeflux_tpu_torch),
          "models": (chargeflux_tpu.models, chargeflux_tpu_torch.models),
-         "utils": (chargeflux_tpu.utils, chargeflux_tpu_torch.utils)}
+         "utils": (chargeflux_tpu.utils, chargeflux_tpu_torch.utils),
+         "parallel": (chargeflux_tpu.parallel, chargeflux_tpu_torch.parallel),
+         "runtime": (chargeflux_tpu.runtime, chargeflux_tpu_torch.runtime)}
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
 def test_all_lists_equal_jax_and_resolve(name):
     jmod, pmod = PAIRS[name]
-    parallel = set(chargeflux_tpu.parallel.__all__)
-    want = [n for n in jmod.__all__ if n not in parallel]
-    assert list(pmod.__all__) == want
+    assert list(pmod.__all__) == list(jmod.__all__)
     for n in pmod.__all__:
         assert getattr(pmod, n) is not None
 

@@ -1,9 +1,9 @@
 """PyTorch port: ``chargeflux_tpu_torch.bench``, the JAX package's bench.py
 on the card.  On the CPU: the configs are built as bench.py builds them
 (its ``build_full`` and ``bench_hetero``), a small 216 run prints a line
-with bench.py's keys, as does the npt line at a small box, the unported
-config exits naming its ROADMAP item, and without CUDA the bench raises
-unless ``--device cpu`` is given."""
+with bench.py's keys, as do the npt line at a small box and the replicas
+line on a small ensemble, every bench.py config is ported, and without
+CUDA the bench raises unless ``--device cpu`` is given."""
 
 import json
 import sys
@@ -46,9 +46,13 @@ def test_216_line_has_the_bench_keys(capsys):
 
 @pytest.mark.parametrize("config,item", [("replicas", "A.9")])
 def test_unported_configs_exit_naming_their_item(config, item):
+    """Every config of bench.py is ported: ``replicas``, the last one
+    (ROADMAP ``item``), is a config and nothing is left unported; a name
+    bench.py does not have exits non-zero."""
+    assert config in bench.CONFIGS and not bench.NOT_PORTED
     with pytest.raises(SystemExit) as exc:
-        bench.main([config, "--device", "cpu"])
-    assert item in str(exc.value.code) and exc.value.code != 0
+        bench.main(["no-such-config", "--device", "cpu"])
+    assert exc.value.code != 0
 
 
 def test_npt_line_has_the_bench_keys(monkeypatch):
@@ -141,3 +145,22 @@ def test_hetero_path_is_bench_hetero():
     assert st.spec.pme_grid == sj.spec.pme_grid
     assert dict(st.spec.flux_template.remainder)["bonds"] == 299
     assert bonded.bond_idx.shape[0] == kw["bond_idx"].shape[0]
+
+
+def test_replicas_line_has_the_bench_keys(monkeypatch):
+    """The replicas line on a small ensemble (2 replicas of the 216 box,
+    one repetition of 1 and 4 steps): bench.py's metric, both reciprocal
+    routes timed, "auto" on the JAX package's "xla" pin, finite
+    energies that agree between the routes."""
+    monkeypatch.setattr(bench, "REPLICA_REPS", 1)
+    cpu = torch.device("cpu")
+    line = bench.bench_replicas(cpu, steps=1, n_replicas=2)
+    assert line["metric"] == "ms_per_step_2x216_replica_ensemble"
+    assert line["route"] == "xla" and set(line["route_ms"]) == {"xla",
+                                                                "pallas"}
+    assert line["steps"] == [1, 4] and line["atoms"] == 648
+    assert line["value"] == line["route_ms"]["xla"] > 0
+    assert np.isfinite(line["energy"])
+    assert line["energy_other_route"] == pytest.approx(line["energy"],
+                                                       rel=1e-5)
+    json.dumps(line)

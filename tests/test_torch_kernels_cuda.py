@@ -542,6 +542,63 @@ def test_structure_factor_wrappers_refuse_what_the_kernels_do_not_take(
         sf.sf_fwd(*tabs[:4], tabs[4][:-1])
 
 
+SF_BATCHES = [("r3-216", 3, 7, 13, 26, 648), ("r4-odd", 4, 3, 5, 5, 17),
+              ("r2-4k", 2, 13, 25, 50, 3993), ("r5-n33", 5, 4, 9, 10, 33),
+              ("r64-216", 64, 7, 13, 26, 648)]
+
+
+@pytest.mark.parametrize("case", SF_BATCHES, ids=[c[0] for c in SF_BATCHES])
+def test_batched_structure_factor_kernels(case):
+    """The three kernels over a replica batch ([R, ...] tables, one launch
+    each): within phase 3b's tolerances of their batched plain versions,
+    and each replica's slice equal to the single-system launch on it, bit
+    for bit (odd N and 2Kz give replica strides off 16-byte alignment)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _name, r, kx, ky, kz2, n = case
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(dev).manual_seed(97 * r + n)
+
+    def rand(*shape):
+        return torch.rand(shape, device=dev, generator=g) * 2.0 - 1.0
+
+    tabs = (rand(r, kx, n), rand(r, kx, n), rand(r, ky, n), rand(r, ky, n),
+            rand(r, n, kz2))
+    abar, bbar = rand(r, kx * ky, kz2), rand(r, kx * ky, kz2)
+    n0 = dict(ops.launch_counts())
+    batched = [sf.sf_fwd(*tabs), sf.sf_bwd_tables(*tabs, abar, bbar),
+               (sf.sf_bwd_zq(*tabs[:4], abar, bbar),)]
+    counts = ops.launch_counts()
+    for name in ("sf_fwd", "sf_bwd_tables", "sf_bwd_zq"):
+        assert counts[name] == n0[name] + 1
+    plain = [sf.sf_fwd_plain(*tabs), sf.sf_bwd_tables_plain(*tabs, abar, bbar),
+             (sf.sf_bwd_zq_plain(*tabs[:4], abar, bbar),)]
+    for bt, pt, tol in zip(batched, plain, (1e-5, 2e-5, 2e-5)):
+        for u, w in zip(bt, pt):
+            assert u.shape == w.shape
+            assert _max_rel(u, w) <= tol
+    for i in range(r):
+        one = [t[i] for t in tabs]
+        single = [sf.sf_fwd(*one), sf.sf_bwd_tables(*one, abar[i], bbar[i]),
+                  (sf.sf_bwd_zq(*one[:4], abar[i], bbar[i]),)]
+        for bt, st in zip(batched, single):
+            for u, v in zip(bt, st):
+                assert torch.equal(u[i], v)
+
+
+def test_batched_structure_factor_wrappers_refuse_mixed_batches():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    tabs = [torch.zeros(s, device=dev) for s in
+            ((2, 3, 8), (2, 3, 8), (2, 5, 8), (2, 5, 8), (2, 8, 6))]
+    with pytest.raises(ValueError, match="replica axis"):
+        sf.sf_fwd(tabs[0], tabs[1][0], *tabs[2:])
+    with pytest.raises(ValueError, match="zq"):
+        sf.sf_fwd(*tabs[:4], tabs[4][0])
+
+
 def test_dense_path_kernel_route_matches_plain():
     """The bench.py 216 system ("auto" resolves to the structure-factor
     kernel): kernel path against the plain path, |dE| <= 1e-5 sum |E_c|,

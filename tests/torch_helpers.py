@@ -6,6 +6,7 @@ can use the others."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 
@@ -212,3 +213,168 @@ def forbid_host_traffic(monkeypatch):
         def refuse_m(self, *a, _name=name, **k):
             raise AssertionError(f"Tensor.{_name} inside a chunk")
         monkeypatch.setattr(torch.Tensor, name, refuse_m)
+
+
+# ---------------------------------------------------------------------------
+# torch.distributed groups on the CPU (gloo) for the multi-rank tests
+# ---------------------------------------------------------------------------
+
+#: Seconds a spawned group may take before its test fails (each process
+#: group's own collectives time out after :data:`PG_TIMEOUT_S`).
+SPAWN_DEADLINE_S = 240
+PG_TIMEOUT_S = 60
+
+
+@contextlib.contextmanager
+def gloo_group():
+    """A one-rank gloo group in this process (file store in a temporary
+    directory), destroyed on exit; yields the default group."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{d}/store", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+        try:
+            yield dist.group.WORLD
+        finally:
+            dist.destroy_process_group()
+
+
+def _spawned(rank, world, store, fn, args, out_dir):
+    """Body of one spawned rank: a gloo group over ``store``, one thread,
+    then ``fn(rank, world, *args)``, whose result is pickled to
+    ``out_dir/rank.pkl``."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    try:
+        result = fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out_dir}/{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_ranks(world: int, fn, args, tmp_path):
+    """``fn(rank, world, *args)`` on ``world`` gloo ranks started with
+    ``torch.multiprocessing.spawn``; returns their results by rank.  The
+    ranks are joined against :data:`SPAWN_DEADLINE_S`: past it they are
+    killed and the test fails, so a hung group cannot hang the suite.
+    ``fn`` must be importable at module level; the children import no
+    JAX."""
+    import pickle
+    import time
+
+    import torch.multiprocessing as mp
+
+    store = tmp_path / "store"
+    out = tmp_path / "out"
+    out.mkdir()
+    ctx = mp.spawn(_spawned, args=(world, str(store), fn, args, str(out)),
+                   nprocs=world, join=False)
+    deadline = time.monotonic() + SPAWN_DEADLINE_S
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"{world} ranks did not finish in "
+                                     f"{SPAWN_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    results = []
+    for rank in range(world):
+        with open(out / f"{rank}.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def _energy_forces(e_fn, x, *args):
+    xg = x.detach().clone().requires_grad_(True)
+    e = e_fn(xg, *args)
+    (g,) = torch.autograd.grad(e.sum(), xg)
+    return e.detach().numpy(), (-g).numpy()
+
+
+def dist_worker(rank, world, task, system, x, opts):
+    """One rank of the multi-rank tests (run by :func:`run_ranks`): the
+    port's ``parallel`` routes on the default gloo group (or a 2-D
+    ``DeviceMesh``), returning NumPy results.  Tasks: "halo" (energy and
+    forces, ``opts["decomp"]``), "sharded" (``make_sharded_energy_and_
+    forces_fn``), "box" (moved boxes, the shrink poison, the creation-time
+    refusal), "overflow", "nve" (``opts["steps"]`` NVE steps over the halo
+    energy), "replica2d" and "multislice" (2 x 2 meshes over a replica
+    batch)."""
+    from chargeflux_tpu_torch.parallel import halo, multislice, shard
+
+    shard.reset_collectives()
+    out = {}
+    if task == "halo":
+        e_fn = halo.make_halo_energy_fn(system, None,
+                                        decomp=opts.get("decomp"))
+        out["e"], out["f"] = _energy_forces(e_fn, x)
+    elif task == "sharded":
+        e, f = shard.make_sharded_energy_and_forces_fn(system, None)(x)
+        out["e"], out["f"] = e.numpy(), f.numpy()
+    elif task == "box":
+        e_fn = halo.make_halo_energy_fn(system, None)
+        for s in opts["scales"]:
+            out[s] = _energy_forces(e_fn, s * x, s * system.box)
+        out["shrunk"] = float(e_fn(0.7 * x, 0.7 * system.box))
+        try:
+            halo.make_halo_energy_fn(system.with_box(0.7 * system.box), None)
+            out["refused"] = ""
+        except ValueError as exc:
+            out["refused"] = str(exc)
+    elif task == "overflow":
+        out["e"] = float(halo.make_halo_energy_fn(system, None)(x))
+    elif task == "nve":
+        from chargeflux_tpu_torch.integrate import init_state, nve_trajectory
+
+        e_fn = halo.make_halo_energy_fn(system, None)
+        masses = torch.full((x.shape[0],), 10.0, dtype=x.dtype)
+        s0 = init_state(x, torch.zeros_like(x), e_fn)
+        fin, es = nve_trajectory(s0, e_fn, masses, opts["dt"], opts["steps"])
+        out["es"], out["x"] = es.numpy(), fin.positions.numpy()
+    elif task == "npt":
+        from chargeflux_tpu_torch.npt import npt_langevin_trajectory
+
+        e_fn = halo.make_halo_energy_fn(system, None)
+        xf, vf, box, diag = npt_langevin_trajectory(
+            x, torch.zeros_like(x), system, opts["masses"],
+            generator=torch.Generator().manual_seed(opts["seed"]),
+            energy_fn=e_fn, **opts["kw"])
+        out.update(x=xf.numpy(), box=box.numpy(),
+                   energies=diag["energies"].numpy())
+    elif task in ("replica2d", "multislice"):
+        from torch.distributed.device_mesh import init_device_mesh
+
+        if task == "replica2d":
+            mesh = init_device_mesh("cpu", (2, 2),
+                                    mesh_dim_names=("replica", "space"))
+            from chargeflux_tpu_torch.parallel import (
+                make_replica_sharded_energy_fn, shard_replicas)
+            local = shard_replicas(x, mesh)
+            e_fn = make_replica_sharded_energy_fn(system, mesh)
+        else:
+            mesh = init_device_mesh("cpu", (2, 2),
+                                    mesh_dim_names=("slice", "space"))
+            local = multislice.shard_batch(x, mesh)
+            e_fn = multislice.make_multislice_energy_fn(system, mesh)
+        out["e"], out["f"] = _energy_forces(e_fn, local)
+        out["mean"] = float(multislice.ensemble_mean(
+            torch.as_tensor(out["e"]), mesh,
+            "replica" if task == "replica2d" else "slice"))
+    out["collectives"] = dict(shard.COLLECTIVES)
+    return out
