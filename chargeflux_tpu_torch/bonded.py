@@ -53,6 +53,23 @@ def _torsion_e(p0, p1, p2, p3, k, n, phi0, box, pbc):
     return torch.sum(k * (1.0 + torch.cos(n * phi - phi0)))
 
 
+def harmonic_bond_energy(positions, idx, k, r0, box, pbc):
+    """``0.5 k (|r12| - r0)^2`` summed over bonds (idx [B, 2])."""
+    if idx.shape[0] == 0:
+        return torch.zeros((), dtype=positions.dtype, device=positions.device)
+    return _bond_e(positions[idx[:, 0]], positions[idx[:, 1]], k, r0, box,
+                   pbc)
+
+
+def harmonic_angle_energy(positions, idx, k, theta0, box, pbc):
+    """``0.5 k (theta - theta0)^2`` summed over angles 1-2-3 (idx [A, 3];
+    atom 2 is the vertex)."""
+    if idx.shape[0] == 0:
+        return torch.zeros((), dtype=positions.dtype, device=positions.device)
+    return _angle_e(*(positions[idx[:, c]] for c in range(3)), k, theta0,
+                    box, pbc)
+
+
 def periodic_torsion_energy(positions, idx, k, n, phi0, box, pbc):
     """``sum k (1 + cos(n phi - phi0))`` over torsions 1-2-3-4 (idx
     [T, 4]; ``n`` the integer periodicity), OpenMM's PeriodicTorsionForce

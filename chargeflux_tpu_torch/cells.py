@@ -81,6 +81,67 @@ def full_shell_tables(grid):
     return neighbor_cell_table(grid), np.stack(off, axis=1).astype(np.int8)
 
 
+def slab_halo_cells(grid, decomp) -> int:
+    """Halo cells of one rank's extended slab (:func:`slab_shell_tables`):
+    the -x and +x planes [gy, gz] of an x slab; for a brick the -y and +y
+    rows [gxl, gz] and the -x and +x planes extended in y [gyl + 2, gz]."""
+    gx, gy, gz = grid
+    ddx, ddy = decomp
+    if ddy == 1:
+        return 2 * gy * gz
+    return 2 * (gx // ddx) * gz + 2 * (gy // ddy + 2) * gz
+
+
+def slab_shell_tables(grid, decomp):
+    """(nbr [n_own, 27] int32, image_offsets [n_own, 27, 3] int8): the
+    :func:`full_shell_tables` of one rank of the halo route's (Dx, Dy)
+    decomposition of the global cell ``grid``, over its extended slab;
+    alike on every rank (what differs between ranks, the lattice shifts
+    at the global boundary, rides the exchanged planes).  The extended
+    slab holds the owned blocks (lx, ly, z) of the rank's
+    [gx / Dx, gy / Dy, gz] slab first, then the halo cells in the
+    order :func:`slab_halo_cells` lists them (a plane or row in (y, z) or
+    (x, z) order; the y-extended planes run y = -1 .. gyl).  The lattice
+    shifts of a halo plane that crosses the periodic boundary in x (and,
+    for a brick, in y) are applied when it is exchanged, so the image
+    offsets carry only the rest: z wraps, and the y wraps of an x slab."""
+    gx, gy, gz = grid
+    ddx, ddy = decomp
+    gxl, gyl = gx // ddx, gy // ddy
+    n_own = gxl * gyl * gz
+    ids = np.arange(n_own)
+    lx, ly, lz = ids // (gyl * gz), (ids // gz) % gyl, ids % gz
+    nbr, off = [], []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                ex, ey, ez = lx + dx, ly + dy, (lz + dz) % gz
+                cz = (lz + dz) // gz
+                if ddy == 1:
+                    cy, ey = ey // gy, ey % gy
+                    cell = np.where(
+                        ex < 0, n_own + ey * gz + ez,
+                        np.where(ex >= gxl, n_own + (gy + ey) * gz + ez,
+                                 (ex * gyl + ey) * gz + ez))
+                else:
+                    cy = np.zeros_like(ey)
+                    x_planes = n_own + 2 * gxl * gz
+                    inside_x = (ex >= 0) & (ex < gxl)
+                    cell = np.where(
+                        ex < 0, x_planes + (ey + 1) * gz + ez,
+                        np.where(ex >= gxl,
+                                 x_planes + (gyl + 2 + ey + 1) * gz + ez,
+                                 (ex * gyl + ey) * gz + ez))
+                    cell = np.where(inside_x & (ey < 0),
+                                    n_own + ex * gz + ez, cell)
+                    cell = np.where(inside_x & (ey >= gyl),
+                                    n_own + (gxl + ex) * gz + ez, cell)
+                nbr.append(cell)
+                off.append(np.stack([np.zeros_like(cz), cy, cz], axis=-1))
+    return (np.stack(nbr, axis=1).astype(np.int32),
+            np.stack(off, axis=1).astype(np.int8))
+
+
 def half_shell_tables(grid):
     """(nbr_ids [C, 14] int32, image_offsets [C, 14, 3] int8) for the
     half-shell traversal; shift 0 is the self cell."""

@@ -16,9 +16,18 @@ A [3, 3] box (a reduced triclinic lattice) takes the kernel's triclinic
 instantiation, which turns a neighbor tile's image offset into lattice
 rows; its launches count apart (``direct_walk_tri``).
 
-:func:`direct_walk` runs the plain version on a CPU tensor and the kernel
-on a CUDA tensor, or raises (f64 on the card raises: the kernel is f32
-only; an f64 system records the plain route when it is built).
+The halo route's slab form (:func:`direct_walk_slab`, its launches counted
+as ``direct_walk_halo``) walks the owned cells of one rank's extended slab,
+owned blocks first and the exchanged halo cells after them, through the
+tables of ``cells.slab_shell_tables``; it returns the rank's half of each
+of its cells' full-shell sums, and dE/dx, dE/dq on the owned slots only.
+Its plain version, :func:`direct_walk_slab_plain`, gathers the 27 tiles
+through the same tables.
+
+:func:`direct_walk` and :func:`direct_walk_slab` run the plain version on
+a CPU tensor and the kernel on a CUDA tensor, or raise (f64 on the card
+raises: the kernel is f32 only; an f64 system records the plain route
+when it is built).
 """
 
 from __future__ import annotations
@@ -34,11 +43,13 @@ from .erfc import erf_over_r_coeffs, erf_over_r_eval
 from ..units import ONE_4PI_EPS0
 
 #: Kernel launches since the last reset: the orthorhombic instantiation,
-#: and the triclinic one (a [3, 3] box).
-LAUNCHES = {"direct_walk": 0, "direct_walk_tri": 0}
+#: the triclinic one (a [3, 3] box), and the halo route's slab form (either
+#: box).
+LAUNCHES = {"direct_walk": 0, "direct_walk_tri": 0, "direct_walk_halo": 0}
 #: The kernel each counts, as a profiler trace names it.
 SYMBOLS = {"direct_walk": "direct_walk_kernel",
-           "direct_walk_tri": "direct_walk_tri_kernel"}
+           "direct_walk_tri": "direct_walk_tri_kernel",
+           "direct_walk_halo": "direct_walk_slab_kernel"}
 
 
 def _crossing(n: int, d: int, dtype, device):
@@ -65,6 +76,37 @@ def image_offsets(grid, shift, box, dtype, device):
                 cy * box[1, 1] + cz * box[2, 1],
                 cz * box[2, 2])
     return cx * box[0], cy * box[1], cz * box[2]
+
+
+def _pair_terms(r2, mask, q_i, q_j, hs_i, hs_j, se_i, se_j, alpha: float,
+                cutoff: float):
+    """The walk's pair terms on an [..., i, j] tile with the i columns
+    [..., i] and the j rows [..., j]: (E_ij, (dE/dr)/r and the Coulomb
+    kernel erfc(alpha r)/r times 1/(4 pi eps0)), each 0 off ``mask``.
+    f64 takes the exact erfc, f32 the erf(alpha r)/r polynomial."""
+    r2s = torch.where(mask, r2, 1.0)
+    inv_r = torch.rsqrt(r2s)
+    u = inv_r * inv_r
+    qq = (ONE_4PI_EPS0 * q_i[..., :, None]) * q_j[..., None, :]
+    if r2.dtype == torch.float64:
+        xa = alpha * (r2s * inv_r)
+        kern = inv_r * torch.special.erfc(xa)
+        coul = qq * kern
+        derfc = (-2.0 / math.sqrt(math.pi)) * torch.exp(-xa * xa)
+        dcoul_over_r = (qq * derfc * alpha - coul) * u
+    else:
+        p, dpds = erf_over_r_eval(r2s, alpha, cutoff, with_derivative=True)
+        kern = inv_r - p
+        coul = qq * kern
+        dcoul_over_r = -qq * (u * inv_r + 2.0 * dpds)
+    sig2 = ((hs_i[..., :, None] + hs_j[..., None, :]) * inv_r) ** 2
+    sig6 = sig2 * sig2 * sig2
+    epr = se_i[..., :, None] * se_j[..., None, :]
+    lj = epr * sig6 * (sig6 - 1.0)
+    dlj_over_r = -epr * sig6 * (12.0 * sig6 - 6.0) * u
+    return (torch.where(mask, coul + lj, 0.0),
+            torch.where(mask, dcoul_over_r + dlj_over_r, 0.0),
+            torch.where(mask, kern, 0.0) * ONE_4PI_EPS0)
 
 
 def direct_walk_plain(x, y, z, q, hs, se, ids, box, n_atoms: int,
@@ -106,31 +148,11 @@ def direct_walk_plain(x, y, z, q, hs, se, ids, box, n_atoms: int,
                | (ids[..., :, None] < idj[..., None, :]))
     mask = (valid[..., :, None] & (idj < n_atoms)[..., None, :]
             & (r2 < cut2) & ordered)
-    r2s = torch.where(mask, r2, 1.0)
-    inv_r = torch.rsqrt(r2s)
-    u = inv_r * inv_r
-    qq = (ONE_4PI_EPS0 * q[..., :, None]) * qj[..., None, :]
-    if dtype == torch.float64:
-        xa = alpha * (r2s * inv_r)
-        kern = inv_r * torch.special.erfc(xa)
-        coul = qq * kern
-        derfc = (-2.0 / math.sqrt(math.pi)) * torch.exp(-xa * xa)
-        dcoul_over_r = (qq * derfc * alpha - coul) * u
-    else:
-        p, dpds = erf_over_r_eval(r2s, alpha, cutoff, with_derivative=True)
-        kern = inv_r - p
-        coul = qq * kern
-        dcoul_over_r = -qq * (u * inv_r + 2.0 * dpds)
-    sig2 = ((hs[..., :, None] + hj[..., None, :]) * inv_r) ** 2
-    sig6 = sig2 * sig2 * sig2
-    epr = se[..., :, None] * sj[..., None, :]
-    lj = epr * sig6 * (sig6 - 1.0)
-    e = torch.sum(torch.where(mask, coul + lj, 0.0))
-    dlj_over_r = -epr * sig6 * (12.0 * sig6 - 6.0) * u
-    f = torch.where(mask, dcoul_over_r + dlj_over_r, 0.0)
+    e_ij, f, ec = _pair_terms(r2, mask, q, qj, hs, hj, se, sj, alpha,
+                              cutoff)
+    e = torch.sum(e_ij)
     gi = [torch.sum(f * d, dim=-1) for d in (ddx, ddy, ddz)]
     gj = [-torch.sum(f * d, dim=-2) for d in (ddx, ddy, ddz)]
-    ec = torch.where(mask, kern, 0.0) * ONE_4PI_EPS0
     dq = torch.sum(ec * qj[..., None, :], dim=-1)
     dqj = torch.sum(ec * q[..., :, None], dim=-2)
     g = list(gi)
@@ -173,6 +195,34 @@ def _refusal(named, shape, alpha: float, cutoff: float):
     return None
 
 
+def _check_inputs(what, blocks, ids, box, shape, alpha, cutoff,
+                  grid_shape=None):
+    """Raise unless the kernel takes ``blocks`` (x, y, z, q, hs, se), ids
+    and box in the block shape ``shape``: :func:`_refusal` at
+    ``grid_shape`` (default ``shape``), then contiguity, shapes and
+    devices."""
+    named = tuple(zip(("x", "y", "z", "q", "hs", "se"), blocks)) + (
+        ("box", box),)
+    refusal = _refusal([(k, t.dtype, t.device) for k, t in named],
+                       grid_shape or shape, alpha, cutoff)
+    if refusal is not None:
+        raise refusal[0](refusal[1])
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t is not box and tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != "
+                             f"{shape}")
+    device = blocks[0].device
+    if box.shape not in ((3,), (3, 3)) or box.device != device:
+        raise ValueError(f"{what}: the box must be a [3] or a [3, 3] tensor "
+                         f"on the device of the blocks")
+    if (ids.dtype != torch.int32 or tuple(ids.shape) != shape
+            or not ids.is_contiguous() or ids.device != device):
+        raise ValueError(f"{what}: ids must be contiguous int32 in the block "
+                         f"shape, on the device of the blocks")
+
+
 def direct_walk(x, y, z, q, hs, se, ids, box, n_atoms: int, alpha: float,
                 cutoff: float):
     """Fused walk: plain version on the CPU, the CUDA kernel on the card."""
@@ -180,25 +230,8 @@ def direct_walk(x, y, z, q, hs, se, ids, box, n_atoms: int, alpha: float,
         return direct_walk_plain(x, y, z, q, hs, se, ids, box, n_atoms,
                                  alpha, cutoff)
     shape = x.shape
-    named = (("x", x), ("y", y), ("z", z), ("q", q), ("hs", hs), ("se", se),
-             ("box", box))
-    refusal = _refusal([(k, t.dtype, t.device) for k, t in named],
-                       tuple(shape), float(alpha), float(cutoff))
-    if refusal is not None:
-        raise refusal[0](refusal[1])
-    for name, t in named:
-        if not t.is_contiguous():
-            raise ValueError(f"direct walk kernel: {name} must be contiguous")
-        if t is not box and t.shape != shape:
-            raise ValueError(f"direct walk kernel: {name} shape {tuple(t.shape)}"
-                             f" != {tuple(shape)}")
-    if box.shape not in ((3,), (3, 3)) or box.device != x.device:
-        raise ValueError("direct walk kernel: the box must be a [3] or a "
-                         "[3, 3] tensor on the device of the blocks")
-    if (ids.dtype != torch.int32 or ids.shape != shape
-            or not ids.is_contiguous() or ids.device != x.device):
-        raise ValueError("direct walk kernel: ids must be contiguous int32 in "
-                         "the block shape, on the device of the blocks")
+    _check_inputs("direct walk kernel", (x, y, z, q, hs, se), ids, box,
+                  tuple(shape), float(alpha), float(cutoff))
     gx, gy, gz, cap = shape
     coef = constant(erf_over_r_coeffs(float(alpha), float(cutoff)),
                     torch.float32, x.device)
@@ -215,4 +248,108 @@ def direct_walk(x, y, z, q, hs, se, ids, box, n_atoms: int, alpha: float,
         dq.data_ptr(), native.stream_ptr(x))
     native.check(err, "cf_direct_walk")
     LAUNCHES["direct_walk_tri" if box.ndim == 2 else "direct_walk"] += 1
+    return torch.sum(e_part), g, dq
+
+
+@lru_cache(maxsize=None)
+def _slab_tables(grid, decomp, device):
+    """The slab walk's neighbor and image tables, kept per (global grid,
+    decomposition, device) as :func:`_tables` keeps its own; the layout
+    is alike on every rank (``cells.slab_shell_tables``)."""
+    from ..cells import slab_shell_tables
+
+    nbr, img = slab_shell_tables(grid, decomp)
+    return (torch.as_tensor(nbr, device=device).contiguous(),
+            torch.as_tensor(img, dtype=torch.int32,
+                            device=device).contiguous())
+
+
+def _slab_shape(grid, decomp, cap: int):
+    """(n_own, n_ext, cap): the owned and extended cells of one rank's
+    slab of the global ``grid`` under ``decomp``."""
+    from ..cells import slab_halo_cells
+
+    n_own = (grid[0] // decomp[0]) * (grid[1] // decomp[1]) * grid[2]
+    return n_own, n_own + slab_halo_cells(grid, decomp), cap
+
+
+def direct_walk_slab_plain(x, y, z, q, hs, se, ids, box, n_atoms: int,
+                           alpha: float, cutoff: float, grid, decomp):
+    """The slab walk in plain tensor ops (any device, f32 or f64): inputs
+    [n_ext, cap] on the extended slab of a rank of ``decomp`` over the
+    global ``grid``; each owned cell's 27 tiles gathered through the slab
+    tables, image offsets added, every in-cutoff pair but the atom with
+    itself.  Returns (e, g [3, n_own, cap], dq [n_own, cap]): half the
+    owned cells' full-shell energy, and the full dE/dx and dE/dq of the
+    owned atoms."""
+    dtype, dev = x.dtype, x.device
+    nbr, img = _slab_tables(tuple(grid), tuple(decomp), dev)
+    n_own, n_ext, cap = _slab_shape(grid, decomp, x.shape[-1])
+    if x.shape != (n_ext, cap):
+        raise ValueError(f"slab walk: blocks {tuple(x.shape)} are not the "
+                         f"extended slab ({n_ext}, {cap})")
+    nb = nbr.long()
+    im = img.to(dtype)
+    if box.ndim == 2:
+        ox = (im[..., 0] * box[0, 0] + im[..., 1] * box[1, 0]
+              + im[..., 2] * box[2, 0])
+        oy = im[..., 1] * box[1, 1] + im[..., 2] * box[2, 1]
+        oz = im[..., 2] * box[2, 2]
+    else:
+        ox, oy, oz = (im[..., k] * box[k] for k in range(3))
+
+    def tiles(a, off=None):
+        t = a[nb] if off is None else a[nb] + off[..., None]
+        return t.reshape(n_own, 27 * cap)
+
+    xj, yj, zj = tiles(x, ox), tiles(y, oy), tiles(z, oz)
+    qj, hj, sj = tiles(q), tiles(hs), tiles(se)
+    valid_j = tiles(ids) < n_atoms
+    xi, yi, zi, qi, hi, si = (a[:n_own] for a in (x, y, z, q, hs, se))
+    valid_i = ids[:n_own] < n_atoms
+    ddx = xi[..., :, None] - xj[..., None, :]
+    ddy = yi[..., :, None] - yj[..., None, :]
+    ddz = zi[..., :, None] - zj[..., None, :]
+    r2 = ddx * ddx + ddy * ddy + ddz * ddz
+    # tile 13 is the cell itself: its slot k is the i atom of slot k
+    itself = (torch.arange(27 * cap, device=dev)
+              == 13 * cap + torch.arange(cap, device=dev)[:, None])
+    mask = (valid_i[..., :, None] & valid_j[..., None, :]
+            & (r2 < cutoff * cutoff) & ~itself)
+    e_ij, f, ec = _pair_terms(r2, mask, qi, qj, hi, hj, si, sj, alpha,
+                              cutoff)
+    e = 0.5 * torch.sum(e_ij)
+    g = torch.stack([torch.sum(f * d, dim=-1) for d in (ddx, ddy, ddz)])
+    return e, g, torch.sum(ec * qj[..., None, :], dim=-1)
+
+
+def direct_walk_slab(x, y, z, q, hs, se, ids, box, n_atoms: int,
+                     alpha: float, cutoff: float, grid, decomp):
+    """Slab walk: plain version on the CPU, the CUDA kernel
+    (``cf_direct_walk_slab``) on the card.  The kernel's conditions are the
+    periodic walk's on the global ``grid`` (>= 3 cells per axis), so a
+    rank's slab may be one or two cells thick."""
+    if x.device.type == "cpu":
+        return direct_walk_slab_plain(x, y, z, q, hs, se, ids, box, n_atoms,
+                                      alpha, cutoff, grid, decomp)
+    n_own, n_ext, cap = _slab_shape(grid, decomp, x.shape[-1])
+    # the kernel's conditions on the global grid; the blocks are the
+    # extended slab's
+    _check_inputs("slab walk kernel", (x, y, z, q, hs, se), ids, box,
+                  (n_ext, cap), float(alpha), float(cutoff),
+                  tuple(grid) + (cap,))
+    coef = constant(erf_over_r_coeffs(float(alpha), float(cutoff)),
+                    torch.float32, x.device)
+    nbr, img = _slab_tables(tuple(grid), tuple(decomp), x.device)
+    e_part = torch.empty((n_own,), dtype=torch.float32, device=x.device)
+    g = torch.empty((3, n_own, cap), dtype=torch.float32, device=x.device)
+    dq = torch.empty((n_own, cap), dtype=torch.float32, device=x.device)
+    err = native.library().cf_direct_walk_slab(
+        *(t.data_ptr() for t in (x, y, z, q, hs, se, ids, nbr, img, box,
+                                 coef)),
+        coef.numel(), 2.0 / (cutoff * cutoff), cutoff * cutoff, n_atoms,
+        n_own, n_ext, cap, int(box.ndim == 2), e_part.data_ptr(),
+        g.data_ptr(), dq.data_ptr(), native.stream_ptr(x))
+    native.check(err, "cf_direct_walk_slab")
+    LAUNCHES["direct_walk_halo"] += 1
     return torch.sum(e_part), g, dq

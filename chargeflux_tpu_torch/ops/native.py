@@ -97,13 +97,17 @@ def library() -> ctypes.CDLL:
         lib.cf_spread_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.cf_direct_walk.argtypes = ([p] * 11 + [i, f, f, i, i, i, i]
                                        + [p] * 3 + [p])
+        lib.cf_direct_walk_slab.argtypes = ([p] * 11
+                                            + [i, f, f, i, i, i, i, i]
+                                            + [p] * 3 + [p])
         # the structure-factor kernels end in (R, the replica strides)
         lib.cf_sf_fwd.argtypes = [p] * 7 + [i] * 9 + [ll] * 4 + [p]
         lib.cf_sf_bwd_tables.argtypes = [p] * 11 + [i] * 5 + [ll] * 4 + [p]
         lib.cf_sf_bwd_zq.argtypes = [p] * 7 + [i] * 5 + [ll] * 4 + [p]
         for fn in (lib.cf_spread_limits, lib.cf_walk_limits,
                    lib.cf_sf_limits, lib.cf_spread_fwd, lib.cf_spread_bwd,
-                   lib.cf_direct_walk, lib.cf_sf_fwd, lib.cf_sf_bwd_tables,
+                   lib.cf_direct_walk, lib.cf_direct_walk_slab,
+                   lib.cf_sf_fwd, lib.cf_sf_bwd_tables,
                    lib.cf_sf_bwd_zq):
             fn.restype = i
         _lib = lib

@@ -8,39 +8,50 @@ group (or, by :func:`halo_decomp`, into x-by-y bricks).  Each rank
   of ``cells.rank_into_slots`` with an ownership mask),
 * gathers its local cell blocks (``cells.gather_rows``: an
   inverse-permutation backward),
-* receives one boundary plane of blocks from its +x ring neighbor
-  (``shard.ppermute``; the half shell's dx is in {0, 1}, so only the high
-  x halo is consumed); a 2-D brick first extends y both ways, then sends
-  its y-extended x plane, so the corner cells ride the second stage.  The
-  lattice shifts of a plane that crosses the periodic boundary are applied
-  when it is exchanged;
-* runs the concat tile walk on the extended slab: the 14 half-shell j
-  slabs, x by slicing, y and z by rolls with static boundary image
-  offsets, joined along the slot axis into one [cap, 14 cap] pair tile,
-  under ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``).
+* receives the boundary planes of blocks it walks into: the -x plane from
+  its -x ring neighbor and the +x plane from its +x one (``shard.ppermute``);
+  a 2-D brick first extends y both ways, then exchanges its y-extended x
+  planes, so the corner cells ride the second stage.  The lattice shifts of
+  a plane that crosses the periodic boundary are applied when it is
+  exchanged;
+* walks the full 27-cell shell of each owned cell over the extended slab,
+  owned blocks first and halo cells after them, through the tables of
+  ``cells.slab_shell_tables``: the walk kernel's slab form
+  (``ops.direct_walk.direct_walk_slab``) for f32 on the card, its plain
+  version (a gather through the same tables) on the CPU and in f64.  The
+  JAX package walks a half shell with its concat tile under
+  ``jax.checkpoint``; both sum every in-cutoff pair once.
 
-Forces come from autograd: ``shard.replicated_in`` on the positions sums
-the ranks' partial forces, ``shard.sum_out`` assembles the energy, and the
-exchange's backward sends the cotangents back.  A binning overflow on any
-rank or a box whose cell planes fall below the cutoff poisons the energy
-and every force to NaN, as the single-device cell route does.
+Forces.  The walk returns half of each owned cell's full-shell sum, so a
+pair across a slab face counts half on each of its two ranks and
+``shard.sum_out`` assembles the exact energy.  It also returns the whole
+dE/dx and dE/dq of every owned atom, over all of its pairs, halo partners
+included.  :class:`_SlabDirectEnergy` hands those to the owned blocks and
+nothing to the halo planes, which are exchanged detached (no backward
+exchange).  This is not the derivative of one rank's share, but the sum
+over the ranks is the derivative of the sum: every atom is owned by one
+rank, which gives it its whole direct-space gradient, and
+``shard.replicated_in`` on the positions sums the ranks' partial forces.
+The rest (flux charges, exclusions, self, the reciprocal term from the
+all-reduced structure factors or charge mesh) differentiates through
+autograd as before.  A binning overflow on any rank or a box whose cell
+planes fall below the cutoff poisons the energy and every force to NaN,
+as the single-device cell route does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
-from ..cells import HALF_SHELL, gather_rows, wrap_offsets
+from ..cells import gather_rows, wrap_offsets
 from ..charges import effective_charges
 from ..device import constant
 from ..energy import dispersion_energy, resolve_recip_method
 from ..ewald import reciprocal_energy_from_sf, self_energy, structure_factors
-from ..ops.erfc import erf_over_r_eval, erfc_fast
+from ..ops.direct_walk import direct_walk_slab, direct_walk_slab_plain
 from ..pairs import frac_coords, plane_widths
 from ..system import box_widths
-from ..units import ONE_4PI_EPS0
 from .shard import (_axis, _ceil_to, _excl_chunk_energy, all_reduce_sum,
                     ppermute, replicated_in, sum_out)
 
@@ -66,13 +77,6 @@ def halo_decomp(system, ndev: int):
 
 def halo_compatible(system, ndev: int) -> bool:
     return halo_decomp(system, ndev) is not None
-
-
-def _boundary_crossing(axis_len: int, d: int) -> np.ndarray:
-    """+1 where a roll by ``d`` crosses the high boundary, -1 across the
-    low one, 0 inside ([axis_len])."""
-    c = np.arange(axis_len)
-    return np.where(c + d >= axis_len, 1.0, np.where(c + d < 0, -1.0, 0.0))
 
 
 def _local_bin(positions, system, dev_x: int, dev_y: int, gxl: int,
@@ -152,6 +156,33 @@ def make_halo_energy_fn(system, mesh, axis_name: str = "space",
                                       decomp=decomp)
 
 
+class _SlabDirectEnergy(torch.autograd.Function):
+    """This rank's share of the direct-space energy: the slab walk over the
+    extended slab (the owned blocks ``own8`` [n_own, cap, 8], then the
+    detached halo blocks ``halo8``).  The backward hands the walk's dE/dx
+    and dE/dq of the owned atoms to ``own8``'s x, y, z and q columns and
+    nothing to the halo (see the module docstring: summed over the ranks,
+    that is the gradient of the summed energy)."""
+
+    @staticmethod
+    def forward(ctx, own8, halo8, ids, box, n_atoms, alpha, cutoff, grid,
+                decomp, plain):
+        ext = torch.cat([own8.detach(), halo8])
+        cols = [ext[..., k].contiguous() for k in range(6)]
+        walk = direct_walk_slab_plain if plain else direct_walk_slab
+        e, g, dq = walk(*cols, ids, box, n_atoms, alpha, cutoff, grid,
+                        decomp)
+        ctx.save_for_backward(g, dq)
+        return e
+
+    @staticmethod
+    def backward(ctx, g_out):
+        g, dq = ctx.saved_tensors
+        ct = torch.cat([g.permute(1, 2, 0), dq[..., None],
+                        dq.new_zeros(dq.shape + (4,))], dim=-1)
+        return (g_out * ct,) + (None,) * 9
+
+
 def _halo_local_energy_builder(system, group, dev: int, ndev: int,
                                decomp=None):
     """This rank's halo energy program ``energy(positions, box=None)``."""
@@ -162,84 +193,34 @@ def _halo_local_energy_builder(system, group, dev: int, ndev: int,
     gxl, gyl = gx // ddx, gy // ddy
     dev_x, dev_y = dev // ddy, dev % ddy
     n = system.n_atoms
+    n_own = gxl * gyl * gz
     n_pad = _ceil_to(n, ndev)
     row_chunk = n_pad // ndev
     e_chunk = _ceil_to(max(system.n_exclusions, 1), ndev) // ndev
     alpha, cutoff = spec.alpha, spec.cutoff
+    plain = system.kernel_route == "plain"
     rows = slice(dev * row_chunk, (dev + 1) * row_chunk)
+    # (source, destination) pairs: the y rows go to the -y and +y
+    # neighbors, the x planes to the -x and +x neighbors
     perm_hi_y = [(x * ddy + y, x * ddy + (y - 1) % ddy)
                  for x in range(ddx) for y in range(ddy)]
     perm_lo_y = [(x * ddy + y, x * ddy + (y + 1) % ddy)
                  for x in range(ddx) for y in range(ddy)]
-    ring_x = [(x * ddy + y, ((x - 1) % ddx) * ddy + y)
-              for x in range(ddx) for y in range(ddy)]
+    perm_hi_x = [(x * ddy + y, ((x - 1) % ddx) * ddy + y)
+                 for x in range(ddx) for y in range(ddy)]
+    perm_lo_x = [(x * ddy + y, ((x + 1) % ddx) * ddy + y)
+                 for x in range(ddx) for y in range(ddy)]
 
-    def offs_yz(box, dy_, dz_, dtype, device):
-        # y/z wrap offsets per coordinate (x: the ext slicing and the halo
-        # shift); with ddy > 1 only z (y wraps were applied at exchange)
-        cz = constant(_boundary_crossing(gz, dz_).tolist(), dtype,
-                      device).reshape(1, 1, gz, 1)
-        if ddy > 1:
-            cy = torch.zeros((), dtype=dtype, device=device)
-        else:
-            cy = constant(_boundary_crossing(gy, dy_).tolist(), dtype,
-                          device).reshape(1, gy, 1, 1)
-        if box.ndim == 2:
-            return (cy * box[1, 0] + cz * box[2, 0],
-                    cy * box[1, 1] + cz * box[2, 1], cz * box[2, 2])
-        return (torch.zeros((), dtype=dtype, device=device), cy * box[1],
-                cz * box[2])
+    def shifted(plane, s, row):
+        # the plane's valid slots moved by s times the lattice row ``row``
+        # (a [3] tensor: (L_x, 0, 0), or a triclinic row), sentinels kept
+        return torch.cat([plane[..., :3] + s * row * plane[..., 6:7],
+                          plane[..., 3:]], dim=-1)
 
-    def tile_energy(ext, ids, box):
-        dtype, device = ext.dtype, ext.device
-        if ddy > 1:
-            g8 = ext[:gxl, 1:1 + gyl]
-        else:
-            g8 = ext[:gxl]
-        valid_i = ids < n
-        xi = [g8[..., k] for k in range(3)]
-        qi, hi_, si = g8[..., 3], g8[..., 4], g8[..., 5]
-        slabs = []
-        for (dx_, dy_, dz_) in HALF_SHELL:
-            if ddy > 1:
-                sl = torch.roll(ext[dx_:dx_ + gxl, 1 + dy_:1 + dy_ + gyl],
-                                -dz_, 2)
-            else:
-                sl = torch.roll(ext[dx_:dx_ + gxl], (-dy_, -dz_), (1, 2))
-            ox, oy, oz = offs_yz(box, dy_, dz_, dtype, device)
-            slabs.append((sl[..., 0] + ox, sl[..., 1] + oy, sl[..., 2] + oz,
-                          sl[..., 3], sl[..., 4], sl[..., 5],
-                          sl[..., 6] > 0.5))
-
-        def cat(k):
-            return torch.cat([s[k] for s in slabs], dim=-1)
-
-        xj = [cat(0), cat(1), cat(2)]
-        qj, hj, sj, mj = cat(3), cat(4), cat(5), cat(6)
-        # self slab (first cap columns): pairs ordered by global atom id;
-        # the other 13 slabs take every in-range pair once
-        ordered = torch.cat(
-            [ids[..., :, None] < ids[..., None, :],
-             torch.ones(ids.shape[:-1] + (cap, 13 * cap), dtype=torch.bool,
-                        device=device)], dim=-1)
-        r2 = 0.0
-        for k in range(3):
-            dk = xi[k][..., :, None] - xj[k][..., None, :]
-            r2 = r2 + dk * dk
-        mask = (valid_i[..., :, None] & mj[..., None, :]
-                & (r2 < cutoff * cutoff) & ordered)
-        r2s = torch.where(mask, r2, 1.0)
-        inv_r = torch.rsqrt(r2s)
-        qq = ONE_4PI_EPS0 * (qi[..., :, None] * qj[..., None, :])
-        if dtype == torch.float64:
-            coul = qq * inv_r * erfc_fast(alpha * (r2s * inv_r))
-        else:
-            # the f32 walk's exp- and divide-free form (ops/erfc.py)
-            coul = qq * (inv_r - erf_over_r_eval(r2s, alpha, cutoff))
-        sig2 = ((hi_[..., :, None] + hj[..., None, :]) * inv_r) ** 2
-        sig6 = sig2 * sig2 * sig2
-        lj = (si[..., :, None] * sj[..., None, :]) * sig6 * (sig6 - 1.0)
-        return torch.sum(torch.where(mask, coul + lj, 0.0))
+    def exchange(plane, perm, tag, s, row):
+        # detached: the walk's backward sends nothing back
+        out = ppermute(plane.detach(), group, dev, perm, tag=tag)
+        return shifted(out, s, row) if s else out
 
     def local_energy(positions, box=None):
         positions = replicated_in(positions, group)
@@ -263,38 +244,38 @@ def _halo_local_energy_builder(system, group, dev: int, ndev: int,
         g8 = gather_rows(table, slots.reshape(-1), slot_of).reshape(
             gxl, gyl, gz, cap, 8)
 
-        # halo exchange: y both ways first (2-D), then the (y-extended)
-        # x = 0 plane back along the x ring; the global-wrap lattice shift
-        # of each plane is applied here, on valid slots only
+        # halo exchange, every rank in the same order: y both ways first
+        # (2-D), then the (y-extended) x planes; the global-wrap lattice
+        # shift of each plane is applied here, on valid slots only
         if box.ndim == 2:
-            lx, by0, by1 = box[0, 0], box[1, 0], box[1, 1]
+            row_x, row_y = box[0], box[1]
         else:
-            lx, by0, by1 = box[0], torch.zeros((), dtype=dtype,
-                                               device=device), box[1]
+            zero = box.new_zeros(())
+            row_x = torch.stack([box[0], zero, zero])
+            row_y = torch.stack([zero, box[1], zero])
+        halo = []
         if ddy > 1:
-            hi_y = ppermute(g8[:, 0], group, dev, perm_hi_y, tag=1)
-            lo_y = ppermute(g8[:, gyl - 1], group, dev, perm_lo_y, tag=2)
-            s_hi = 1.0 if dev_y == ddy - 1 else 0.0
-            s_lo = -1.0 if dev_y == 0 else 0.0
-
-            def y_shift(plane, s):
-                valid = plane[..., 6]
-                return torch.cat([plane[..., 0:1] + (s * by0 * valid)[..., None],
-                                  plane[..., 1:2] + (s * by1 * valid)[..., None],
-                                  plane[..., 2:]], dim=-1)
-
-            ext_y = torch.cat([y_shift(lo_y, s_lo)[:, None], g8,
-                               y_shift(hi_y, s_hi)[:, None]], dim=1)
+            hi_y = exchange(g8[:, 0], perm_hi_y, 1,
+                            1.0 if dev_y == ddy - 1 else 0.0, row_y)
+            lo_y = exchange(g8[:, gyl - 1], perm_lo_y, 2,
+                            -1.0 if dev_y == 0 else 0.0, row_y)
+            ext_y = torch.cat([lo_y[:, None], g8.detach(), hi_y[:, None]],
+                              dim=1)
+            halo += [lo_y, hi_y]
         else:
             ext_y = g8
-        halo_hi = ppermute(ext_y[0], group, dev, ring_x, tag=3)
-        hi_shift = 1.0 if dev_x == ddx - 1 else 0.0
-        halo_hi = torch.cat([halo_hi[..., 0:1]
-                             + (hi_shift * lx * halo_hi[..., 6])[..., None],
-                             halo_hi[..., 1:]], dim=-1)
-        ext = torch.cat([ext_y, halo_hi[None]], dim=0)
+        halo.append(exchange(ext_y[gxl - 1], perm_lo_x, 3,
+                             -1.0 if dev_x == 0 else 0.0, row_x))
+        halo.append(exchange(ext_y[0], perm_hi_x, 4,
+                             1.0 if dev_x == ddx - 1 else 0.0, row_x))
+        halo8 = torch.cat([h.reshape(-1, cap, 8) for h in halo])
         ids = slots.reshape(gxl, gyl, gz, cap)
-        e_dir = checkpoint(tile_energy, ext, ids, box, use_reentrant=False)
+        # a halo atom's id only says whether its slot holds one
+        ids_ext = torch.cat([slots, torch.where(
+            halo8[..., 6] > 0.5, 0, n).to(torch.int32)]).contiguous()
+        e_dir = _SlabDirectEnergy.apply(
+            g8.reshape(n_own, cap, 8), halo8, ids_ext, box, n, alpha, cutoff,
+            (gx, gy, gz), (ddx, ddy), plain)
 
         # overflow on any rank, or a moved box below the cutoff: NaN
         overflow_tot = all_reduce_sum(overflow, group)

@@ -2,6 +2,7 @@
 
     python3 -m chargeflux_tpu_torch.utils.measure profile [--path PATH]
     python3 -m chargeflux_tpu_torch.utils.measure f64 [--path PATH]
+    python3 -m chargeflux_tpu_torch.utils.measure multigpu [--device cpu]
 
 PATH is 30k (the default), 216, rigid, respa, npt, or one of the other
 NVE configs of the JAX package's bench.py: 4k, 100k, tri30k, hetero30k
@@ -53,6 +54,10 @@ NPT and thermostat paths have no plain-path variant.
 
 ``f64``: 200 NVE steps of the f32 kernel path beside 200 of the plain f64
 path from one start state: ms/step, net drift, max and RMS of ``E - E0``.
+
+``multigpu``: the multi-device routes on one process per visible card
+(an NCCL group), each against the single-card route; ``--device cpu``
+rehearses them on gloo ranks at small sizes (``utils/multigpu.py``).
 """
 
 from __future__ import annotations
@@ -122,6 +127,11 @@ def kernel_bound(name: str, **dims) -> dict:
       bytes: six float and one id column per slot in, dE/dx and dE/dq per
       slot out, the 27-cell neighbor and image tables, one energy per cell
       and the box (3 floats, 9 for a triclinic lattice).
+    direct_walk_halo (n_pairs, n_own_slots, n_ext_slots, n_own, ncoef[,
+      box_floats]): the walk's flops for the n_pairs in-cutoff pairs of
+      the owned cells; bytes: seven columns per slot of the extended slab
+      in, dE/dx and dE/dq per owned slot out, the tables and one energy
+      per owned cell, the box and the coefficients.
     binning (n_atoms, n_slots): the cell binning of a neighbor rebuild
       (``cells.build_cell_list_full``), no flops counted: the positions in
       (3 floats per atom), the slots (one int per slot), the inverse slots
@@ -152,6 +162,11 @@ def kernel_bound(name: str, **dims) -> dict:
         flops = d["n_pairs"] * (51 + 4 * (d["ncoef"] - 1))
         nbytes = (F32 * (11 * d["n_slots"] + d["n_cells"] * (1 + 27 + 81)
                          + d.get("box_floats", 3) + d["ncoef"]))
+    elif name == "direct_walk_halo":
+        flops = d["n_pairs"] * (51 + 4 * (d["ncoef"] - 1))
+        nbytes = F32 * (7 * d["n_ext_slots"] + 4 * d["n_own_slots"]
+                        + d["n_own"] * (1 + 27 + 81)
+                        + d.get("box_floats", 3) + d["ncoef"])
     elif name == "binning":
         flops = 0
         nbytes = F32 * (3 * d["n_atoms"] + d["n_slots"] + d["n_atoms"] + 1)
@@ -983,23 +998,85 @@ def call_graph(fn):
     return graph
 
 
-def interleaved_ms(fns) -> list:
+def interleaved_ms(fns, before=None) -> list:
     """Median CUDA-event ms per call of each function over ROUNDS rounds:
     in each, the graph of every function is replayed once, in turns (the
     order reversed every other round).  Device time, no host enqueue."""
-    graphs = [call_graph(fn) for fn in fns]
+    return replayed_ms([call_graph(fn) for fn in fns], before)
+
+
+def replayed_ms(graphs, before=None) -> list:
+    """:func:`interleaved_ms` of graphs already captured by
+    :func:`call_graph`; ``before()`` (a barrier of a process group, so
+    that every rank replays in step) runs before each replay."""
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    times = [[] for _ in fns]
-    order = list(range(len(fns)))
+    times = [[] for _ in graphs]
+    order = list(range(len(graphs)))
     for r in range(ROUNDS):
         for k in order if r % 2 == 0 else order[::-1]:
             torch.cuda.synchronize()
+            if before is not None:
+                before()
             a.record()
             graphs[k].replay()
             b.record()
             torch.cuda.synchronize()
             times[k].append(a.elapsed_time(b) / GRAPH_REPS)
     return [statistics.median(t) for t in times]
+
+
+def eager_ms(fn, reps: int = 3, before=None, cuda: bool = True) -> float:
+    """ms per call of ``fn`` over ``reps`` calls after a warm one, with
+    ``before()`` (a barrier, say) between them: CUDA events on the card,
+    the host clock with ``cuda=False``."""
+    fn()
+    if cuda:
+        torch.cuda.synchronize()
+    if before is not None:
+        before()
+    if not cuda:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+HALO_TOL_F32 = 1e-5   # the halo route against the single-card route, f32
+
+
+def energy_forces(e_fn, x, *args):
+    """(energy, forces) of ``e_fn(x, *args)``: the energy detached and
+    -dE/dx of its sum, taken at a fresh leaf copy of ``x``."""
+    xg = x.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        e = e_fn(xg, *args)
+        (g,) = torch.autograd.grad(e.sum(), xg)
+    return e.detach(), -g
+
+
+def energy_scale(x, system) -> float:
+    """sum over the energy components of |E_c| at ``x``: the scale of an
+    f32 energy comparison (the total cancels far below its terms)."""
+    from ..energy import energy_components
+
+    with torch.no_grad():
+        return sum(float(v.abs()) for v in
+                   energy_components(x, system).values())
+
+
+def rel_errors(e, f, e_ref, f_ref, scale: float) -> tuple:
+    """(|e - e_ref| / scale, RMS(f - f_ref) / RMS(f_ref)), in f64."""
+    d_e = abs(float(e) - float(e_ref)) / scale
+    d_f = float(torch.sqrt(torch.mean((f.double() - f_ref.double()) ** 2))
+                / torch.sqrt(torch.mean(f_ref.double() ** 2)))
+    return d_e, d_f
 
 
 def spread_inputs(x, system):
@@ -1057,6 +1134,88 @@ def drifted_blocks(system, state, e_fn, masses, n_steps: int):
                     moved=float((x - nb.x_ref).norm(dim=-1).max()))
     return (*b, ids, system.box, system.n_atoms, spec.alpha,
             spec.cutoff), info
+
+
+def halo_spread_work(system, x):
+    """The halo route's plain patch spread (``pme.pme_halo_local_mesh``)
+    forward and backward alone, on the blocks of a world of one at
+    positions ``x`` (``system`` on its halo PME mesh), against a fixed
+    random mesh cotangent: a function to time beside the evaluation."""
+    from ..pme import pme_halo_local_mesh
+
+    _spread_in, b, ids = spread_inputs(x, system)
+    valid = (ids < system.n_atoms).to(x.dtype)
+    g8 = torch.stack([b.x, b.y, b.z, b.q, b.hs, b.se, valid,
+                      torch.zeros_like(valid)], dim=-1).requires_grad_(True)
+    mesh = system.spec.pme_grid
+    ct = torch.randn(mesh, dtype=x.dtype, device=x.device,
+                     generator=torch.Generator(x.device).manual_seed(0))
+
+    def run():
+        with torch.enable_grad():
+            q_mesh = pme_halo_local_mesh(g8, ids, system, 0, mesh)
+            return torch.autograd.grad(q_mesh, g8, ct)
+    return run
+
+
+def slab_cells(grid, decomp, rank: int):
+    """What the halo route's exchange puts in each cell of rank ``rank``'s
+    extended slab (the layout of ``cells.slab_shell_tables``): (global
+    cell id [n_ext], lattice shift [n_ext, 3] of the copy, in lattice
+    units), NumPy."""
+    import numpy as np
+
+    gx, gy, gz = grid
+    ddx, ddy = decomp
+    gxl, gyl = gx // ddx, gy // ddy
+    rx, ry = rank // ddy, rank % ddy
+    out = []
+
+    def add(cx, cy):
+        for cz in range(gz):
+            out.append((((cx % gx) * gy + cy % gy) * gz + cz,
+                        cx // gx, cy // gy))
+
+    for lx in range(gxl):
+        for ly in range(gyl):
+            add(rx * gxl + lx, ry * gyl + ly)
+    if ddy == 1:
+        for cx in (rx * gxl - 1, rx * gxl + gxl):
+            for cy in range(gy):
+                add(cx, cy)
+    else:
+        for cy in (ry * gyl - 1, ry * gyl + gyl):
+            for lx in range(gxl):
+                add(rx * gxl + lx, cy)
+        for cx in (rx * gxl - 1, rx * gxl + gxl):
+            for ly in range(-1, gyl + 1):
+                add(cx, ry * gyl + ly)
+    a = np.asarray(out)
+    return a[:, 0], np.stack([a[:, 1], a[:, 2], 0 * a[:, 2]], axis=-1)
+
+
+def slab_walk_args(walk_args, decomp, rank: int):
+    """The slab walk's arguments (``ops.direct_walk.direct_walk_slab``) for
+    rank ``rank`` of ``decomp``, cut from the periodic walk's
+    ``walk_args`` (blocks [gx, gy, gz, cap], ids, box, n_atoms, alpha,
+    cutoff, as :func:`drifted_blocks` returns them): the extended slab's
+    cells gathered from the global blocks, the exchange's lattice shift
+    added to the valid slots of each copy.  For a world of one, decomp
+    (1, 1), the slab is the whole grid and its two x planes."""
+    x, y, z, q, hs, se, ids, box, n_atoms, alpha, cutoff = walk_args
+    grid, cap = tuple(x.shape[:3]), x.shape[3]
+    cell, shift = slab_cells(grid, decomp, rank)
+    idx = torch.as_tensor(cell, device=x.device)
+    sh = torch.as_tensor(shift, dtype=x.dtype, device=x.device)
+    rows = box if box.ndim == 2 else torch.diag(box)
+    off = sh[:, 0:1] * rows[0] + sh[:, 1:2] * rows[1]      # [n_ext, 3]
+    ids_ext = ids.reshape(-1, cap)[idx].contiguous()
+    valid = (ids_ext < n_atoms).to(x.dtype)
+    pos = [(a.reshape(-1, cap)[idx] + off[:, k:k + 1] * valid).contiguous()
+           for k, a in enumerate((x, y, z))]
+    rest = [a.reshape(-1, cap)[idx].contiguous() for a in (q, hs, se)]
+    return (*pos, *rest, ids_ext, box, n_atoms, alpha, cutoff, grid,
+            tuple(decomp))
 
 
 def device_events(events) -> list:
@@ -1423,13 +1582,21 @@ def f64_control(system, state, rebuild_every, masses, bonded):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("profile", "f64"))
+    ap.add_argument("what", choices=("profile", "f64", "multigpu"))
     ap.add_argument("--path", choices=("30k", "216", "rigid", "respa", "npt",
                                        "csvr", "nhc", "4k", "100k", "tri30k",
                                        "hetero30k", "onramp30k", "rbe",
                                        "rbe100k"),
                     default="30k")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="multigpu: 'cpu' rehearses the routes on gloo "
+                    "ranks at small sizes")
     args = ap.parse_args(argv)
+    if args.what == "multigpu" and args.device == "cpu":
+        from .multigpu import run
+
+        run(small=True)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("measure: needs a CUDA device")
     if args.what == "f64" and args.path in ("rigid", "respa", "npt", "csvr",
@@ -1441,6 +1608,11 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
+    if args.what == "multigpu":
+        from .multigpu import run
+
+        run()
+        return
     dev = torch.device("cuda", 0)
     dt_ps, parts, plain = DT_PS, None, True
     if args.path == "npt":

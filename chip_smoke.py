@@ -161,12 +161,24 @@ in order:
    the configurations kept as a multiset at dt = 0, every slot's mean
    temperature within 10 % of its target; acceptance per parity, ms/step;
 10c. halo1: ``parallel.halo`` in a world of one (an NCCL group of one
-   rank, decomposition (1, 1)) at the 30k box in f32 against the
-   single-system kernel route (|dE| <= 1e-5 of sum|E_c|, force RMS <=
-   1e-5) and at a 4k box in f64 against the plain route (1e-10), each on
-   the halo PME mesh and on classical Ewald, with ms per evaluation and
-   the collectives issued; NVE over the halo energy with the NCCL
-   all-reduces inside the chunk graphs, bit-equal to graph=False;
+   rank, decomposition (1, 1)).  The walk kernel's slab form
+   (``direct_walk_halo``) against its plain slab walk (phase 3's
+   tolerances, bitwise repeat) on phase 5's drifted blocks cut into the
+   extended slab of a world of one, timed as in phase 3 beside its bound,
+   and into the slabs of ranks of (4, 1) and (2, 2), and its triclinic
+   form on phase 6's drifted tri30k blocks cut the same three ways; at
+   phase 5's burned-in 30k state in f32 against the single-system kernel
+   route (|dE| <= 1e-5 of sum|E_c|, force RMS <= 1e-5; one slab kernel
+   launch and no periodic walk an evaluation) and at a 4k box in f64 against
+   the plain route (1e-10), each on the halo PME mesh and on classical
+   Ewald, with both routes' ms per evaluation (device time as graphs in
+   turns, and eager) and the collectives issued; the halo PME mesh's
+   plain patch spread alone and its share of the 30k evaluation; NVE
+   over the 4k f64 halo energy ('xla', the plain slab walk) and over the
+   30k halo energy and the water bonds, each with the NCCL all-reduces
+   inside the chunk graphs and bit-equal to graph=False, then 100 replayed
+   steps (ms/step; counts reset before them) in which the slab kernel
+   must have launched and the periodic walk not;
 11. a JSON line with each kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
@@ -197,6 +209,10 @@ KERNELS = {
                     "chargeflux_tpu/cells.py:862", "30k"),
     "direct_walk_tri": ("chargeflux_tpu_torch/csrc/direct_walk.cu",
                         "chargeflux_tpu/cells.py:862", "tri30k"),
+    # the walk's slab form on the halo route (the JAX package's tile_energy
+    # under jax.checkpoint, the concat walk on one rank's slab)
+    "direct_walk_halo": ("chargeflux_tpu_torch/csrc/direct_walk.cu",
+                         "chargeflux_tpu/parallel/halo.py:307", "halo1"),
     "sf_fwd": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:145", "216"),
     "sf_bwd_tables": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:157",
                       "216"),
@@ -512,7 +528,7 @@ def run_tri(dev, results):
             and launches["direct_walk"] == 0):
         fail("phase 6: the sheared box must run the spread kernels and the "
              "triclinic walk only")
-    return counts, ms, ms_eager
+    return counts, ms, ms_eager, walk_args
 
 
 def run_hetero(dev):
@@ -1378,8 +1394,8 @@ REMD_EVERY = 10            # steps per exchange sweep
 REMD_BURN_STEPS = 800      # steps of 20/ps burn-in
 REMD_CALLS = 20            # production calls of REMD_CALL_STEPS each
 REMD_CALL_STEPS = 20
-HALO_TOL_F32 = 1e-5        # |dE| / sum|E_c| and force RMS, f32 30k box
 HALO_TOL_F64 = 1e-10       # energy and force RMS relative, f64 4k box
+HALO_STEPS = 100           # phase 10c's replayed halo NVE steps
 
 
 def check_batched_sf(path, results):
@@ -1673,73 +1689,149 @@ def _free_port() -> int:
 def halo_case(label, system, x, tol, f32):
     """One halo comparison in phase 10c: ``make_halo_energy_fn`` over the
     group of one against the single-system ``energy_and_forces`` on the
-    same system; returns (ms per evaluation, collectives of one)."""
+    same system, each timed in this process (energy and forces: device
+    time as graphs of calls in turns, and eagerly, 3 calls after a warm
+    one); an f32 system must run the slab walk kernel and not the
+    periodic one.  Returns the times and the collectives of one
+    evaluation."""
     import torch
 
-    from chargeflux_tpu_torch.energy import (energy_and_forces,
-                                             energy_components)
+    from chargeflux_tpu_torch import ops
+    from chargeflux_tpu_torch.energy import energy_and_forces
     from chargeflux_tpu_torch.parallel import shard
     from chargeflux_tpu_torch.parallel.halo import make_halo_energy_fn
+    from chargeflux_tpu_torch.utils.measure import (GRAPH_REPS, ROUNDS,
+                                                    eager_ms, energy_forces,
+                                                    energy_scale,
+                                                    interleaved_ms,
+                                                    rel_errors)
 
     e_ref, f_ref = energy_and_forces(x, system)
     e_fn = make_halo_energy_fn(system, None)
 
     def ef():
-        xg = x.detach().clone().requires_grad_(True)
-        e = e_fn(xg)
-        (g,) = torch.autograd.grad(e, xg)
-        return e.detach(), -g
+        return energy_forces(e_fn, x)
+
+    def single():
+        return energy_and_forces(x, system)
 
     shard.reset_collectives()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
     e, f = ef()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
     coll = dict(shard.COLLECTIVES)
     if f32:
-        with torch.no_grad():
-            scale = sum(float(v.abs()) for v in
-                        energy_components(x, system).values())
-        d_e = float((e.double() - e_ref.double()).abs()) / scale
-        what = "|dE| / sum|E_c|"
+        scale, what = energy_scale(x, system), "|dE| / sum|E_c|"
     else:
-        d_e = float((e - e_ref).abs() / e_ref.abs())
-        what = "|dE| / |E|"
-    d_f = float(torch.sqrt(torch.mean((f.double() - f_ref.double()) ** 2))
-                / torch.sqrt(torch.mean(f_ref.double() ** 2)))
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    ef()
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(3):
-        ef()
-    b.record()
-    torch.cuda.synchronize()
-    ms = a.elapsed_time(b) / 3
+        scale, what = abs(float(e_ref)), "|dE| / |E|"
+    d_e, d_f = rel_errors(e, f, e_ref, f_ref, scale)
+    ms, ms_single = eager_ms(ef), eager_ms(single)
+    dev_ms, dev_single = interleaved_ms((ef, single))
+    walks = {k: launches[k] for k in ("direct_walk_halo", "direct_walk",
+                                      "direct_walk_tri")}
     print(f"phase 10c halo {label}: {what} {d_e:.3e}, force RMS relative "
-          f"{d_f:.3e} (limits {tol}); {ms:.3f} ms per evaluation (energy "
-          f"and forces, eager, CUDA events); collectives of one "
-          f"evaluation {coll}", flush=True)
+          f"{d_f:.3e} (limits {tol}); energy and forces {dev_ms:.3f} ms per "
+          f"evaluation on the device against {dev_single:.3f} for the "
+          f"single-system route (graphs of {GRAPH_REPS} calls in turns, "
+          f"median of {ROUNDS}); eager {ms:.3f} against {ms_single:.3f} "
+          f"(CUDA events); walk launches of one evaluation {walks}; "
+          f"collectives {coll}", flush=True)
     if not (torch.isfinite(f).all() and d_e <= tol and d_f <= tol):
         fail(f"phase 10c: the halo route disagrees ({label})")
-    return ms, coll
+    if walks["direct_walk"] or walks["direct_walk_tri"] or (
+            walks["direct_walk_halo"] != (1 if f32 else 0)):
+        fail(f"phase 10c: the halo route's walk launches {walks} ({label})")
+    return {"ms_per_eval": dev_ms, "ms_per_eval_single": dev_single,
+            "ms_per_eval_eager": ms, "ms_per_eval_single_eager": ms_single,
+            "collectives": coll}
 
 
-def run_halo(dev):
+def check_slab_kernel(ctx30k, walk_tri, results):
+    """Phase 10c: the slab walk kernel against its plain version on the
+    drifted blocks of phase 5's burned-in state, cut into the extended
+    slab of a world of one (timed, beside its bound) and into the slabs of
+    ranks of (4, 1) and (2, 2) (agreement only); then its triclinic form
+    on phase 6's drifted tri30k blocks cut the same three ways (agreement
+    only)."""
+    import torch
+
+    from chargeflux_tpu_torch.integrate import make_nb_energy_fn
+    from chargeflux_tpu_torch.ops import direct_walk as dw
+    from chargeflux_tpu_torch.ops.erfc import erf_over_r_coeffs
+    from chargeflux_tpu_torch.utils.measure import (drifted_blocks,
+                                                    kernel_bound,
+                                                    pairs_within_cutoff,
+                                                    slab_walk_args)
+
+    system, s1, rebuild_every, bonded, masses = ctx30k
+    spec = system.spec
+    e_fn, _ = make_nb_energy_fn(system, bonded=bonded)
+    walk_args, info = drifted_blocks(system, s1, e_fn, masses,
+                                     rebuild_every - 1)
+    where = (f"phase 10c slabs of the blocks after {rebuild_every - 1} steps "
+             f"on one neighbor state ({info['outside']} atoms outside their "
+             f"cells' nominal bounds)")
+    with torch.no_grad():
+        for decomp, ranks in (((4, 1), (0, 3)), ((2, 2), (0, 3))):
+            for rank in ranks:
+                slab = slab_walk_args(walk_args, decomp, rank)
+                agree("direct_walk_halo",
+                      lambda: dw.direct_walk_slab(*slab),
+                      lambda: dw.direct_walk_slab_plain(*slab), WALK_TOLS,
+                      f"{where}, rank {rank} of {decomp}")
+        for decomp, rank in (((1, 1), 0), ((4, 1), 3), ((2, 2), 1)):
+            slab = slab_walk_args(walk_tri, decomp, rank)
+            agree("direct_walk_halo",
+                  lambda: dw.direct_walk_slab(*slab),
+                  lambda: dw.direct_walk_slab_plain(*slab), WALK_TOLS,
+                  f"phase 10c slabs of phase 6's drifted tri30k blocks "
+                  f"(the triclinic kernel), rank {rank} of {decomp}")
+        slab = slab_walk_args(walk_args, (1, 1), 0)
+        ids = walk_args[6]
+        valid = ids < system.n_atoms
+        xs = torch.stack([walk_args[k][valid] for k in range(3)], dim=-1)
+        n_pairs = pairs_within_cutoff(xs, system.box, spec.cutoff)
+    bound = kernel_bound(
+        "direct_walk_halo", n_pairs=n_pairs, n_own_slots=ids.numel(),
+        n_ext_slots=slab[0].numel(), n_own=math.prod(spec.cell_grid),
+        ncoef=len(erf_over_r_coeffs(spec.alpha, spec.cutoff)))
+    results["direct_walk_halo"] = kernel_entry("direct_walk_halo", compare(
+        "direct_walk_halo", lambda: dw.direct_walk_slab(*slab),
+        lambda: dw.direct_walk_slab_plain(*slab), WALK_TOLS,
+        f"{where}, the slab of a world of one ({slab[0].shape[0]} cells)",
+        bound))
+    results["direct_walk_halo"]["library_note"] = (
+        "no single call: no PyTorch call computes the slab walk's energy, "
+        "dE/dx and dE/dq")
+
+
+def run_halo(dev, results, ctx30k, walk_tri):
     """Phase 10c: the halo route in a world of one (an NCCL group of one
-    rank, decomposition (1, 1)) at the 30k box in f32 against the
-    single-system kernel route, and at a 4k box in f64 against the plain
-    route, each on classical Ewald and on the halo PME mesh; then NVE
-    over the halo energy with its chunks captured as CUDA graphs against
-    graph=False."""
+    rank, decomposition (1, 1)): the slab walk kernel against its plain
+    version (:func:`check_slab_kernel`); at phase 5's burned-in 30k state
+    in f32 against the single-system kernel route, and at a 4k box in f64
+    against the plain route, each on classical Ewald and on the halo PME
+    mesh; then NVE over the 4k f64 and the 30k f32 halo energy with their
+    chunks captured as CUDA graphs against graph=False, and a replayed 30k
+    run in which the slab kernel must have launched and the periodic walk
+    not."""
     import dataclasses
 
     import torch
     import torch.distributed as dist
 
+    from chargeflux_tpu_torch import ops
+    from chargeflux_tpu_torch.bonded import bonded_energy
     from chargeflux_tpu_torch.integrate import init_state, nve_trajectory
     from chargeflux_tpu_torch.models import water_box
     from chargeflux_tpu_torch.parallel.halo import (halo_decomp,
                                                     make_halo_energy_fn)
     from chargeflux_tpu_torch.pme import pme_halo_mesh
-    from chargeflux_tpu_torch.utils.measure import bench_path
+    from chargeflux_tpu_torch.utils.measure import (DT_PS, HALO_TOL_F32,
+                                                    halo_spread_work,
+                                                    interleaved_ms)
 
     t0 = time.perf_counter()
     torch.cuda.set_device(dev)
@@ -1747,19 +1839,29 @@ def run_halo(dev):
                             f"{_free_port()}", world_size=1, rank=0)
     out = {}
     try:
-        _f, x, _m, _b, _bd, system = bench_path("30k", dev)
+        check_slab_kernel(ctx30k, walk_tri, results)
+        system, s1, _every, bonded, masses = ctx30k
+        x = s1.positions
         spec = system.spec
         if halo_decomp(system, 1) != (1, 1):
             fail("phase 10c: no (1, 1) decomposition of the 30k grid")
-        print(f"phase 10c: 30k cells {spec.cell_grid}, PME mesh "
-              f"{spec.pme_grid}, halo mesh {pme_halo_mesh(spec)}",
-              flush=True)
+        print(f"phase 10c: 30k cells {spec.cell_grid} capacity "
+              f"{spec.cell_capacity}, PME mesh {spec.pme_grid}, halo mesh "
+              f"{pme_halo_mesh(spec)}", flush=True)
+        systems = {}
         for rt in ("pme", "xla"):
-            sys_rt = system._swap(spec=dataclasses.replace(
+            systems[rt] = system._swap(spec=dataclasses.replace(
                 spec, recip_method=rt, pme_grid=pme_halo_mesh(spec)))
             out[f"30k_{rt}"] = halo_case(f"30k f32 {rt!r} vs the kernel "
-                                         f"route", sys_rt, x, HALO_TOL_F32,
-                                         True)
+                                         f"route", systems[rt], x,
+                                         HALO_TOL_F32, True)
+        (spread_ms,) = interleaved_ms([halo_spread_work(systems["pme"], x)])
+        share = spread_ms / out["30k_pme"]["ms_per_eval"]
+        out["30k_pme"]["halo_spread_ms"] = spread_ms
+        print(f"phase 10c halo PME mesh's plain patch spread "
+              f"(pme.pme_halo_local_mesh, forward and backward, a graph "
+              f"alone): {spread_ms:.3f} ms, {share:.3f} of the 30k 'pme' "
+              f"evaluation's device time", flush=True)
         force, pos, _mm, box = water_box(n_side=11, flux="bond_angle",
                                          cutoff=0.8)
         x64 = torch.tensor(pos, dtype=torch.float64, device=dev)
@@ -1772,27 +1874,66 @@ def run_halo(dev):
             out[f"4k_{rt}"] = halo_case(
                 f"4k f64 {rt!r} (cells {s64.spec.cell_grid}) vs the plain "
                 f"route", s64, x64, HALO_TOL_F64, False)
-        # NVE over the halo energy: its NCCL all-reduces inside the chunks'
-        # CUDA graphs, against graph=False
-        e_fn = make_halo_energy_fn(s64, None)
-        masses = torch.full((x64.shape[0],), 10.0, dtype=torch.float64,
-                            device=dev)
-        s0 = init_state(x64, torch.zeros_like(x64), e_fn)
-        runs = [nve_trajectory(s0, e_fn, masses, 2e-5, 20, graph=g)
+        # NVE over the 4k f64 halo energy ('xla'; the plain slab walk)
+        # with its NCCL all-reduces inside the chunks' CUDA graphs,
+        # against graph=False
+        e64 = make_halo_energy_fn(s64, None)
+        m64 = torch.full((x64.shape[0],), 10.0, dtype=torch.float64,
+                         device=dev)
+        s0 = init_state(x64, torch.zeros_like(x64), e64)
+        runs = [nve_trajectory(s0, e64, m64, 2e-5, 20, graph=g)
                 for g in (False, True, True)]
         same = all(torch.equal(u, v) for r in runs[1:] for u, v in (
             (runs[0][1], r[1]), (runs[0][0].positions, r[0].positions)))
-        print(f"phase 10c NVE over the halo energy (4k f64, 20 steps, 10-step "
+        print(f"phase 10c NVE over the halo energy (4k f64, 20 steps, "
+              f"chunks with NCCL all-reduces captured in CUDA graphs): "
+              f"replays bit-equal to graph=False: {same}", flush=True)
+        if not same:
+            fail("phase 10c: 4k f64 halo NVE replays differ from "
+                 "graph=False")
+        # NVE over the 30k halo energy (the slab kernel, the halo PME mesh)
+        # and the water bonds: its NCCL all-reduces inside the chunks' CUDA
+        # graphs, against graph=False
+        halo = make_halo_energy_fn(systems["pme"], None)
+
+        def e_fn(xx):
+            return halo(xx) + bonded_energy(xx, bonded)
+
+        s0 = init_state(x, s1.velocities, e_fn)
+        runs = [nve_trajectory(s0, e_fn, masses, DT_PS, 20, graph=g)
+                for g in (False, True, True)]
+        same = all(torch.equal(u, v) for r in runs[1:] for u, v in (
+            (runs[0][1], r[1]), (runs[0][0].positions, r[0].positions),
+            (runs[0][0].velocities, r[0].velocities)))
+        print(f"phase 10c NVE over the halo energy (30k f32, 20 steps, "
               f"chunks with NCCL all-reduces captured in CUDA graphs): "
               f"replays bit-equal to graph=False: {same}", flush=True)
         if not same:
             fail("phase 10c: halo NVE replays differ from graph=False")
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        a.record()
+        fin, es = nve_trajectory(s0, e_fn, masses, DT_PS, HALO_STEPS)
+        b.record()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        ms = a.elapsed_time(b) / HALO_STEPS
+        print(f"phase 10c halo NVE: {HALO_STEPS} steps as CUDA graph "
+              f"replays, {ms:.3f} ms/step (CUDA events); launches "
+              f"{launches}", flush=True)
+        if not (torch.isfinite(es).all()
+                and torch.isfinite(fin.positions).all()):
+            fail("phase 10c: non-finite halo NVE run")
+        if launches["direct_walk"] or launches["direct_walk_tri"]:
+            fail("phase 10c: the halo route launched the periodic walk")
+        counts = check_launches(launches, "halo1", lambda c: c > 0)
+        results["direct_walk_halo"]["launches"] = counts["direct_walk_halo"]
     finally:
         dist.destroy_process_group()
     seconds = time.perf_counter() - t0
     print(f"phase 10c took {seconds:.1f} s (host clock)", flush=True)
-    return {k: {"ms_per_eval": v[0], "collectives": v[1]}
-            for k, v in out.items()} | {"seconds": seconds}
+    return out | {"ms_per_step_nve": ms, "seconds": seconds}
 
 
 def main():
@@ -1848,7 +1989,7 @@ def main():
     launches_d, ms_d, ms_eager_d = run_dense_md(x_d, m_d, bonded_d, sys_d)
     launches_r, ms_r, ms_eager_r = run_rigid(dev)
     launches_m, ms_m, ms_eager_m = run_respa(dev)
-    launches_t, ms_t, ms_eager_t = run_tri(dev, results)
+    launches_t, ms_t, ms_eager_t, walk_tri = run_tri(dev, results)
     ms_h, ms_eager_h = run_hetero(dev)
     launches_n, ms_n, ms_eager_n, npt_fields = run_npt(dev)
     thermo, nhc_drift = run_thermostats(dev, ctx30k)
@@ -1858,7 +1999,7 @@ def main():
     cluster_fields = run_cluster(dev)
     replicas_fields, rpath = run_replicas(dev, results)
     remd_fields = run_remd(dev, rpath)
-    halo_fields = run_halo(dev)
+    halo_fields = run_halo(dev, results, ctx30k, walk_tri)
     for name, count in {**launches, **launches_d, **launches_t}.items():
         results[name]["launches"] = count
     for key, counts in (("launches_rigid", launches_r),

@@ -66,10 +66,11 @@ def test_halo_classical_matches_jax_single_device(decomp, tmp_path):
                                          torch.tensor(pos),
                                          {"decomp": decomp}), tmp_path)
     _check(res, e_ref, f_ref)
-    # one exchange a slab evaluation, three for a brick, each with its
-    # backward; energy, overflow and S(k) all-reduces plus the forces'
-    # (a ring of one, Dx = 1, copies locally)
-    n_ex = 2 * (1 if decomp[1] == 1 else 3)
+    # two x-plane exchanges a slab evaluation, two y rows and two x planes
+    # for a brick, none in the backward (the halo is exchanged detached);
+    # energy, overflow and S(k) all-reduces plus the forces' (a ring of
+    # one, Dx = 1, copies locally)
+    n_ex = 2 if decomp[1] == 1 else 4
     c = res[0]["collectives"]
     assert c["ppermute"] + c["ppermute_local"] == n_ex
     assert c["ppermute_local"] == (2 if decomp[0] == 1 else 0)

@@ -1574,3 +1574,177 @@ def test_rbe_energy_function_kernel_route_matches_plain(setup):
     counts = ops.launch_counts()
     assert counts["direct_walk"] >= 1 and counts["spread_fwd"] == 0
     assert abs(float(e_k - e_p)) <= 1e-5 * abs(float(e_p))
+
+
+# ---------------------------------------------------------------------------
+# the halo route: the walk kernel's slab form, in an NCCL world of one
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def halo_world():
+    """An NCCL group of one rank on the card (tcp on localhost), and the
+    30k box of ``bench.py 30k`` in f32 with a start state whose
+    Maxwell velocities at 300 K drifted its blocks for 11 steps on one
+    neighbor state (``utils.measure.drifted_blocks``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import socket
+
+    import torch.distributed as dist
+
+    from chargeflux_tpu_torch.integrate import (init_state_nb,
+                                                make_nb_energy_fn,
+                                                maxwell_velocities)
+    from chargeflux_tpu_torch.utils.measure import bench_path, drifted_blocks
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    _f, x, m, _b, bonded, system = bench_path("30k", dev)
+    e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
+    v = maxwell_velocities(m, 300.0, torch.Generator(dev).manual_seed(3),
+                           dtype=torch.float32)
+    s0 = init_state_nb(x, v, e_fn, init_nb)
+    walk_args, info = drifted_blocks(system, s0, e_fn, m, 11)
+    assert info["outside"] > 0
+    yield dict(system=system, x=x, masses=m, bonded=bonded,
+               walk_args=walk_args)
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def tri_walk_args(halo_world):
+    """bench.py's tri30k box in f32 (the 30k box on the sheared lattice),
+    its blocks drifted as the 30k box's are in ``halo_world``."""
+    from chargeflux_tpu_torch.integrate import (init_state_nb,
+                                                make_nb_energy_fn,
+                                                maxwell_velocities)
+    from chargeflux_tpu_torch.utils.measure import bench_path, drifted_blocks
+
+    dev = torch.device("cuda", 0)
+    _f, x, m, _b, bonded, system = bench_path("tri30k", dev)
+    e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
+    v = maxwell_velocities(m, 300.0, torch.Generator(dev).manual_seed(3),
+                           dtype=torch.float32)
+    s0 = init_state_nb(x, v, e_fn, init_nb)
+    walk_args, info = drifted_blocks(system, s0, e_fn, m, 11)
+    assert info["outside"] > 0 and walk_args[7].ndim == 2
+    return walk_args
+
+
+@pytest.mark.parametrize("box", ["30k", "tri30k"])
+@pytest.mark.parametrize("decomp,rank", [((1, 1), 0), ((4, 1), 1),
+                                         ((2, 2), 2)], ids=str)
+def test_slab_walk_kernel_matches_plain_on_drifted_blocks(
+        halo_world, request, box, decomp, rank):
+    """The slab kernel (counted as ``direct_walk_halo`` only) against the
+    plain slab walk on a rank's extended slab cut from drifted 30k
+    blocks, orthorhombic and triclinic (the kernel's ``TRICLINIC`` form):
+    energy within 1e-5, dE/dx and dE/dq within 1e-4 of their max, two
+    launches bit-equal."""
+    from chargeflux_tpu_torch.utils.measure import slab_walk_args
+
+    walk_args = (halo_world["walk_args"] if box == "30k"
+                 else request.getfixturevalue("tri_walk_args"))
+    slab = slab_walk_args(walk_args, decomp, rank)
+    n0 = dict(ops.launch_counts())
+    with torch.no_grad():
+        k1, k2 = dw.direct_walk_slab(*slab), dw.direct_walk_slab(*slab)
+        p = dw.direct_walk_slab_plain(*slab)
+    counts = ops.launch_counts()
+    assert counts["direct_walk_halo"] == n0["direct_walk_halo"] + 2
+    assert counts["direct_walk"] == n0["direct_walk"]
+    assert counts["direct_walk_tri"] == n0["direct_walk_tri"]
+    for u, v in zip(k1, k2):
+        assert torch.equal(u, v)
+    assert abs(float(k1[0] - p[0])) <= 1e-5 * abs(float(p[0]))
+    assert _max_rel(k1[1], p[1]) <= 1e-4 and _max_rel(k1[2], p[2]) <= 1e-4
+
+
+def _halo_system(system, recip="pme"):
+    import dataclasses
+
+    from chargeflux_tpu_torch.pme import pme_halo_mesh
+
+    return system._swap(spec=dataclasses.replace(
+        system.spec, recip_method=recip, pme_grid=pme_halo_mesh(system.spec)))
+
+
+def test_halo_route_runs_the_slab_kernel_and_no_periodic_walk(halo_world):
+    """The 30k f32 halo energy and forces in a world of one against the
+    single-system kernel route (|dE| <= 1e-5 of sum|E_c|, force RMS
+    within 1e-5), with one slab kernel launch an evaluation and no
+    periodic walk launch; a capacity past the kernel's limit raises
+    rather than taking the plain walk."""
+    import dataclasses
+
+    from chargeflux_tpu_torch.parallel.halo import make_halo_energy_fn
+
+    system = _halo_system(halo_world["system"])
+    x = halo_world["x"]
+    e_ref, f_ref = energy_and_forces(x, system)
+    e_fn = make_halo_energy_fn(system, None)
+    xg = x.clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    e = e_fn(xg)
+    (g,) = torch.autograd.grad(e, xg)
+    counts = ops.launch_counts()
+    assert counts["direct_walk_halo"] == 1
+    assert counts["direct_walk"] == 0 and counts["direct_walk_tri"] == 0
+    with torch.no_grad():
+        scale = sum(abs(float(v)) for v in energy_components(
+            x, system).values())
+    assert abs(float(e.detach()) - float(e_ref)) <= 1e-5 * scale
+    rms = torch.sqrt(torch.mean((-g.double() - f_ref.double()) ** 2)
+                     / torch.mean(f_ref.double() ** 2))
+    assert float(rms) <= 1e-5
+    big = system._swap(spec=dataclasses.replace(system.spec,
+                                                cell_capacity=1100))
+    with pytest.raises(ValueError, match="capacity"):
+        make_halo_energy_fn(big, None)(x)
+
+
+@pytest.mark.parametrize("case", ["30k_f32", "4k_f64"])
+def test_halo_nve_replays_give_the_eager_bits(halo_world, case):
+    """NVE over the halo energy with the NCCL all-reduces captured in the
+    chunk graphs: the 30k f32 box (slab kernel, halo PME mesh) with the
+    water bonds, and a 4k f64 box on classical Ewald (the plain slab
+    walk); a capture and a replay give graph=False's energies, positions
+    and velocities bit for bit."""
+    from chargeflux_tpu_torch.bonded import bonded_energy
+    from chargeflux_tpu_torch.integrate import init_state, nve_trajectory
+    from chargeflux_tpu_torch.models import water_box
+    from chargeflux_tpu_torch.parallel.halo import make_halo_energy_fn
+    from chargeflux_tpu_torch.utils.measure import DT_PS
+
+    if case == "30k_f32":
+        halo = make_halo_energy_fn(_halo_system(halo_world["system"]), None)
+
+        def e_fn(xx):
+            return halo(xx) + bonded_energy(xx, halo_world["bonded"])
+
+        x, masses, dt = halo_world["x"], halo_world["masses"], DT_PS
+    else:
+        force, pos, _m, box = water_box(n_side=11, flux="bond_angle",
+                                        cutoff=0.8)
+        system = force.create_system(box=box, dtype=torch.float64,
+                                     direct_method="cell",
+                                     recip_method="xla", device="cuda")
+        e_fn = make_halo_energy_fn(_halo_system(system, "xla"), None)
+        x = torch.tensor(pos, dtype=torch.float64, device="cuda")
+        masses = torch.full((x.shape[0],), 10.0, dtype=torch.float64,
+                            device="cuda")
+        dt = 2e-5
+    s0 = init_state(x, torch.zeros_like(x), e_fn)
+    runs = [nve_trajectory(s0, e_fn, masses, dt, 12, graph=g)
+            for g in (False, True, True)]
+    for fin, es in runs[1:]:
+        assert torch.equal(es, runs[0][1])
+        assert torch.equal(fin.positions, runs[0][0].positions)
+        assert torch.equal(fin.velocities, runs[0][0].velocities)
+    assert bool(torch.isfinite(runs[0][1]).all())

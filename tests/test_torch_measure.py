@@ -256,15 +256,17 @@ def test_traced_launches_counts_each_wrappers_kernel():
               "float const*)", "DeviceType.CPU"),
         Event("void (anonymous namespace)::direct_walk_tri_kernel<13, 1024, "
               "1>(float const*)"),
+        Event("void (anonymous namespace)::direct_walk_slab_kernel<13, 384, "
+              "2, true>(float const*)"),
         Event("(anonymous namespace)::sf_bwd_tables_kernel(float const*)"),
         Event("(anonymous namespace)::sf_bwd_tables_kernel(float const*)"),
         Event("cudaGraphLaunch", "DeviceType.CPU"),
     ]
     assert measure.traced_launches(events) == {
         "spread_fwd": 1, "spread_bwd": 1, "direct_walk": 1,
-        "direct_walk_tri": 1, "sf_fwd": 0, "sf_bwd_tables": 2,
-        "sf_bwd_zq": 0}
-    assert len(measure.device_events(events)) == 7
+        "direct_walk_tri": 1, "direct_walk_halo": 1, "sf_fwd": 0,
+        "sf_bwd_tables": 2, "sf_bwd_zq": 0}
+    assert len(measure.device_events(events)) == 8
 
 
 def test_rigid_path_small_box():

@@ -313,7 +313,8 @@ def dist_worker(rank, world, task, system, x, opts):
     ``DeviceMesh``), returning NumPy results.  Tasks: "halo" (energy and
     forces, ``opts["decomp"]``), "sharded" (``make_sharded_energy_and_
     forces_fn``), "box" (moved boxes, the shrink poison, the creation-time
-    refusal), "overflow", "nve" (``opts["steps"]`` NVE steps over the halo
+    refusal), "overflow", "poisons" (finite, then the shrink and the
+    overflow poisons, energy and forces, on ``opts["decomp"]``), "nve" (``opts["steps"]`` NVE steps over the halo
     energy), "replica2d" and "multislice" (2 x 2 meshes over a replica
     batch)."""
     from chargeflux_tpu_torch.parallel import halo, multislice, shard
@@ -339,6 +340,13 @@ def dist_worker(rank, world, task, system, x, opts):
             out["refused"] = str(exc)
     elif task == "overflow":
         out["e"] = float(halo.make_halo_energy_fn(system, None)(x))
+    elif task == "poisons":
+        decomp = opts["decomp"]
+        e_fn = halo.make_halo_energy_fn(system, None, decomp=decomp)
+        out["ok"] = _energy_forces(e_fn, x)
+        out["shrunk"] = _energy_forces(e_fn, 0.7 * x, 0.7 * system.box)
+        out["overflow"] = _energy_forces(
+            halo.make_halo_energy_fn(opts["tiny"], None, decomp=decomp), x)
     elif task == "nve":
         from chargeflux_tpu_torch.integrate import init_state, nve_trajectory
 
