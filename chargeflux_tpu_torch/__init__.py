@@ -7,8 +7,9 @@ in ``models`` and in ``utils`` names what that package's do (the
 multi-device ``parallel`` package is not ported yet, ROADMAP.md A.9).
 This package imports torch and never jax.
 
-It runs the periodic cell + PME main path (flux charges, the fused direct
-walk (CUDA kernel), the exclusion correction, the cell-column PME spread
+It runs the periodic cell + PME main path (the cell binning (CUDA
+kernel), flux charges, the fused direct walk (CUDA kernel), the exclusion
+correction, the cell-column PME spread
 (CUDA kernels, forward and backward), cuFFT), the dense periodic route
 with classical Ewald (CUDA structure-factor kernels) or the dense-mesh
 SPME, and the non-periodic all-pairs route; harmonic bonds and angles,

@@ -1,11 +1,13 @@
 """Fixed-capacity cell list for the periodic direct-space sum (torch
 counterpart of ``chargeflux_tpu.cells``).
 
-* Binning (:func:`build_cell_list_full`) is a stable sort on the cell
-  id: within a cell, atoms sit in increasing atom id, which is the
-  slot layout of the JAX package's one-hot ranking, so the two agree slot
-  for slot whenever no cell overflows.  Overflow drops atoms past the
-  capacity and is counted (the energy path NaN-poisons on it).
+* Binning (:func:`build_cell_list_full`) ranks each atom in its cell by
+  atom id (``ops/cell_bin.py``: a counting-sort kernel on the card, a
+  stable sort in its plain version): within a cell, atoms sit in
+  increasing atom id, which is the slot layout of the JAX package's
+  one-hot ranking, so the two agree slot for slot whenever no cell
+  overflows.  Overflow drops atoms past the capacity and is counted (the
+  energy path NaN-poisons on it).
 * :func:`blockify` gathers the atom table into cell-major blocks with
   :class:`_GatherRows`, whose backward is the inverse-permutation gather
   (deterministic, no scatter-add).
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from .device import constant
+from .ops.cell_bin import cell_bin, cell_bin_plain
 from .ops.direct_walk import direct_walk, direct_walk_plain
 from .pairs import frac_coords, lattice_cart
 
@@ -156,59 +159,56 @@ def half_shell_tables(grid):
             np.stack(off, axis=1).astype(np.int8))
 
 
-def rank_into_slots(cell: torch.Tensor, n_cells: int, capacity: int):
-    """Place atom i into a slot of cell ``cell[i]`` by a stable sort (rank
-    = number of lower-id atoms in the same cell).  No step reads a device
-    value on the host, so a CUDA graph can capture it.
+def rank_into_slots(cell: torch.Tensor, n_cells: int, capacity: int,
+                    plain: bool = False):
+    """Place atom i into a slot of cell ``cell[i]`` (rank = number of
+    lower-id atoms in the same cell; an id of ``n_cells`` bins the atom
+    nowhere) through ``ops.cell_bin``: the kernel on the card, the plain
+    stable sort on the CPU or with ``plain`` (the plain route).  No step
+    reads a device value on the host, so a CUDA graph can capture it.
 
     Returns (slots [n_cells, capacity] int32 atom ids, sentinel N;
     slot_of [N] int32 flat slot per atom, sentinel n_cells*capacity;
     overflow int32 count of atoms dropped past the capacity).
     """
-    n = cell.shape[0]
-    dev = cell.device
-    sentinel = n_cells * capacity
-    order = torch.sort(cell, stable=True).indices
-    sorted_cell = cell[order]
-    # each cell's first sorted position, from the sorted ids themselves
-    # (torch.bincount on the card reads the ids' range back to the host)
-    starts = torch.searchsorted(sorted_cell, torch.arange(n_cells, device=dev))
-    rank = torch.arange(n, device=dev) - starts[sorted_cell]
-    ok = rank < capacity
-    slot = torch.where(ok, sorted_cell * capacity + rank, sentinel)
-    # dropped atoms all write the extra sentinel entry, which is cut off
-    slots = torch.full((sentinel + 1,), n, dtype=torch.int32, device=dev)
-    slots[slot] = order.to(torch.int32)
-    slot_of = torch.empty((n,), dtype=torch.int32, device=dev)
-    slot_of[order] = slot.to(torch.int32)
-    overflow = torch.sum(~ok).to(torch.int32)
-    return slots[:sentinel].reshape(n_cells, capacity), slot_of, overflow
+    if plain:
+        return cell_bin_plain(cell, n_cells, capacity)
+    return cell_bin(cell, n_cells, capacity)
 
 
-@torch.no_grad()
-def build_cell_list_full(positions: torch.Tensor, box: torch.Tensor, grid,
-                         capacity: int):
-    """Bin atoms into cells.  Returns (slots [n_cells, capacity] int32 with
-    sentinel N, inv_slot [N] int32 with sentinel n_cells*capacity, overflow
-    [scalar int32]).  Cell indices are computed with the JAX package's
-    float ops (fractional coordinate, wrap, scale, truncate, clip)."""
+def cell_ids(positions: torch.Tensor, box: torch.Tensor, grid) -> torch.Tensor:
+    """[N, 3] int32 cell coordinates of ``positions``, computed with the JAX
+    package's float ops (fractional coordinate, wrap, scale, truncate,
+    clip)."""
     gx, gy, gz = grid
     dev = positions.device
     frac = frac_coords(positions, box)
     frac = frac - torch.floor(frac)
     ci = (frac * constant(grid, positions.dtype, dev)).to(torch.int32)
-    ci = torch.minimum(torch.clamp(ci, min=0),
-                       constant((gx - 1, gy - 1, gz - 1), torch.int32, dev))
-    cell = ((ci[:, 0] * gy + ci[:, 1]) * gz + ci[:, 2]).long()
-    return rank_into_slots(cell, gx * gy * gz, capacity)
+    return torch.minimum(torch.clamp(ci, min=0),
+                         constant((gx - 1, gy - 1, gz - 1), torch.int32, dev))
+
+
+@torch.no_grad()
+def build_cell_list_full(positions: torch.Tensor, box: torch.Tensor, grid,
+                         capacity: int, plain: bool = False):
+    """Bin atoms into cells.  Returns (slots [n_cells, capacity] int32 with
+    sentinel N, inv_slot [N] int32 with sentinel n_cells*capacity, overflow
+    [scalar int32]).  ``plain`` takes the plain binning on the card (the
+    caller's system on the plain route)."""
+    gx, gy, gz = grid
+    ci = cell_ids(positions, box, grid)
+    cell = (ci[:, 0] * gy + ci[:, 1]) * gz + ci[:, 2]
+    return rank_into_slots(cell, gx * gy * gz, capacity, plain=plain)
 
 
 def build_cell_list(positions: torch.Tensor, box: torch.Tensor, grid,
-                    capacity: int):
+                    capacity: int, plain: bool = False):
     """Bin atoms into cells: (slots [n_cells, capacity] int32 with sentinel
     N, overflow count [scalar int32]).  Overflow drops atoms; callers
     check the count (see :func:`validate_cell_list`)."""
-    slots, _, overflow = build_cell_list_full(positions, box, grid, capacity)
+    slots, _, overflow = build_cell_list_full(positions, box, grid, capacity,
+                                              plain=plain)
     return slots, overflow
 
 
@@ -220,7 +220,8 @@ def validate_cell_list(positions, system) -> int:
     x = torch.as_tensor(positions, device=system.box.device).to(
         system.box.dtype)
     _, overflow = build_cell_list(x, system.box, spec.cell_grid,
-                                  spec.cell_capacity)
+                                  spec.cell_capacity,
+                                  plain=system.kernel_route == "plain")
     return int(overflow)
 
 

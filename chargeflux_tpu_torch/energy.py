@@ -213,7 +213,7 @@ def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
         if nb is None:
             slots, inv_slot, overflow = cells.build_cell_list_full(
                 positions.detach(), system.box, spec.cell_grid,
-                spec.cell_capacity)
+                spec.cell_capacity, plain=plain)
             wrap = None
         else:
             slots, inv_slot, overflow = nb.slots, nb.inv_slot, nb.overflow

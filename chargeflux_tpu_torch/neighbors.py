@@ -45,7 +45,8 @@ def build_neighbor_state(positions: torch.Tensor, system) -> NeighborState:
     spec = system.spec
     positions = positions.detach()
     slots, inv_slot, overflow = build_cell_list_full(
-        positions, system.box, spec.cell_grid, spec.cell_capacity)
+        positions, system.box, spec.cell_grid, spec.cell_capacity,
+        plain=system.kernel_route == "plain")
     return NeighborState(slots=slots, inv_slot=inv_slot,
                          wrap=wrap_offsets(positions, system.box),
                          x_ref=positions.clone(), overflow=overflow)

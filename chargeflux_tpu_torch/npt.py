@@ -172,9 +172,9 @@ def _plain_cell_direct(xs, q, sysb):
     (whose backward gives no box cotangent), so the energy differentiates
     through the image offsets and the wrap."""
     spec = sysb.spec
-    slots, inv_slot, _ = build_cell_list_full(xs.detach(), sysb.box.detach(),
-                                              spec.cell_grid,
-                                              spec.cell_capacity)
+    slots, inv_slot, _ = build_cell_list_full(
+        xs.detach(), sysb.box.detach(), spec.cell_grid, spec.cell_capacity,
+        plain=sysb.kernel_route == "plain")
     b = blockify(xs, q, sysb, slots, inv_slot)
     ids = slots.reshape(b.x.shape)
     e, _g, _dq = direct_walk_plain(b.x, b.y, b.z, b.q, b.hs, b.se, ids,

@@ -22,7 +22,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("pme_spread.cu", "direct_walk.cu", "structure_factor.cu")
+SOURCES = ("pme_spread.cu", "direct_walk.cu", "structure_factor.cu",
+           "cell_bin.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -93,6 +94,7 @@ def library() -> ctypes.CDLL:
         lib.cf_spread_limits.argtypes = [ctypes.POINTER(i)] * 3
         lib.cf_walk_limits.argtypes = [ctypes.POINTER(i)] * 2
         lib.cf_sf_limits.argtypes = [ctypes.POINTER(i)] * 9
+        lib.cf_cell_bin_limits.argtypes = [ctypes.POINTER(i)] * 2
         lib.cf_spread_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.cf_spread_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.cf_direct_walk.argtypes = ([p] * 11 + [i, f, f, i, i, i, i]
@@ -104,11 +106,13 @@ def library() -> ctypes.CDLL:
         lib.cf_sf_fwd.argtypes = [p] * 7 + [i] * 9 + [ll] * 4 + [p]
         lib.cf_sf_bwd_tables.argtypes = [p] * 11 + [i] * 5 + [ll] * 4 + [p]
         lib.cf_sf_bwd_zq.argtypes = [p] * 7 + [i] * 5 + [ll] * 4 + [p]
+        lib.cf_cell_bin.argtypes = [p, i, i, i] + [p] * 4 + [p]
         for fn in (lib.cf_spread_limits, lib.cf_walk_limits,
                    lib.cf_sf_limits, lib.cf_spread_fwd, lib.cf_spread_bwd,
                    lib.cf_direct_walk, lib.cf_direct_walk_slab,
                    lib.cf_sf_fwd, lib.cf_sf_bwd_tables,
-                   lib.cf_sf_bwd_zq):
+                   lib.cf_sf_bwd_zq, lib.cf_cell_bin_limits,
+                   lib.cf_cell_bin):
             fn.restype = i
         _lib = lib
     return _lib

@@ -4,8 +4,8 @@
 The cell grid is cut into contiguous x-plane slabs, one per rank of the
 group (or, by :func:`halo_decomp`, into x-by-y bricks).  Each rank
 
-* bins only its slab's atoms (:func:`_local_bin`, the stable-sort binning
-  of ``cells.rank_into_slots`` with an ownership mask),
+* bins only its slab's atoms (:func:`_local_bin`: ``cells.rank_into_slots``
+  with the atoms owned elsewhere binned nowhere),
 * gathers its local cell blocks (``cells.gather_rows``: an
   inverse-permutation backward),
 * receives the boundary planes of blocks it walks into: the -x plane from
@@ -44,13 +44,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import cells
 from ..cells import gather_rows, wrap_offsets
 from ..charges import effective_charges
 from ..device import constant
 from ..energy import dispersion_energy, resolve_recip_method
 from ..ewald import reciprocal_energy_from_sf, self_energy, structure_factors
 from ..ops.direct_walk import direct_walk_slab, direct_walk_slab_plain
-from ..pairs import frac_coords, plane_widths
+from ..pairs import plane_widths
 from ..system import box_widths
 from .shard import (_axis, _ceil_to, _excl_chunk_energy, all_reduce_sum,
                     ppermute, replicated_in, sum_out)
@@ -79,44 +80,32 @@ def halo_compatible(system, ndev: int) -> bool:
     return halo_decomp(system, ndev) is not None
 
 
+def slab_cell_ids(positions, system, dev_x: int, dev_y: int, gxl: int,
+                  gyl: int):
+    """(cell ids [N] int32, n_local) of the slab of the rank at (dev_x,
+    dev_y), [gxl, gyl, gz] cells: an atom's cell in the slab, or n_local
+    for an atom another rank owns (``cells.rank_into_slots`` bins it
+    nowhere)."""
+    gz = system.spec.cell_grid[2]
+    ci = cells.cell_ids(positions, system.box, system.spec.cell_grid)
+    lcx = ci[:, 0] - dev_x * gxl
+    lcy = ci[:, 1] - dev_y * gyl
+    owned = (lcx >= 0) & (lcx < gxl) & (lcy >= 0) & (lcy < gyl)
+    n_local = gxl * gyl * gz
+    return torch.where(owned, (lcx * gyl + lcy) * gz + ci[:, 2],
+                       n_local), n_local
+
+
 def _local_bin(positions, system, dev_x: int, dev_y: int, gxl: int,
                gyl: int):
     """Bin this rank's slab: (slots [gxl gyl gz, cap] int32, sentinel N;
     slot_of [N] int32, sentinel gxl gyl gz cap for atoms owned elsewhere;
     overflow, the owned atoms past a cell's capacity).  Within a cell the
-    atoms sit in increasing id."""
-    spec = system.spec
-    cap = spec.cell_capacity
-    gx, gy, gz = spec.cell_grid
-    n = positions.shape[0]
-    dev = positions.device
-    frac = frac_coords(positions, system.box)
-    frac = frac - torch.floor(frac)
-    ci = (frac * constant(spec.cell_grid, positions.dtype, dev)).to(
-        torch.int32)
-    ci = torch.minimum(torch.clamp(ci, min=0),
-                       constant((gx - 1, gy - 1, gz - 1), torch.int32, dev))
-    lcx = ci[:, 0] - dev_x * gxl
-    lcy = ci[:, 1] - dev_y * gyl
-    owned = (lcx >= 0) & (lcx < gxl) & (lcy >= 0) & (lcy < gyl)
-    n_local = gxl * gyl * gz
-    cell = torch.where(owned, (lcx * gyl + lcy) * gz + ci[:, 2],
-                       n_local).long()
-    order = torch.sort(cell, stable=True).indices
-    sorted_cell = cell[order]
-    starts = torch.searchsorted(sorted_cell,
-                                torch.arange(n_local + 1, device=dev))
-    rank = torch.arange(n, device=dev) - starts[sorted_cell]
-    mine = sorted_cell < n_local
-    ok = (rank < cap) & mine
-    sentinel = n_local * cap
-    slot = torch.where(ok, sorted_cell * cap + rank, sentinel)
-    slots = torch.full((sentinel + 1,), n, dtype=torch.int32, device=dev)
-    slots[slot] = order.to(torch.int32)
-    slot_of = torch.empty((n,), dtype=torch.int32, device=dev)
-    slot_of[order] = slot.to(torch.int32)
-    overflow = torch.sum(mine & ~ok).to(torch.int32)
-    return slots[:sentinel].reshape(n_local, cap), slot_of, overflow
+    atoms sit in increasing id (the kernel on the card, the plain sort on
+    the CPU and on the plain route)."""
+    cell, n_local = slab_cell_ids(positions, system, dev_x, dev_y, gxl, gyl)
+    return cells.rank_into_slots(cell, n_local, system.spec.cell_capacity,
+                                 plain=system.kernel_route == "plain")
 
 
 def make_halo_energy_fn(system, mesh, axis_name: str = "space",

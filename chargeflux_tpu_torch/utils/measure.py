@@ -2,6 +2,7 @@
 
     python3 -m chargeflux_tpu_torch.utils.measure profile [--path PATH]
     python3 -m chargeflux_tpu_torch.utils.measure f64 [--path PATH]
+    python3 -m chargeflux_tpu_torch.utils.measure thermo
     python3 -m chargeflux_tpu_torch.utils.measure multigpu [--device cpu]
 
 PATH is 30k (the default), 216, rigid, respa, npt, or one of the other
@@ -55,6 +56,12 @@ NPT and thermostat paths have no plain-path variant.
 ``f64``: 200 NVE steps of the f32 kernel path beside 200 of the plain f64
 path from one start state: ms/step, net drift, max and RMS of ``E - E0``.
 
+``thermo``: on the burned-in 30k box (phase 5's state in chip_smoke),
+BAOAB Langevin, CSVR and the Nose-Hoover chain at 300 K, 4000 replayed f32
+steps each on the kernel route, and BAOAB and CSVR for 1000 steps in f64
+on the plain route, from one generator seed: the mean kinetic temperature
+over each window of 200 steps (:func:`thermo_windows`).
+
 ``multigpu``: the multi-device routes on one process per visible card
 (an NCCL group), each against the single-card route; ``--device cpu``
 rehearses them on gloo ranks at small sizes (``utils/multigpu.py``).
@@ -90,7 +97,7 @@ PEAK_BYTES_PER_S = 3.35e12
 F32 = 4  # bytes of a float32 or an int32
 # the port's hand-written kernels, as a profiler trace names them
 PORT_KERNELS = re.compile(r"\(anonymous namespace\)::"
-                          r"(spread_|direct_walk|sf_)")
+                          r"(spread_|direct_walk|sf_|cell_bin_)")
 ROUNDS = 7        # timing rounds of interleaved_ms, the functions in turns
 GRAPH_REPS = 20   # calls per timed CUDA graph
 
@@ -136,6 +143,9 @@ def kernel_bound(name: str, **dims) -> dict:
       (``cells.build_cell_list_full``), no flops counted: the positions in
       (3 floats per atom), the slots (one int per slot), the inverse slots
       (one per atom) and the overflow count out.
+    cell_bin (n_atoms, n_slots): the binning kernel alone
+      (``ops.cell_bin``), from the cell ids: one int per atom in, the
+      slots, inverse slots and overflow count out.
     """
     d = dims
     if name in ("spread_fwd", "spread_bwd"):
@@ -170,6 +180,9 @@ def kernel_bound(name: str, **dims) -> dict:
     elif name == "binning":
         flops = 0
         nbytes = F32 * (3 * d["n_atoms"] + d["n_slots"] + d["n_atoms"] + 1)
+    elif name == "cell_bin":
+        flops = 0
+        nbytes = F32 * (2 * d["n_atoms"] + d["n_slots"] + 1)
     else:
         raise ValueError(f"no bound for kernel {name!r}")
     t_ops, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -1102,8 +1115,8 @@ def drifted_blocks(system, state, e_fn, masses, n_steps: int):
     slots and the wrap frozen at the last rebuild, so atoms have left their
     cells' nominal bounds, as on every step between two rebuilds.  Returns
     (walk_args, info): the arguments of ``ops.direct_walk.direct_walk`` and
-    the count of real atoms outside their cell's nominal bounds with the
-    largest displacement since the rebuild."""
+    the count of real atoms outside their cell's nominal bounds, the
+    largest displacement since the rebuild and the drifted positions."""
     from .. import cells
     from ..charges import effective_charges
     from ..integrate import nve_step_nb
@@ -1131,9 +1144,41 @@ def drifted_blocks(system, state, e_fn, masses, n_steps: int):
             u = frac[..., k] * n
             outside |= (u < lo) | (u >= lo + 1)
         info = dict(outside=int((outside & (ids < system.n_atoms)).sum()),
-                    moved=float((x - nb.x_ref).norm(dim=-1).max()))
+                    moved=float((x - nb.x_ref).norm(dim=-1).max()),
+                    positions=x.detach())
     return (*b, ids, system.box, system.n_atoms, spec.alpha,
             spec.cutoff), info
+
+
+def binning_cells(system, x, decomp=(1, 1), rank: int = 0):
+    """(cell ids [N] int32, n_cells) that ``system``'s binning ranks at
+    positions ``x`` on rank ``rank``'s slab of the halo route's ``decomp``
+    (``parallel.halo.slab_cell_ids``: an atom owned elsewhere takes the id
+    n_cells, binned nowhere).  The slab of (1, 1) is the whole grid: its
+    ids are the periodic route's (``cells.build_cell_list_full``)."""
+    from ..parallel.halo import slab_cell_ids
+
+    grid = system.spec.cell_grid
+    cell, n_cells = slab_cell_ids(x, system, rank // decomp[1],
+                                  rank % decomp[1], grid[0] // decomp[0],
+                                  grid[1] // decomp[1])
+    return cell.to(torch.int32), n_cells
+
+
+def binning_cases(system, x, label: str):
+    """The binning kernel's cases at positions ``x`` on ``system``:
+    {name: (cell ids, n_cells, capacity)}: the system's grid and capacity
+    (also the halo slab of (1, 1)), the same at capacity 8 (cells
+    overflow), and every rank's slab of the halo route's (4, 1) slabs and
+    (2, 2) bricks."""
+    cap = system.spec.cell_capacity
+    out = {label: (*binning_cells(system, x), cap),
+           f"{label} capacity 8": (*binning_cells(system, x), 8)}
+    for decomp in ((4, 1), (2, 2)):
+        for rank in range(4):
+            out[f"{label} halo {decomp} rank {rank}"] = (
+                *binning_cells(system, x, decomp, rank), cap)
+    return out
 
 
 def halo_spread_work(system, x):
@@ -1580,9 +1625,68 @@ def f64_control(system, state, rebuild_every, masses, bonded):
             raise RuntimeError(f"{label}: non-finite energies")
 
 
+THERMO_STEPS = 4000       # thermo: f32 steps of each driver (2 ps)
+THERMO_F64_STEPS = 1000   # thermo: f64 plain steps of BAOAB and CSVR
+THERMO_WINDOW = 200       # chip_smoke 7b's averaging window, steps
+
+
+def thermo_windows(system, state, rebuild_every, masses, bonded, device):
+    """``thermo``: the mean kinetic temperature of BAOAB Langevin (5/ps),
+    CSVR (tau :data:`TAU_CSVR`) and the Nose-Hoover chain (tau
+    :data:`TAU_NHC`) at 300 K from one burned-in state, over consecutive
+    windows of :data:`THERMO_WINDOW` steps: :data:`THERMO_STEPS` replayed
+    steps in f32 on the kernel route, then BAOAB and CSVR for
+    :data:`THERMO_F64_STEPS` steps in f64 on the plain route, each from
+    the generator seed 0 (3N degrees of freedom; the chain 3N - 3).
+    Prints one line per run and returns {run: window means in K}."""
+    from ..csvr import csvr_trajectory_nb
+    from ..integrate import (init_state_nb, langevin_trajectory_nb,
+                             make_nb_energy_fn)
+    from ..nosehoover import nose_hoover_trajectory_nb
+
+    n = state.positions.shape[0]
+    out = {}
+    runs = [(k, torch.float32, THERMO_STEPS) for k in ("baoab", "csvr",
+                                                       "nhc")]
+    runs += [(k, torch.float64, THERMO_F64_STEPS) for k in ("baoab", "csvr")]
+    for kind, dtype, steps in runs:
+        plain = dtype == torch.float64
+        sys_ = system.astype(dtype)
+        e_fn, init_nb = make_nb_energy_fn(sys_, bonded=bonded.astype(dtype),
+                                          plain=plain)
+        m = masses.to(dtype)
+        s0 = init_state_nb(state.positions.to(dtype),
+                           state.velocities.to(dtype), e_fn, init_nb)
+        gen = torch.Generator(device).manual_seed(0)
+        args = (s0, e_fn, init_nb, m, DT_PS, TEMP)
+        n_dof = 3 * n - (3 if kind == "nhc" else 0)
+        if kind == "baoab":
+            kes = langevin_trajectory_nb(*args, FRICTION, gen, steps,
+                                         rebuild_every)[1]
+        elif kind == "csvr":
+            kes = csvr_trajectory_nb(*args, TAU_CSVR, gen, steps,
+                                     rebuild_every)[1]["kinetic"]
+        else:
+            kes = nose_hoover_trajectory_nb(*args, TAU_NHC, steps,
+                                            rebuild_every)[2]
+        temps = 2.0 * kes.double().cpu() / (n_dof * KB)
+        if not torch.isfinite(temps).all():
+            raise RuntimeError(f"thermo {kind}: non-finite temperatures")
+        means = [float(w.mean()) for w in temps.split(THERMO_WINDOW)]
+        half = float(temps[steps // 2:].mean())
+        label = f"{kind} {'f64 plain' if plain else 'f32 kernels'}"
+        out[label] = means
+        print(f"thermo {label}: {steps} steps; mean T per "
+              f"{THERMO_WINDOW}-step window (K): "
+              f"{[round(t, 2) for t in means]}; second half {half:.2f} K",
+              flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("profile", "f64", "multigpu"))
+    ap.add_argument("what", choices=("profile", "f64", "thermo",
+                                     "multigpu"))
     ap.add_argument("--path", choices=("30k", "216", "rigid", "respa", "npt",
                                        "csvr", "nhc", "4k", "100k", "tri30k",
                                        "hetero30k", "onramp30k", "rbe",
@@ -1603,6 +1707,8 @@ def main(argv=None):
                                             "nhc", "onramp30k", "rbe",
                                             "rbe100k"):
         raise SystemExit("measure f64: NVE paths only")
+    if args.what == "thermo" and args.path != "30k":
+        raise SystemExit("measure thermo: the 30k path only")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1679,6 +1785,9 @@ def main(argv=None):
               f"{rebuild_every}, vmax {info['vmax']:.2f} nm/ps", flush=True)
     if args.what == "f64":
         f64_control(system, state, rebuild_every, m, bonded)
+        return
+    if args.what == "thermo":
+        thermo_windows(system, state, rebuild_every, m, bonded, dev)
         return
     if args.path in ("rbe", "rbe100k"):
         rbe_profile(system, state, rebuild_every, m, bonded, dev)

@@ -44,7 +44,9 @@ import dataclasses
 import datetime
 import json
 import statistics
+import sys
 import time
+import traceback
 from pathlib import Path
 
 import torch
@@ -54,7 +56,7 @@ from .measure import (HALO_TOL_F32, eager_ms, energy_forces, energy_scale,
 
 DEADLINE_S = 1200    # the whole spawned group
 PG_TIMEOUT_S = 600   # one collective
-TEARDOWN_S = 60      # destroy_process_group, after every route is done
+TEARDOWN_S = 60      # the group's teardown, after every route is done
 NVE_CHECK_STEPS = 20
 NVE_STEPS = 100
 NPT_INTERVAL = 10
@@ -69,6 +71,8 @@ class Ctx:
     world: int
     dev: torch.device
     small: bool
+    #: the subgroups the routes made, in the order they were made
+    groups: list = dataclasses.field(default_factory=list)
 
     @property
     def cuda(self) -> bool:
@@ -308,6 +312,7 @@ def route_nve(ctx, system, x, masses, bonded):
         return same, ms, es, runs[1][0].positions
 
     one = dist.new_group([0])
+    ctx.groups.append(one)
     base = {}
     if ctx.rank == 0:
         sys1 = _halo_system(system, "pme", (1, 1))
@@ -435,6 +440,7 @@ def route_replicas(ctx):
     """(e): the replica x space engine and the multislice route against
     the single-card batch (bench.py's 64 replicas on the card, 8 on the
     CPU)."""
+    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from ..parallel import (ensemble_mean, make_multislice_energy_fn,
@@ -459,6 +465,8 @@ def route_replicas(ctx):
                              ("slice", "space"))}
     for name, (shape, names) in meshes.items():
         mesh = init_device_mesh(kind, shape, mesh_dim_names=names)
+        ctx.groups.extend(g for g in mesh.get_all_groups()
+                          if g.group_name != dist.group.WORLD.group_name)
         if name == "replica":
             local = shard_replicas(xb, mesh)
             e_fn = make_replica_sharded_energy_fn(system, mesh)
@@ -492,8 +500,8 @@ def route_replicas(ctx):
 
 
 def _rank(rank, world, port, small, out_file):
-    """One process of the group: every route; rank 0 prints and writes
-    the results."""
+    """One process of the group: every route, then the teardown; rank 0
+    prints and writes the results."""
     import torch.distributed as dist
 
     torch.set_num_threads(2 if small else 4)
@@ -512,51 +520,71 @@ def _rank(rank, world, port, small, out_file):
             rank=rank, device_id=dev,
             timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
     ctx = Ctx(rank, world, dev, small)
-    done = False
+    failed = None
     try:
-        t0 = time.perf_counter()
-        (system, x, m, bonded), (s100, x100) = _systems(ctx)
-        ctx.say(f"{world} ranks on {dev.type}; halo box {system.n_atoms} "
-                f"atoms, cells {system.spec.cell_grid} capacity "
-                f"{system.spec.cell_capacity}; sharded box {s100.n_atoms} "
-                f"atoms, cells {s100.spec.cell_grid}")
-        res = {"world": world, "device": dev.type}
-        res["halo"] = route_halo(ctx, system, x)
-        res["nve"] = route_nve(ctx, system, x, m, bonded)
-        res["npt"] = route_npt(ctx, system, x, m, bonded)
-        res["shard"] = route_shard(ctx, s100, x100)
-        res["replicas"] = route_replicas(ctx)
-        res["seconds"] = time.perf_counter() - t0
-        if rank == 0:
-            ok = (res["halo"]["ok"] and res["nve"]["ok"] and res["npt"]["ok"]
-                  and res["shard"]["ok"]
-                  and all(r["ok"] for r in res["replicas"].values()))
-            res["ok"] = ok
-            Path(out_file).write_text(json.dumps(res))
-        done = True
-    finally:
-        _teardown(rank, done)
+        _routes(ctx, out_file)
+    except Exception:
+        # kept as text: the traceback would keep the routes' frames, and
+        # with them their graphs, alive through the teardown
+        failed = traceback.format_exc()
+    _teardown(ctx, Path(out_file).with_name(f"teardown_rank{rank}.txt"))
+    if failed is not None:
+        raise RuntimeError(f"rank {rank}: a route failed:\n{failed}")
 
 
-def _teardown(rank: int, done: bool):
-    """``destroy_process_group`` in a thread, given TEARDOWN_S: on four
-    H100s the NCCL group's teardown once failed to return after every
-    route had finished and rank 0 had written the results.  Past the
-    limit the process exits without it (code 0 if its routes were done,
-    else 1), so a teardown cannot hold the cards."""
-    import os
-    import threading
+def _routes(ctx, out_file):
+    """Every route on this rank; rank 0 writes the results to
+    ``out_file``.  Whatever the routes built (systems, energy functions and
+    the chunk graphs kept on them) is unreachable once this returns."""
+    t0 = time.perf_counter()
+    (system, x, m, bonded), (s100, x100) = _systems(ctx)
+    ctx.say(f"{ctx.world} ranks on {ctx.dev.type}; halo box "
+            f"{system.n_atoms} atoms, cells {system.spec.cell_grid} capacity "
+            f"{system.spec.cell_capacity}; sharded box {s100.n_atoms} "
+            f"atoms, cells {s100.spec.cell_grid}")
+    res = {"world": ctx.world, "device": ctx.dev.type}
+    res["halo"] = route_halo(ctx, system, x)
+    res["nve"] = route_nve(ctx, system, x, m, bonded)
+    res["npt"] = route_npt(ctx, system, x, m, bonded)
+    res["shard"] = route_shard(ctx, s100, x100)
+    res["replicas"] = route_replicas(ctx)
+    res["seconds"] = time.perf_counter() - t0
+    if ctx.rank == 0:
+        res["ok"] = (res["halo"]["ok"] and res["nve"]["ok"]
+                     and res["npt"]["ok"] and res["shard"]["ok"]
+                     and all(r["ok"] for r in res["replicas"].values()))
+        Path(out_file).write_text(json.dumps(res))
+
+
+def _teardown(ctx, dump_file):
+    """Tear the group down, given TEARDOWN_S.  In order: collect the
+    routes' garbage (a chunk on its energy function is a reference cycle,
+    so the chunk graphs, with NCCL sends, receives and all-reduces
+    captured in them, live until the cyclic GC runs), synchronize the
+    card, a barrier, destroy the subgroups the routes made (newest first,
+    on every rank alike), then the default group.  Past the limit
+    ``faulthandler`` writes every thread's stack to ``dump_file`` and the
+    process exits with code 1, which fails the command (:func:`run` prints
+    the dump)."""
+    import faulthandler
+    import gc
 
     import torch.distributed as dist
 
-    t = threading.Thread(target=dist.destroy_process_group, daemon=True)
-    t.start()
-    t.join(TEARDOWN_S)
-    if t.is_alive():
-        print(f"multigpu: rank {rank}: the process group's teardown did "
-              f"not return in {TEARDOWN_S} s; exiting without it",
-              flush=True)
-        os._exit(0 if done else 1)
+    gc.collect()
+    if ctx.cuda:
+        torch.cuda.synchronize(ctx.dev)
+    with open(dump_file, "w") as dump:
+        faulthandler.dump_traceback_later(TEARDOWN_S, exit=True, file=dump)
+        if ctx.cuda:
+            dist.barrier(device_ids=[ctx.rank])
+        else:
+            dist.barrier()
+        for group in reversed(ctx.groups):
+            dist.destroy_process_group(group)
+        dist.destroy_process_group()
+        faulthandler.cancel_dump_traceback_later()
+    Path(dump_file).unlink()
 
 
 def run(small: bool = False) -> dict:
@@ -597,6 +625,10 @@ def run(small: bool = False) -> dict:
                 if p.is_alive():
                     p.kill()
                     p.join(5)
+            for dump in sorted(Path(tmp).glob("teardown_rank*.txt")):
+                print(f"measure multigpu: {dump.stem}: the teardown did not "
+                      f"return in {TEARDOWN_S} s; every thread's stack:\n"
+                      f"{dump.read_text()}", file=sys.stderr, flush=True)
         res = json.loads(Path(out_file).read_text())
     print(json.dumps(res), flush=True)
     if not res["ok"]:

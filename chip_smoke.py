@@ -35,6 +35,14 @@ in order:
    shapes and at a 4k box's (n_side 11, kmax 13^3), on the real tables
    and the real cotangents dE_rec/dA, dE_rec/dB; the forward once more at
    the kernels' Ky / 2Kz limits (agreement and bitwise repeat only);
+3c. the cell binning kernel (``cell_bin``) against its plain version,
+   bit for bit (slots, inverse slots, overflow count): at the 30k start
+   (timed as in phase 3 beside its bound; no library call computes the
+   slots), at capacity 8 (cells overflow, and the kernel route's energy
+   and forces are NaN), on every rank's slab of the halo route's (4, 1)
+   slabs and (2, 2) bricks, on the positions halved (most cells empty), on
+   the first 2049 atoms (N not a multiple of the kernel's chunk) and on
+   bench.py's 100k box (11^3 cells);
 4. / 4b. energy_and_forces at the start positions of each path: kernel
    path against the plain path in f32 and in f64 on the card, and the
    f64 system on its own route (it records the plain versions when it is
@@ -44,8 +52,9 @@ in order:
    measured occupancy; the walk kernel once more against its plain
    version (phase 3's tolerances, bitwise repeat) on the blocks of the
    burned-in state after all but one step of a rebuild interval on one
-   neighbor state, where atoms have left their cells' nominal bounds;
-   then 200 NVE steps with neighbor reuse;
+   neighbor state, where atoms have left their cells' nominal bounds, and
+   the binning kernel on those drifted positions (the cases of 3c at the
+   30k box); then 200 NVE steps with neighbor reuse;
 5b. the 216 path: 200 NVE steps from the lattice at rest;
    in 5 and 5b a trajectory runs each rebuild chunk as one CUDA graph
    replay, as a user's does.  Before the 200 steps, the same start state
@@ -63,7 +72,11 @@ in order:
    ``utils.measure.respa_path``): flexible water after 0.2 ps of 0.5 fs
    Langevin, then 200 outer steps of 2 fs, 4 bonded BAOAB substeps each
    (the rebuild interval from the relaxed max speed, as for rigid);
-   in 5c and 5d the chunk check runs as in 5 from one generator state
+   in 5c and 5d (and 7b, 9) each driver first runs SETTLE_PS = 1 ps from
+   its burn-in state (the burn-ins leave the box relaxing: the first
+   0.1 ps after phase 5's read 312-314 K), and the chunk check and the
+   window start from there; the chunk check runs as in 5 from one
+   generator state
    (re-seeded before each run: the replays must draw the eager run's
    normals), and a further call with the generator carried on must draw
    new ones; over the 200 timed steps (ms/step and ns/day printed, the
@@ -99,9 +112,9 @@ in order:
    the final box (phase 3's tolerances); ms/step and ns/day; the virial
    pressure once at the final state (finite; its seconds and peak
    memory);
-7b. CSVR and Nose-Hoover chain NVT on phase 5's burned-in 30k state: the
-   chunk check of 5c for each (CSVR from one generator state), 200
-   replayed steps each; CSVR's mean temperature within 10 % of 300 K,
+7b. CSVR and Nose-Hoover chain NVT on phase 5's burned-in 30k state: 1 ps
+   of each, then the chunk check of 5c for each (CSVR from one generator
+   state), 200 replayed steps each; CSVR's mean temperature within 10 % of 300 K,
    the chain's conserved-quantity drift printed;
 9. onramp30k (``utils.measure.onramp_path``): a peptide-in-water PDB
    written by the port's ``write_pdb`` (a 16-residue GLY backbone row
@@ -159,7 +172,9 @@ in order:
    a sweep every 10 steps) after 800 steps at 20/ps: replays bit-equal to
    graph=False from one generator state, new noise on a further call,
    the configurations kept as a multiset at dt = 0, every slot's mean
-   temperature within 10 % of its target; acceptance per parity, ms/step;
+   temperature within 10 % of its target, and the ladder's mean relative
+   deviation with its standard error over the slots (a bias common to
+   them); acceptance per parity, ms/step;
 10c. halo1: ``parallel.halo`` in a world of one (an NCCL group of one
    rank, decomposition (1, 1)).  The walk kernel's slab form
    (``direct_walk_halo``) against its plain slab walk (phase 3's
@@ -169,7 +184,8 @@ in order:
    form on phase 6's drifted tri30k blocks cut the same three ways; at
    phase 5's burned-in 30k state in f32 against the single-system kernel
    route (|dE| <= 1e-5 of sum|E_c|, force RMS <= 1e-5; one slab kernel
-   launch and no periodic walk an evaluation) and at a 4k box in f64 against
+   and one binning kernel launch and no periodic walk an evaluation; in
+   f64 neither kernel) and at a 4k box in f64 against
    the plain route (1e-10), each on the halo PME mesh and on classical
    Ewald, with both routes' ms per evaluation (device time as graphs in
    turns, and eager) and the collectives issued; the halo PME mesh's
@@ -177,8 +193,8 @@ in order:
    over the 4k f64 halo energy ('xla', the plain slab walk) and over the
    30k halo energy and the water bonds, each with the NCCL all-reduces
    inside the chunk graphs and bit-equal to graph=False, then 100 replayed
-   steps (ms/step; counts reset before them) in which the slab kernel
-   must have launched and the periodic walk not;
+   steps (ms/step; counts reset before them) in which the slab and the
+   binning kernels must have launched and the periodic walk not;
 11. a JSON line with each kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
@@ -213,6 +229,10 @@ KERNELS = {
     # under jax.checkpoint, the concat walk on one rank's slab)
     "direct_walk_halo": ("chargeflux_tpu_torch/csrc/direct_walk.cu",
                          "chargeflux_tpu/parallel/halo.py:307", "halo1"),
+    # the binning of every cell path (the JAX package's XLA ranking; also
+    # its halo route's ownership-masked copy)
+    "cell_bin": ("chargeflux_tpu_torch/csrc/cell_bin.cu",
+                 "chargeflux_tpu/cells.py:151", "30k"),
     "sf_fwd": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:145", "216"),
     "sf_bwd_tables": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:157",
                       "216"),
@@ -228,6 +248,11 @@ KERNELS = {
 }
 N_STEPS = 200
 T_TOL = 0.10          # the NVT phases' mean temperature, relative to 300 K
+# ps each NVT driver runs from its burn-in state before its chunk check and
+# timed window: the burn-ins leave the box relaxing, and the first 0.1 ps
+# read 312-316 K where the same drivers read 300 K after 1 ps
+# (``utils.measure thermo``)
+SETTLE_PS = 1.0
 RESIDUAL_TOL = 1e-4   # nm^2, the JAX package's f32 constraint tolerance
 WALK_TOLS = (1e-5, 1e-4, 1e-4)  # the walk's energy, dE/dx and dE/dq
 
@@ -376,6 +401,72 @@ def kernel_cases(system, x, where):
     return cases
 
 
+def binning_agree(cases, where):
+    """The binning kernel bit-equal to its plain version (slots, inverse
+    slots, overflow; tolerance 0) in each of ``cases`` {name: (cell ids,
+    n_cells, capacity)}, two launches repeating bit for bit."""
+    from chargeflux_tpu_torch.ops import cell_bin as cb
+
+    for name, (cell, n_cells, cap) in cases.items():
+        agree("cell_bin", lambda: cb.cell_bin(cell, n_cells, cap),
+              lambda: cb.cell_bin_plain(cell, n_cells, cap), 0.0,
+              f"{where}, {name} ({cell.shape[0]} atoms, {n_cells} cells of "
+              f"{cap})")
+
+
+def check_binning(system, x, results):
+    """Phase 3c: the binning kernel against its plain version, bit for bit,
+    at the 30k start (timed beside its bound), at capacity 8 (cells
+    overflow; the energy on the kernel route is NaN), on every rank's slab
+    of the halo route's (4, 1) and (2, 2), the positions halved (most
+    cells empty), the first 2049 atoms (N not a multiple of the kernel's
+    chunk) and bench.py's 100k box on its 11^3 grid."""
+    import dataclasses
+
+    import torch
+
+    from chargeflux_tpu_torch.energy import energy_and_forces
+    from chargeflux_tpu_torch.ops import cell_bin as cb
+    from chargeflux_tpu_torch.utils.measure import (bench_path,
+                                                    binning_cases,
+                                                    binning_cells,
+                                                    kernel_bound)
+
+    cases = binning_cases(system, x, "30k start")
+    cell, n_cells, cap = cases.pop("30k start")
+    results["cell_bin"] = kernel_entry("cell_bin", compare(
+        "cell_bin", lambda: cb.cell_bin(cell, n_cells, cap),
+        lambda: cb.cell_bin_plain(cell, n_cells, cap), 0.0,
+        f"phase 3c at the 30k start ({cell.shape[0]} atoms, {n_cells} "
+        f"cells of {cap})",
+        kernel_bound("cell_bin", n_atoms=cell.shape[0],
+                     n_slots=n_cells * cap)))
+    results["cell_bin"]["library_note"] = (
+        "no single call: no PyTorch call computes the slots")
+    half, n_half = binning_cells(system, 0.5 * x)
+    cases["30k halved"] = (half, n_half, int(torch.bincount(
+        half.long(), minlength=n_half).max()))
+    cases["2049 atoms"] = (*binning_cells(system, x[:2049]), cap)
+    _f, x100, _m, _b, _bd, s100 = bench_path("100k", x.device)
+    cases["100k"] = (*binning_cells(s100, x100), s100.spec.cell_capacity)
+    binning_agree(cases, "phase 3c")
+    over = int(cb.cell_bin(*cases["30k start capacity 8"])[2])
+    empty = int((cb.cell_bin(*cases["30k halved"])[0][:, 0]
+                 == x.shape[0]).sum())
+    tiny = system._swap(spec=dataclasses.replace(system.spec,
+                                                 cell_capacity=8))
+    e, f = energy_and_forces(x, tiny)
+    print(f"phase 3c binning: capacity 8 drops {over} atoms and the kernel "
+          f"route's energy and forces are NaN: "
+          f"{bool(torch.isnan(e) and torch.isnan(f).all())}; the halved "
+          f"positions leave {empty} of {n_half} cells empty", flush=True)
+    if not (over > 0 and empty > 0):
+        fail("phase 3c: the binning cases do not overflow or leave no cell "
+             "empty")
+    if not (torch.isnan(e) and torch.isnan(f).all()):
+        fail("phase 3c: a binning overflow did not poison the energy")
+
+
 def check_energy(system, x, phase):
     """Phase 4 / 4b: kernel path vs plain path (f32) and plain f64."""
     import torch
@@ -427,7 +518,8 @@ def run_md(force, system0, x, masses, box):
     from chargeflux_tpu_torch.integrate import kinetic_energy
     from chargeflux_tpu_torch.models import water_bonded_params
     from chargeflux_tpu_torch.ops import direct_walk as dw
-    from chargeflux_tpu_torch.utils.measure import (burn_in, drifted_blocks,
+    from chargeflux_tpu_torch.utils.measure import (binning_cases, burn_in,
+                                                    drifted_blocks,
                                                     nve_drive)
 
     bonded = water_bonded_params(x.shape[0] // 3, box=box, device=x.device)
@@ -450,6 +542,8 @@ def run_md(force, system0, x, masses, box):
     with torch.no_grad():
         agree("direct_walk", lambda: dw.direct_walk(*walk_args),
               lambda: dw.direct_walk_plain(*walk_args), WALK_TOLS, where)
+    binning_agree(binning_cases(system, info["positions"], "drifted"),
+                  "phase 5")
 
     ms_eager, _ = check_chunks("5", drive, rebuild_every)
     chunk = next(c for c in e_fn.nve_chunks.values() if c.k == rebuild_every)
@@ -708,8 +802,8 @@ def run_npt(dev):
 
 def run_thermostats(dev, ctx):
     """Phase 7b: CSVR and Nose-Hoover chain NVT on phase 5's burned-in
-    state.  Returns {name: (ms/step, eager ms/step)} and the chain's
-    conserved-quantity drift."""
+    state, each after :func:`settle`.  Returns {name: (ms/step, eager
+    ms/step)} and the chain's conserved-quantity drift."""
     import torch
 
     from chargeflux_tpu_torch.nosehoover import (nhc_conserved, nhc_init,
@@ -721,7 +815,10 @@ def run_thermostats(dev, ctx):
     system, s1, every, bonded, m = ctx
     n_atoms = system.n_atoms
     gen = torch.Generator(dev).manual_seed(0)
-    drive, _, _ = thermostat_drive("csvr", system, s1, every, m, bonded, gen)
+    s_eq = settle("7b csvr", thermostat_drive("csvr", system, s1, every, m,
+                                              bonded, gen)[0], DT_PS)
+    drive, _, _ = thermostat_drive("csvr", system, s_eq, every, m, bonded,
+                                   gen)
     ms_eager_c, _ = check_chunks("7b csvr", drive, every, gen)
     launches, ms_c, _, kes = timed_run(drive)
     t_mean = float((2.0 * kes / (3 * n_atoms * BOLTZ)).mean())
@@ -733,17 +830,19 @@ def run_thermostats(dev, ctx):
         fail(f"phase 7b: CSVR mean temperature {t_mean:.2f} K is not "
              f"within {T_TOL:.0%} of 300 K")
     check_launches(launches, "30k", lambda c: c > 0)
-    drive, e_fn, init_nb = thermostat_drive("nhc", system, s1, every, m,
+    s_eq = settle("7b nhc", thermostat_drive("nhc", system, s1, every, m,
+                                             bonded)[0], DT_PS)
+    drive, e_fn, init_nb = thermostat_drive("nhc", system, s_eq, every, m,
                                             bonded)
     ms_eager_n, _ = check_chunks("7b nhc", drive, every)
     n_dof = 3 * n_atoms - 3
     chain0 = nhc_init(n_dof, TEMP, TAU_NHC, 3, torch.float32, dev)
-    h0 = float(nhc_conserved(s1, chain0, m, n_dof, TEMP))
+    h0 = float(nhc_conserved(s_eq, chain0, m, n_dof, TEMP))
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     a.record()
     fin, chain, kes = nose_hoover_trajectory_nb(
-        s1, e_fn, init_nb, m, DT_PS, TEMP, TAU_NHC, N_STEPS, every)
+        s_eq, e_fn, init_nb, m, DT_PS, TEMP, TAU_NHC, N_STEPS, every)
     b.record()
     torch.cuda.synchronize()
     ms_n = a.elapsed_time(b) / N_STEPS
@@ -849,9 +948,20 @@ def check_chunks(phase, drive, rebuild_every, gen=None):
     return ms_eager, ms_graph
 
 
+def settle(phase, drive, dt_ps):
+    """SETTLE_PS of replayed steps through ``drive`` from its start state:
+    the state the phase's chunk check and timed window start from."""
+    n = round(SETTLE_PS / dt_ps)
+    final, _ = drive(n, True, False)
+    print(f"phase {phase}: {n} settling steps ({SETTLE_PS:g} ps) before "
+          f"the window", flush=True)
+    return final
+
+
 def run_nvt(phase, label, path, drive, dt_ps, params=None):
-    """Phases 5c / 5d / 9: the chunk check, then N_STEPS timed replayed
-    steps with the launch counts reset before them; checks finite energies,
+    """Phases 5c / 5d / 9: :func:`settle`, the chunk check, then N_STEPS
+    timed replayed steps with the launch counts reset before them; checks
+    finite energies,
     the spread and walk kernels' launches, the mean kinetic temperature
     and, with ``params``, the constraint residual.  Returns (launches,
     ms/step, eager ms/step, the final state)."""
@@ -866,6 +976,7 @@ def run_nvt(phase, label, path, drive, dt_ps, params=None):
           f"peak occupancy {info['occupancy']} -> capacity "
           f"{path['system'].spec.cell_capacity}; rebuild_every {every}",
           flush=True)
+    path["state"] = settle(phase, drive, dt_ps)
     ms_eager, _ = check_chunks(phase, drive, every, path["generator"])
     launches, ms, final, kes = timed_run(drive)
     n_c = 0 if params is None else params.n_constraints
@@ -1126,7 +1237,9 @@ def run_rbe(dev, ctx):
              "errors of the SPME reciprocal energy")
     seconds = time.perf_counter() - t0
     print(f"phase 9b took {seconds:.1f} s (host clock)", flush=True)
-    return {"direct_walk": launches["direct_walk"]}, {
+    if launches["cell_bin"] == 0:
+        fail("phase 9b: RBE's neighbor rebuilds must run the binning kernel")
+    return {k: launches[k] for k in ("direct_walk", "cell_bin")}, {
         "ms_per_step": ms, "ms_per_step_eager": ms_eager,
         "ms_per_step_p512": ms4, "t_mean_k": t_mean, "t_mean_k_p512": t_mean4,
         "ms_per_step_spme_same_call": ms_spme, "estimator_z": z,
@@ -1661,20 +1774,26 @@ def run_remd(dev, path):
     (_l0, _h0, ok0), (_l1, _h1, ok1) = pairing_tables(r)
     acc_even = float(acc[:, 0::2][..., np.asarray(ok0)].mean())
     acc_odd = float(acc[:, 1::2][..., np.asarray(ok1)].mean())
-    dev_t = np.abs(t_mean / temps - 1.0)
+    rel = t_mean / temps - 1.0
+    dev_t = np.abs(rel)
+    # the ladder's mean deviation and its standard error over the slots:
+    # a bias common to the slots, apart from each slot's own noise
+    bias, bias_se = float(rel.mean()), float(rel.std(ddof=1) / np.sqrt(r))
     print(f"phase 10b REMD: {REMD_CALLS} calls of {REMD_CALL_STEPS} steps "
           f"(a sweep every {REMD_EVERY}), {ms:.4f} ms/step (CUDA events, "
           f"each call's copy-in and graph replays); swap acceptance even "
           f"pairs {acc_even:.3f}, odd pairs {acc_odd:.3f}; slot mean "
           f"temperatures {t_mean[0]:.1f} K (target {temps[0]:.1f}) .. "
           f"{t_mean[-1]:.1f} K (target {temps[-1]:.1f}), largest relative "
-          f"deviation {dev_t.max():.4f} (limit {T_TOL})", flush=True)
+          f"deviation {dev_t.max():.4f} (limit {T_TOL}), mean over the "
+          f"ladder {bias:+.4f} +- {bias_se:.4f}", flush=True)
     if not np.isfinite(t_mean).all() or dev_t.max() > T_TOL:
         fail("phase 10b: a slot's mean temperature is off its target")
     seconds = time.perf_counter() - t0
     print(f"phase 10b took {seconds:.1f} s (host clock)", flush=True)
     return {"ms_per_step": ms, "accept_even": acc_even,
             "accept_odd": acc_odd, "t_dev_max": float(dev_t.max()),
+            "t_dev_mean": bias, "t_dev_mean_se": bias_se,
             "seconds": seconds}
 
 
@@ -1730,18 +1849,20 @@ def halo_case(label, system, x, tol, f32):
     ms, ms_single = eager_ms(ef), eager_ms(single)
     dev_ms, dev_single = interleaved_ms((ef, single))
     walks = {k: launches[k] for k in ("direct_walk_halo", "direct_walk",
-                                      "direct_walk_tri")}
+                                      "direct_walk_tri", "cell_bin")}
     print(f"phase 10c halo {label}: {what} {d_e:.3e}, force RMS relative "
           f"{d_f:.3e} (limits {tol}); energy and forces {dev_ms:.3f} ms per "
           f"evaluation on the device against {dev_single:.3f} for the "
           f"single-system route (graphs of {GRAPH_REPS} calls in turns, "
           f"median of {ROUNDS}); eager {ms:.3f} against {ms_single:.3f} "
-          f"(CUDA events); walk launches of one evaluation {walks}; "
+          f"(CUDA events); walk and binning launches of one evaluation "
+          f"{walks}; "
           f"collectives {coll}", flush=True)
     if not (torch.isfinite(f).all() and d_e <= tol and d_f <= tol):
         fail(f"phase 10c: the halo route disagrees ({label})")
     if walks["direct_walk"] or walks["direct_walk_tri"] or (
-            walks["direct_walk_halo"] != (1 if f32 else 0)):
+            walks["direct_walk_halo"] != (1 if f32 else 0)) or (
+            walks["cell_bin"] != (1 if f32 else 0)):
         fail(f"phase 10c: the halo route's walk launches {walks} ({label})")
     return {"ms_per_eval": dev_ms, "ms_per_eval_single": dev_single,
             "ms_per_eval_eager": ms, "ms_per_eval_single_eager": ms_single,
@@ -1929,6 +2050,10 @@ def run_halo(dev, results, ctx30k, walk_tri):
             fail("phase 10c: the halo route launched the periodic walk")
         counts = check_launches(launches, "halo1", lambda c: c > 0)
         results["direct_walk_halo"]["launches"] = counts["direct_walk_halo"]
+        if launches["cell_bin"] == 0:
+            fail("phase 10c: the halo NVE run did not launch the binning "
+                 "kernel")
+        results["cell_bin"]["launches_halo1"] = launches["cell_bin"]
     finally:
         dist.destroy_process_group()
     seconds = time.perf_counter() - t0
@@ -1982,6 +2107,7 @@ def main():
     results = {}
     check_kernels(system, x, results)
     check_sf_kernels(results)
+    check_binning(system, x, results)
     check_energy(system, x, "4")
     check_energy(sys_d, x_d, "4b")
     launches, ms_step, ms_eager, capture, ctx30k = run_md(force, system, x,

@@ -17,6 +17,7 @@ from chargeflux_tpu_torch.device import constant
 from chargeflux_tpu_torch.energy import energy_and_forces, energy_components
 from chargeflux_tpu_torch.models import water_box
 from chargeflux_tpu_torch.neighbors import build_neighbor_state
+from chargeflux_tpu_torch.ops import cell_bin as cb
 from chargeflux_tpu_torch.ops import direct_walk as dw
 from chargeflux_tpu_torch.ops import native
 from chargeflux_tpu_torch.ops import pme_spread as ps
@@ -1613,7 +1614,7 @@ def halo_world():
     walk_args, info = drifted_blocks(system, s0, e_fn, m, 11)
     assert info["outside"] > 0
     yield dict(system=system, x=x, masses=m, bonded=bonded,
-               walk_args=walk_args)
+               walk_args=walk_args, drifted_x=info["positions"])
     dist.destroy_process_group()
 
 
@@ -1748,3 +1749,83 @@ def test_halo_nve_replays_give_the_eager_bits(halo_world, case):
         assert torch.equal(fin.positions, runs[0][0].positions)
         assert torch.equal(fin.velocities, runs[0][0].velocities)
     assert bool(torch.isfinite(runs[0][1]).all())
+
+
+@pytest.fixture(scope="module")
+def binning_inputs(halo_world):
+    """The binning kernel's cases (``utils.measure.binning_cases``): the
+    30k box's start and drifted positions, each on its 8^3 grid at the
+    system's capacity and at 8 (cells overflow) and on every rank's slab
+    of (4, 1) and (2, 2); the start positions halved (7/8 of the cells
+    empty), its first 2049 atoms (N not a multiple of the kernel's 1024
+    chunk), and bench.py's 100k box on its 11^3 grid."""
+    from chargeflux_tpu_torch.utils.measure import (bench_path,
+                                                    binning_cases,
+                                                    binning_cells)
+
+    s = halo_world
+    system, x = s["system"], s["x"]
+    cases = {**binning_cases(system, x, "30k start"),
+             **binning_cases(system, s["drifted_x"], "30k drifted")}
+    cell, n_cells = binning_cells(system, 0.5 * x)
+    cap = int(torch.bincount(cell.long(), minlength=n_cells).max())
+    cases["30k halved"] = (cell, n_cells, cap)
+    cases["2049 atoms"] = (*binning_cells(system, x[:2049]),
+                           system.spec.cell_capacity)
+    _f, x100, _m, _b, _bd, s100 = bench_path("100k", x.device)
+    assert s100.spec.cell_grid == (11, 11, 11)
+    cases["100k"] = (*binning_cells(s100, x100), s100.spec.cell_capacity)
+    return cases
+
+
+def test_cell_bin_kernel_matches_plain_bit_for_bit(binning_inputs):
+    """Slots, inverse slots and the overflow count of the kernel equal the
+    plain version's in every case, and two launches repeat bit for bit;
+    each call counts one launch."""
+    n0 = ops.launch_counts()["cell_bin"]
+    seen = {"overflow": 0, "empty": 0, "nowhere": 0}
+    for name, (cell, n_cells, cap) in binning_inputs.items():
+        k1 = cb.cell_bin(cell, n_cells, cap)
+        k2 = cb.cell_bin(cell, n_cells, cap)
+        p = cb.cell_bin_plain(cell, n_cells, cap)
+        for u, v, w in zip(k1, k2, p):
+            assert torch.equal(u, v) and torch.equal(u, w), name
+        seen["overflow"] += int(k1[2]) > 0
+        seen["empty"] += bool((k1[0][:, 0] == cell.shape[0]).any())
+        seen["nowhere"] += bool((cell == n_cells).any())
+    assert ops.launch_counts()["cell_bin"] == n0 + 2 * len(binning_inputs)
+    assert all(seen.values()), seen
+
+
+def test_cell_bin_replays_in_a_cuda_graph(binning_inputs):
+    """Captured into a CUDA graph (a fixed grid, no host read), the binning
+    replays the eager call's bits; new ids copied into the captured input
+    give their own binning."""
+    cell, n_cells, cap = binning_inputs["30k start"]
+    other = binning_inputs["30k drifted"][0]
+    static = cell.clone()
+    cb.cell_bin(static, n_cells, cap)              # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cb.cell_bin(static, n_cells, cap)
+    for ids in (cell, other, cell):
+        static.copy_(ids)
+        graph.replay()
+        torch.cuda.synchronize()
+        for u, v in zip(out, cb.cell_bin_plain(ids, n_cells, cap)):
+            assert torch.equal(u, v)
+
+
+def test_a_binning_overflow_poisons_the_kernel_route(halo_world):
+    """At capacity 8 the 30k box's cells overflow on the kernel route: the
+    binning kernel launched, and energy and every force are NaN."""
+    import dataclasses
+
+    s = halo_world
+    tiny = s["system"]._swap(spec=dataclasses.replace(s["system"].spec,
+                                                      cell_capacity=8))
+    n0 = ops.launch_counts()["cell_bin"]
+    e, f = energy_and_forces(s["x"], tiny)
+    assert ops.launch_counts()["cell_bin"] == n0 + 1
+    assert torch.isnan(e) and torch.isnan(f).all()

@@ -146,6 +146,16 @@ def test_kernel_bound_binning_at_the_30k_shapes():
     assert b["bound_ms"] == pytest.approx(691332 / 3.35e12 * 1e3)
 
 
+def test_kernel_bound_cell_bin_at_the_30k_shapes():
+    """The binning kernel reads the cell ids and writes the slots, inverse
+    slots and overflow count: 31,944 atoms, 8^3 cells of capacity 88,
+    435,780 bytes, 0.1301 us at 3.35 TB/s."""
+    b = measure.kernel_bound("cell_bin", n_atoms=31944, n_slots=512 * 88)
+    assert b["bytes"] == 4 * (2 * 31944 + 512 * 88 + 1) == 435780
+    assert b["flops"] == 0 and b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(435780 / 3.35e12 * 1e3)
+
+
 def test_pairs_within_cutoff_is_the_brute_force_count():
     """Minimum-image pair count against a loop over all pairs in NumPy."""
     import numpy as np
@@ -260,13 +270,15 @@ def test_traced_launches_counts_each_wrappers_kernel():
               "2, true>(float const*)"),
         Event("(anonymous namespace)::sf_bwd_tables_kernel(float const*)"),
         Event("(anonymous namespace)::sf_bwd_tables_kernel(float const*)"),
+        Event("(anonymous namespace)::cell_bin_count_kernel(int const*)"),
+        Event("(anonymous namespace)::cell_bin_rank_kernel(int const*)"),
         Event("cudaGraphLaunch", "DeviceType.CPU"),
     ]
     assert measure.traced_launches(events) == {
         "spread_fwd": 1, "spread_bwd": 1, "direct_walk": 1,
         "direct_walk_tri": 1, "direct_walk_halo": 1, "sf_fwd": 0,
-        "sf_bwd_tables": 2, "sf_bwd_zq": 0}
-    assert len(measure.device_events(events)) == 8
+        "sf_bwd_tables": 2, "sf_bwd_zq": 0, "cell_bin": 1}
+    assert len(measure.device_events(events)) == 10
 
 
 def test_rigid_path_small_box():
@@ -359,3 +371,33 @@ def test_thermostat_drives_small_box(kind):
     if kind == "nhc":
         scale, chain = measure.chain_work(state, m)()
         assert torch.isfinite(scale) and chain.v_xi.shape == (3,)
+
+
+def test_thermo_windows_small_box(capsys, monkeypatch):
+    """``measure thermo`` on the CPU at n_side 6 (3^3 cells at cutoff 0.55)
+    from a Maxwell start: BAOAB, CSVR and the Nose-Hoover chain in f32 and
+    BAOAB and CSVR in f64 on the plain route, each with finite window
+    means (two windows of 4 steps; one for the f64 runs), one line each."""
+    from chargeflux_tpu_torch.integrate import (init_state_nb,
+                                                make_nb_energy_fn,
+                                                maxwell_velocities)
+
+    force, pos, masses, box = water_box(n_side=6, flux="bond_angle",
+                                        cutoff=0.55)
+    system = measure.build_system(force, box, 32, "cpu", grid=(3, 3, 3))
+    m = torch.tensor(masses, dtype=torch.float32)
+    bonded = water_bonded_params(len(masses) // 3, box=box, device="cpu")
+    x = torch.tensor(pos, dtype=torch.float32)
+    v = maxwell_velocities(m, 300.0, torch.Generator().manual_seed(1),
+                           dtype=torch.float32)
+    state = init_state_nb(x, v, *make_nb_energy_fn(system, bonded=bonded))
+    monkeypatch.setattr(measure, "THERMO_STEPS", 8)
+    monkeypatch.setattr(measure, "THERMO_F64_STEPS", 4)
+    monkeypatch.setattr(measure, "THERMO_WINDOW", 4)
+    out = measure.thermo_windows(system, state, 4, m, bonded, "cpu")
+    assert list(out) == ["baoab f32 kernels", "csvr f32 kernels",
+                         "nhc f32 kernels", "baoab f64 plain",
+                         "csvr f64 plain"]
+    assert [len(w) for w in out.values()] == [2, 2, 2, 1, 1]
+    assert all(math.isfinite(t) and t > 0 for w in out.values() for t in w)
+    assert capsys.readouterr().out.count("thermo ") == 5

@@ -233,5 +233,6 @@ def test_cpu_wrappers_take_the_plain_path():
     assert ops.launch_counts() == {"spread_fwd": 0, "spread_bwd": 0,
                                    "direct_walk": 0, "direct_walk_tri": 0,
                                    "direct_walk_halo": 0, "sf_fwd": 0,
-                                   "sf_bwd_tables": 0, "sf_bwd_zq": 0}
+                                   "sf_bwd_tables": 0, "sf_bwd_zq": 0,
+                                   "cell_bin": 0}
     assert jax.devices()[0].platform == "cpu"

@@ -26,7 +26,8 @@ from chargeflux_tpu_torch.system import ARRAY_FIELDS, system_from_arrays
 # a test on the card holds this table to the built library.
 KERNEL_LIMITS = {"cf_spread_limits": (32, 16, 36),
                  "cf_walk_limits": (16, 1024),
-                 "cf_sf_limits": (64, 128, 128, 256, 8, 32, 2, 4, 16)}
+                 "cf_sf_limits": (64, 128, 128, 256, 8, 32, 2, 4, 16),
+                 "cf_cell_bin_limits": (49152, 1024)}
 
 
 def fake_kernel_limits(monkeypatch):
@@ -339,7 +340,8 @@ def dist_worker(rank, world, task, system, x, opts):
         except ValueError as exc:
             out["refused"] = str(exc)
     elif task == "overflow":
-        out["e"] = float(halo.make_halo_energy_fn(system, None)(x))
+        out["e"] = float(halo.make_halo_energy_fn(
+            system, None, decomp=opts.get("decomp"))(x))
     elif task == "poisons":
         decomp = opts["decomp"]
         e_fn = halo.make_halo_energy_fn(system, None, decomp=decomp)
