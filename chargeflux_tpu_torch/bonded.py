@@ -21,6 +21,7 @@ from .device import resolve_device
 from .pairs import displacement
 from .rows import RowPlan, gather_planned, row_plan
 from .topology import TemplateSet, detect_templates
+from .utils.profiling import phase_scope
 
 
 def _bond_e(p1, p2, k, r0, box, pbc):
@@ -186,7 +187,14 @@ def bonded_energy(positions: torch.Tensor,
                   bonded: BondedParams) -> torch.Tensor:
     """Total bond + angle + torsion energy (kJ/mol).  The templated rows
     take positions with leading replica axes ([..., N, 3] -> [...]); the
-    gathered rows take one system."""
+    gathered rows take one system.  Runs in the stage ``cf_bonded``
+    (``utils.profiling.phase_scope``)."""
+    with phase_scope("cf_bonded", positions) as st:
+        return st.output(_bonded_terms(*st.inputs, bonded))
+
+
+def _bonded_terms(positions: torch.Tensor,
+                  bonded: BondedParams) -> torch.Tensor:
     box, pbc = bonded.box, bonded.pbc
     e = torch.zeros((), dtype=positions.dtype, device=positions.device)
     lead = positions.shape[:-2]

@@ -33,6 +33,7 @@ import torch
 from . import integrate
 from .device import constant, resolve_device
 from .rows import RowPlan, row_plan, scatter_add_planned
+from .utils.profiling import phase_scope
 
 # bond k connects sites (I[k], J[k]); water sites ordered O, H1, H2
 _BOND_I = (0, 0, 1)
@@ -529,9 +530,10 @@ def _dense_run(x, v, energy_fn, masses, n_steps, graph, key, make_step,
         integrate._chunk_getter(energy_fn, graph, x, masses,
                                 key + (id(params),), make), (x, v, f0),
         n_steps, integrate.STEPS_PER_CHUNK, masses, generator)
-    x_fin = last.x.clone()
-    with torch.no_grad():
-        e_pot = energy_fn(x_fin)
+    with phase_scope("cf.md.final"):
+        x_fin = last.x.clone()
+        with torch.no_grad():
+            e_pot = energy_fn(x_fin)
     return (x_fin, last.v.clone(), last.f.clone(), e_pot), out
 
 

@@ -42,8 +42,15 @@ fixed-charge gradient plus the explicit dE/dq . dq/dx chain rule over the
 analytic sparse Jacobian (``charges.apply_chain_rule``), the parity
 oracle of the autograd forces.  The phases of an evaluation run inside
 named ranges (``utils.profiling.phase_scope``: cf_charges, cf_binning,
-cf_direct, cf_exclusion, cf_reciprocal), as in the JAX package; they are
-host-side, so a CUDA graph replay pays nothing for them.
+cf_direct, cf_exclusion, cf_reciprocal, and cf_bonded in
+``bonded.bonded_energy``), as in the JAX package.  Each is also a stage
+timed on the device: a stamp at each edge of its forward, and an identity
+autograd function around its inputs and its output whose backward stamps
+the edges of its backward; values and gradients pass unchanged.  With no
+profiler recording, an eager evaluation launches no stamp, and the chunk
+graphs (``integrate.Chunk``) are instantiated without their 24 stamps a
+step, which go in only while a profiler records: the cost with them in
+is measured in PERF.md.
 """
 
 from __future__ import annotations
@@ -209,7 +216,7 @@ def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
     The poison multiplies sum(x) so every force is NaN too."""
     spec = system.spec
     dtype, dev = positions.dtype, positions.device
-    with phase_scope("cf_binning"):
+    with phase_scope("cf_binning", positions, q) as st:
         if nb is None:
             slots, inv_slot, overflow = cells.build_cell_list_full(
                 positions.detach(), system.box, spec.cell_grid,
@@ -218,12 +225,12 @@ def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
         else:
             slots, inv_slot, overflow = nb.slots, nb.inv_slot, nb.overflow
             wrap = nb.wrap
-        blocks = cells.blockify(positions, q, system, slots, inv_slot,
-                                wrap=wrap)
+        blocks = st.output(cells.blockify(*st.inputs, system, slots,
+                                          inv_slot, wrap=wrap))
     ids = slots.reshape(blocks.x.shape)
-    with phase_scope("cf_direct"):
-        e_dir = cells.direct_energy_on_blocks(blocks, ids, system,
-                                              plain=plain)
+    with phase_scope("cf_direct", blocks) as st:
+        e_dir = st.output(cells.direct_energy_on_blocks(
+            *st.inputs, ids, system, plain=plain))
     grid = constant(spec.cell_grid, dtype, dev)
     bad = (overflow > 0) | torch.any(plane_widths(system.box) / grid
                                      < spec.cutoff)
@@ -250,8 +257,9 @@ def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
     ``rbe``)."""
     spec = system.spec
     if not spec.pbc:
-        with phase_scope("cf_direct"):
-            return {"pair": _dense_pair_energy(positions, q, system)}
+        with phase_scope("cf_direct", positions, q) as st:
+            return {"pair": st.output(_dense_pair_energy(*st.inputs,
+                                                         system))}
     plain = plain or system.kernel_route == "plain"
     dtype = positions.dtype
     recip = resolve_recip_method(spec, dtype, positions.device)
@@ -264,29 +272,31 @@ def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
     if spec.direct_method == "cell":
         blocks, ids, comps["direct"] = _cell_direct(positions, q, system, nb,
                                                     recip, plain)
-        with phase_scope("cf_exclusion"):
-            comps["exclusion"] = _exclusion_correction(
-                positions, q, system, subtract_direct=True)
+        with phase_scope("cf_exclusion", positions, q) as st:
+            comps["exclusion"] = st.output(_exclusion_correction(
+                *st.inputs, system, subtract_direct=True))
     else:
-        with phase_scope("cf_direct"):
-            comps["direct"] = _dense_pair_energy(positions, q, system)
-        with phase_scope("cf_exclusion"):
-            comps["exclusion"] = _exclusion_correction(
-                positions, q, system, subtract_direct=False)
+        with phase_scope("cf_direct", positions, q) as st:
+            comps["direct"] = st.output(_dense_pair_energy(*st.inputs,
+                                                           system))
+        with phase_scope("cf_exclusion", positions, q) as st:
+            comps["exclusion"] = st.output(_exclusion_correction(
+                *st.inputs, system, subtract_direct=False))
     if not include_recip:
         return comps
-    with phase_scope("cf_reciprocal"):
-        if recip == "pme" and blocks is not None:
-            comps["reciprocal"] = pme_cell_column_reciprocal_energy(
-                blocks, ids, system, plain=plain)
+    columns = recip == "pme" and blocks is not None
+    with phase_scope("cf_reciprocal",
+                     *((blocks,) if columns else (positions, q))) as st:
+        if columns:
+            e = pme_cell_column_reciprocal_energy(*st.inputs, ids, system,
+                                                  plain=plain)
         elif recip == "pme":
-            comps["reciprocal"] = pme_reciprocal_energy(
-                positions, q, system.box, spec.alpha, spec.pme_grid,
-                spec.pme_order)
+            e = pme_reciprocal_energy(*st.inputs, system.box, spec.alpha,
+                                      spec.pme_grid, spec.pme_order)
         else:
-            comps["reciprocal"] = reciprocal_energy(
-                positions, q, system.box, spec.alpha, spec.kmax,
-                method=recip, plain=plain)
+            e = reciprocal_energy(*st.inputs, system.box, spec.alpha,
+                                  spec.kmax, method=recip, plain=plain)
+        comps["reciprocal"] = st.output(e)
     return comps
 
 
@@ -310,8 +320,8 @@ def _energy(positions: torch.Tensor, system: ChargeFluxSystem, nb=None,
             plain: bool = False) -> torch.Tensor:
     """Total potential energy (kJ/mol) with geometry-dependent charges;
     ``nb`` is an optional reused neighbor state (neighbors.py)."""
-    with phase_scope("cf_charges"):
-        q = effective_charges(positions, system)
+    with phase_scope("cf_charges", positions) as st:
+        q = st.output(effective_charges(*st.inputs, system))
     return energy_fixed_charges(positions, q, system, nb=nb, plain=plain)
 
 
@@ -346,8 +356,8 @@ def forces_manual(positions: torch.Tensor, system: ChargeFluxSystem,
     :func:`forces` to round-off; kept as the parity oracle of the
     reference's algorithm."""
     x = positions.detach()
-    with phase_scope("cf_charges"):
-        q = effective_charges(x, system)
+    with phase_scope("cf_charges", x) as st:
+        q = effective_charges(*st.inputs, system)
     xg = x.clone().requires_grad_(True)
     qg = q.detach().requires_grad_(True)
     with torch.enable_grad():

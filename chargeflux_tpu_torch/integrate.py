@@ -47,6 +47,16 @@ a chunk keeps the capture's counts apart (``ops.captured_launches``) and
 adds them at every replay (``ops.launch_counts()`` then counts what ran on
 the card).
 
+Tracing (``utils.profiling``).  A chunk's graph opens and closes with the
+stamps of the stage ``replay``, around the energy's own stage stamps.
+The capture is instantiated twice (``profiling.GraphStamps``): as the
+graph's own without the stamps, which ``graph.replay()`` runs, and with
+them, which a chunk call launches instead while a profiler records (and
+then counts the replay).  The host work of a call runs in the
+spans ``cf.md.call`` (the chunks), ``cf.md.load`` (the copy-in),
+``cf.md.capture``, ``cf.md.replay`` (``graph.replay()``) and
+``cf.md.final`` (the eager rebuild and evaluation at the end).
+
 On the cell route the neighbor state is rebuilt at the start of each
 chunk, and in between the energy function's freshness guard NaN-poisons
 energy and forces if an atom moved past skin/2.  The dense route has no
@@ -70,6 +80,8 @@ from .device import device_key, resolve_device
 from .energy import _energy
 from .neighbors import NeighborState, build_neighbor_state, neighbor_state_fresh
 from .units import BOLTZ
+from .utils import profiling
+from .utils.profiling import phase_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,6 +305,8 @@ class Chunk:
                      else make_head(masses, generator))
         self.keep = keep
         self.graph = None
+        self.stamps = None        # the graph's stamps (profiling)
+        self.rng_graph, self.rng_step = None, 0   # for a stamped replay
         self.captured = {}        # kernel launches of one replay
         self.capture_bytes = 0    # device memory the graph's pool reserved
         self.capture_seconds = 0.0  # the capture, its warm-up step included
@@ -314,13 +328,14 @@ class Chunk:
         replays a graph, the caller's ``masses`` into its own and
         ``generator`` as the one its replays follow (capturing first, if
         the graph is not captured yet)."""
-        if self.want_graph:
-            self.masses.copy_(masses)
-            self.source = generator
-            if self.graph is None:
-                self._copy_in(carry)
-                self._capture()
-        self._copy_in(carry)
+        with phase_scope("cf.md.load"):
+            if self.want_graph:
+                self.masses.copy_(masses)
+                self.source = generator
+                if self.graph is None:
+                    self._copy_in(carry)
+                    self._capture()
+            self._copy_in(carry)
 
     def _copy_in(self, carry):
         for buf, t in zip(self.carry, carry):
@@ -331,13 +346,32 @@ class Chunk:
         if self.graph is None:
             self.run()
             return
+        stamped = self.stamps.sync()
         own, source = self.generator, self.source
         if own is not None:
             own.set_state(source.get_state())
-        self.graph.replay()
+        with phase_scope("cf.md.replay"):
+            if stamped:
+                self._replay_stamped()
+            else:
+                self.graph.replay()
         if own is not None:
             source.set_state(own.get_state())
         ops.add_launches(self.captured)
+        profiling.count_replay(self.k)
+
+    def _replay_stamped(self):
+        """The graph with its stage stamps (while a profiler records).  The
+        chunk's generator is taken as ``graph.replay()`` takes it: a replay
+        of ``rng_graph`` sets the captured draws' seed and offset from it,
+        and it advances by what a replay of the graph draws."""
+        gen = self.generator
+        if gen is not None:
+            offset = gen.get_offset()
+            self.rng_graph.replay()
+        self.stamps.launch()
+        if gen is not None:
+            gen.set_offset(offset + self.rng_step)
 
     def run(self, n_steps: int | None = None):
         """The chunk's work, eagerly, on the static buffers (``n_steps``
@@ -374,6 +408,13 @@ class Chunk:
         return self.nb
 
     def _capture(self):
+        # the stamps' record is made before the capture, and the stamp
+        # nodes are collected as it runs
+        with (phase_scope("cf.md.capture"),
+              profiling.capture_stamps(self.x.device) as stamps):
+            self._capture_graph(stamps)
+
+    def _capture_graph(self, stamps):
         # the warm-up step draws from the chunk's own generator, whose
         # state each replay sets anew
         gen = self.generator
@@ -383,7 +424,8 @@ class Chunk:
         with torch.cuda.stream(side):
             self.run(n_steps=1)            # fills every cache before capture
         torch.cuda.current_stream(self.x.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
+        # its template kept, so that the stamps can be taken out of it
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         if gen is not None:
             graph.register_generator_state(gen)
         # A chunk kept on an energy function is in a reference cycle (the
@@ -401,14 +443,37 @@ class Chunk:
         try:
             with ops.captured_launches() as self.captured:
                 with torch.cuda.graph(graph, stream=side):
-                    self.run()
+                    # the graph's first and last nodes: the stage "replay"
+                    with phase_scope("cf_replay", self.x):
+                        self.run()
         finally:
             if collecting:
                 gc.enable()
-        self.graph = graph
+        stamps.attach(graph)      # instantiates it with and without stamps
+        if gen is not None and stamps.nodes:
+            self.rng_graph, self.rng_step = _rng_prologue(gen, graph, side)
+        self.graph, self.stamps = graph, stamps
         # the graph's private memory pool: what the card reserved for it
         self.capture_bytes = torch.cuda.memory_reserved(self.x.device) - pool0
         self.capture_seconds = time.perf_counter() - t0
+
+
+def _rng_prologue(gen, graph, stream):
+    """A graph of one draw from ``gen`` (its replay first sets the RNG seed
+    and offset of every graph that registered ``gen`` from ``gen``, as
+    ``graph.replay()`` does: a graph that draws nothing would not), and the
+    offset by which a replay of ``graph`` advances ``gen`` (from one
+    replay, whose work the caller overwrites)."""
+    rng = torch.cuda.CUDAGraph()
+    rng.register_generator_state(gen)
+    rng.scratch = torch.zeros(1, device=gen.device)
+    with torch.cuda.graph(rng, stream=stream):
+        rng.scratch.uniform_(generator=gen)
+    offset = gen.get_offset()
+    graph.replay()
+    step = gen.get_offset() - offset
+    gen.set_offset(offset)
+    return rng, step
 
 
 #: The chunk's earlier name, from when its only step was the NVE one.
@@ -460,18 +525,19 @@ def _run_chunks(get_chunk, carry, n_steps: int, k: int, masses,
     es = None
     n_full, rem = divmod(n_steps, k)
     done, chunk = 0, None
-    for length, count in ((k, n_full), (rem, 1 if rem else 0)):
-        if count == 0:
-            continue
-        chunk = get_chunk(length)
-        if es is None:
-            es = chunk.es.new_empty((n_steps,) + chunk.es.shape[1:])
-        chunk.load(*carry, masses=masses, generator=generator)
-        for _ in range(count):
-            chunk()
-            es[done:done + length].copy_(chunk.es)
-            done += length
-        carry = chunk.carry
+    with phase_scope("cf.md.call"):
+        for length, count in ((k, n_full), (rem, 1 if rem else 0)):
+            if count == 0:
+                continue
+            chunk = get_chunk(length)
+            if es is None:
+                es = chunk.es.new_empty((n_steps,) + chunk.es.shape[1:])
+            chunk.load(*carry, masses=masses, generator=generator)
+            for _ in range(count):
+                chunk()
+                es[done:done + length].copy_(chunk.es)
+                done += length
+            carry = chunk.carry
     return chunk, es
 
 
@@ -479,10 +545,11 @@ def _final_nb(chunk, e_fn, init_nb) -> MDStateNB:
     """The state a ``*_nb`` driver returns: the last carry's positions,
     velocities and forces, a fresh neighbor state and the potential
     evaluated with it (an eager evaluation)."""
-    x_fin = chunk.x.clone()
-    nb = init_nb(x_fin)
-    e_pot, _f, nb = e_fn(x_fin, nb)
-    return MDStateNB(x_fin, chunk.v.clone(), chunk.f.clone(), e_pot, nb)
+    with phase_scope("cf.md.final"):
+        x_fin = chunk.x.clone()
+        nb = init_nb(x_fin)
+        e_pot, _f, nb = e_fn(x_fin, nb)
+        return MDStateNB(x_fin, chunk.v.clone(), chunk.f.clone(), e_pot, nb)
 
 
 def _require_steps(n_steps: int):
@@ -637,9 +704,10 @@ def langevin_trajectory(state: MDState, energy_fn, masses, dt: float,
         _chunk_getter(energy_fn, graph, x, masses, key, make),
         (x, state.velocities, state.forces), n_steps, STEPS_PER_CHUNK,
         masses, generator)
-    x_fin = last.x.clone()
-    with torch.no_grad():
-        e_pot = energy_fn(x_fin)
+    with phase_scope("cf.md.final"):
+        x_fin = last.x.clone()
+        with torch.no_grad():
+            e_pot = energy_fn(x_fin)
     return MDState(x_fin, last.v.clone(), last.f.clone(), e_pot), kes
 
 
@@ -705,10 +773,11 @@ def _respa_start(state, slow_fn, fast_fn, init_nb):
 def _respa_final(chunk, slow_fn, fast_fn, init_nb) -> MDStateNB:
     """The final state of a RESPA driver: total forces and potential
     evaluated afresh at the last positions, with a fresh neighbor state."""
-    x = chunk.x.clone()
-    nb = init_nb(x)
-    e_slow, f_slow, nb = slow_fn(x, nb)
-    e_fast, f_fast = fast_fn(x)
+    with phase_scope("cf.md.final"):
+        x = chunk.x.clone()
+        nb = init_nb(x)
+        e_slow, f_slow, nb = slow_fn(x, nb)
+        e_fast, f_fast = fast_fn(x)
     return MDStateNB(x, chunk.v.clone(), f_slow + f_fast, e_slow + e_fast,
                      nb)
 

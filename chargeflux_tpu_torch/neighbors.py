@@ -19,6 +19,7 @@ from .cells import build_cell_list_full, wrap_offsets
 from .device import constant
 from .pairs import plane_widths
 from .system import box_widths
+from .utils.profiling import phase_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,14 +43,17 @@ def skin_radius(system) -> torch.Tensor:
 
 @torch.no_grad()
 def build_neighbor_state(positions: torch.Tensor, system) -> NeighborState:
+    """The binning at ``positions``, in the stage ``cf_rebuild``
+    (``utils.profiling.phase_scope``)."""
     spec = system.spec
     positions = positions.detach()
-    slots, inv_slot, overflow = build_cell_list_full(
-        positions, system.box, spec.cell_grid, spec.cell_capacity,
-        plain=system.kernel_route == "plain")
-    return NeighborState(slots=slots, inv_slot=inv_slot,
-                         wrap=wrap_offsets(positions, system.box),
-                         x_ref=positions.clone(), overflow=overflow)
+    with phase_scope("cf_rebuild", positions):
+        slots, inv_slot, overflow = build_cell_list_full(
+            positions, system.box, spec.cell_grid, spec.cell_capacity,
+            plain=system.kernel_route == "plain")
+        return NeighborState(slots=slots, inv_slot=inv_slot,
+                             wrap=wrap_offsets(positions, system.box),
+                             x_ref=positions.clone(), overflow=overflow)
 
 
 @torch.no_grad()

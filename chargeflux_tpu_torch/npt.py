@@ -52,6 +52,7 @@ from .ops.direct_walk import direct_walk_plain
 from .pairs import box_volume, displacement, frac_coords
 from .rows import RowPlan, row_plan, scatter_add_planned
 from .units import BOLTZ
+from .utils.profiling import phase_scope
 
 # 1 bar in kJ/mol/nm^3: 1e5 J/m^3 x 1e-27 m^3/nm^3 x N_A.
 BAR_TO_KJ_MOL_NM3 = 0.0602214076
@@ -483,17 +484,19 @@ def _npt_langevin_driver(positions, velocities, system, masses, dt: float,
     owner = system if energy_fn is None else energy_fn
     chunk = integrate._chunk_getter(owner, graph, x, masses, key,
                                     make)(barostat_interval)
-    chunk.load(*carry0, masses=masses, generator=generator)
     es = x.new_empty((n_steps,))
     records = None
-    for i in range(n_outer):
-        chunk()
-        es[i * barostat_interval:(i + 1) * barostat_interval].copy_(chunk.es)
-        if records is None:
-            records = [r.new_empty((n_outer,) + tuple(r.shape))
-                       for r in chunk.head_records]
-        for buf, r in zip(records, chunk.head_records):
-            buf[i].copy_(r)
+    with phase_scope("cf.md.call"):
+        chunk.load(*carry0, masses=masses, generator=generator)
+        for i in range(n_outer):
+            chunk()
+            es[i * barostat_interval:(i + 1) * barostat_interval].copy_(
+                chunk.es)
+            if records is None:
+                records = [r.new_empty((n_outer,) + tuple(r.shape))
+                           for r in chunk.head_records]
+            for buf, r in zip(records, chunk.head_records):
+                buf[i].copy_(r)
     diag = {"energies": es, "boxes": records[0], "accepts": records[1],
             "poisoned": records[2], "dv": chunk.carry[4].clone()}
     if len(records) > 3:

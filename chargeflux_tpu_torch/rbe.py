@@ -209,14 +209,14 @@ def make_rbe_nb_energy_fn(system, n_samples: int, bonded=None,
         return build_neighbor_state(x, system) if has_cells else None
 
     def energy(x, nb, generator):
-        with phase_scope("cf_charges"):
-            q = effective_charges(x, system)
+        with phase_scope("cf_charges", x) as st:
+            q = st.output(effective_charges(*st.inputs, system))
         comps = energy_components_fixed_charges(x, q, system, nb=nb,
                                                 include_recip=False,
                                                 plain=plain)
-        with phase_scope("cf_reciprocal"):
-            e = sum(comps.values()) + rbe_reciprocal_energy(
-                x, q, tables, n_samples, generator)
+        with phase_scope("cf_reciprocal", x, q) as st:
+            e = sum(comps.values()) + st.output(rbe_reciprocal_energy(
+                *st.inputs, tables, n_samples, generator))
         if bonded is not None:
             e = e + bonded_energy(x, bonded)
         return e
@@ -247,6 +247,7 @@ def rbe_langevin_trajectory_nb(state, e_fn, init_nb, masses, dt: float,
     Returns (final_state, per-step kinetic energies)."""
     from .integrate import (Chunk, MDStateNB, _baoab_step, _check_generator,
                             _chunk_getter, _require_steps, _run_chunks)
+    from .utils.profiling import phase_scope
 
     _require_steps(n_steps)
     x = state.positions
@@ -262,8 +263,9 @@ def rbe_langevin_trajectory_nb(state, e_fn, init_nb, masses, dt: float,
     chunk, kes = _run_chunks(_chunk_getter(e_fn, graph, x, masses, key, make),
                              (x, state.velocities, state.forces), n_steps,
                              rebuild_every, masses, generator)
-    x_fin = chunk.x.clone()
-    nb = init_nb(x_fin)
-    e_pot, _f, nb = e_fn(x_fin, nb, generator)
+    with phase_scope("cf.md.final"):
+        x_fin = chunk.x.clone()
+        nb = init_nb(x_fin)
+        e_pot, _f, nb = e_fn(x_fin, nb, generator)
     return MDStateNB(x_fin, chunk.v.clone(), chunk.f.clone(), e_pot,
                      nb), kes

@@ -3,6 +3,7 @@
     python3 -m chargeflux_tpu_torch.utils.measure profile [--path PATH]
     python3 -m chargeflux_tpu_torch.utils.measure f64 [--path PATH]
     python3 -m chargeflux_tpu_torch.utils.measure thermo
+    python3 -m chargeflux_tpu_torch.utils.measure stamps [--path PATH]
     python3 -m chargeflux_tpu_torch.utils.measure multigpu [--device cpu]
 
 PATH is 30k (the default), 216, rigid, respa, npt, or one of the other
@@ -53,6 +54,16 @@ and on the nhc path that of one step's two chain updates, each a CUDA
 graph timed alone, and their share of the step's device busy time.  The
 NPT and thermostat paths have no plain-path variant.
 
+``stamps``: the stage stamps of ``utils.profiling`` on an NVE path's
+captured chunk (:func:`stamp_costs`): the replay's bits with the stamps
+against without, the device time of ten back-to-back replays of the
+chunk's own graph (stamps out), of its graph with the stamps, and of the
+same chunk captured without stamps (CUDA events, rounds in turns),
+the record's replay time against CUDA events around the same replays, the
+launch counters against the kernels a profiler saw, and one trajectory
+call of 25 chunks under the profiler: its per-step time by stage, its host
+spans and where the card sat idle (``profiling.idle_by_span``).
+
 ``f64``: 200 NVE steps of the f32 kernel path beside 200 of the plain f64
 path from one start state: ms/step, net drift, max and RMS of ``E - E0``.
 
@@ -70,6 +81,8 @@ rehearses them on gloo ranks at small sizes (``utils/multigpu.py``).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import math
 import re
 import statistics
@@ -1409,11 +1422,10 @@ def window(run, n_steps: int, activities) -> dict:
     """One ``torch.profiler`` window over ``run()``: per step, the host
     wall time, the device busy time (union of the device events'
     intervals), the device events, and the idle share ``1 - busy / wall``;
-    with the trace's device events and ``phases``, the device time of the
-    kernels launched inside each of the energy's named scopes
-    (``utils.profiling.phase_scope``: cf_charges, cf_binning, cf_direct,
-    cf_exclusion, cf_reciprocal; forward only: the autograd backward runs
-    outside them), per step, where the window traced the CPU."""
+    and the program's record of the window (``utils.profiling.totals``:
+    the stage stamps and host spans), where the window traced the CPU."""
+    from .profiling import totals
+
     from torch.profiler import profile as torch_profile
 
     with torch_profile(activities=activities) as prof:
@@ -1429,17 +1441,10 @@ def window(run, n_steps: int, activities) -> dict:
                          for e in events]) / 1e3
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events)) / 1e3
-    phases = {}
-    for avg in prof.key_averages():
-        if avg.key.startswith("cf_"):
-            us = getattr(avg, "device_time_total", None)
-            if us is None:
-                us = avg.cuda_time_total
-            phases[avg.key] = us / 1e3 / n_steps
     return {"events": events, "wall": wall / n_steps, "busy": busy / n_steps,
             "per_step": len(events) / n_steps, "span": span / n_steps,
             "idle": 1 - busy / wall, "idle_span": 1 - busy / span,
-            "phases": phases}
+            "record": totals()}
 
 
 def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
@@ -1452,6 +1457,8 @@ def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
     steps it serves), whose device time, a CUDA graph timed alone, is set
     per step beside the step's device busy time."""
     from torch.profiler import ProfilerActivity
+
+    from .profiling import stage_ms
 
     n_steps = 10 * rebuild_every
     variants = {"graph": (False, True), "eager": (False, False)}
@@ -1533,10 +1540,12 @@ def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
               f"{w['per_step']:.0f} device events per step); idle share "
               f"{w['idle']:.3f} of the wall, {w['idle_span']:.3f} of the "
               f"device span {w['span']:.3f} ms/step", flush=True)
-        if w["phases"]:
-            print("  forward device time by phase scope: " + ", ".join(
-                f"{k} {v:.4f}" for k, v in sorted(w["phases"].items()))
-                + " ms/step", flush=True)
+        by_stage = stage_ms(w["record"], n_win)
+        if by_stage is not None:
+            print("  device time by stage in the replays (stage stamps, "
+                  "forward and backward): " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in by_stage.items())
+                  + " ms/step", flush=True)
         per_kernel = {}
         for e in w["events"]:
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
@@ -1556,6 +1565,173 @@ def profile(drive, owner, init_nb, state, rebuild_every, dt_ps,
               f"step(s), {ms / steps:.4f} ms per step (a CUDA graph of "
               f"{GRAPH_REPS} calls, median of {ROUNDS}); share of the "
               f"step's device busy time {share}", flush=True)
+
+
+def _replays_ms(replay, count: int) -> float:
+    """Device ms of ``count`` back-to-back calls of ``replay`` (a graph's
+    launch; CUDA events around them)."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(count):
+        replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def _bare_copy(chunk):
+    """A copy of ``chunk`` on its static buffers, captured anew without
+    stage stamps (the device's stamp record hidden during the capture)."""
+    from unittest import mock
+
+    from . import profiling
+
+    bare = copy.copy(chunk)
+    bare.graph = None
+    key = profiling._key(chunk.x.device)
+    buf = profiling._REC.buffers.pop(key)
+    try:
+        with mock.patch.object(profiling, "_buffer",
+                               lambda device, create=True: None):
+            bare._capture()
+    finally:
+        profiling._REC.buffers[key] = buf
+    assert not bare.stamps.nodes
+    return bare
+
+
+def stamp_costs(drive, owner, state, rebuild_every):
+    """``measure stamps`` (the module's docstring) on the chunk of
+    ``rebuild_every`` steps that ``drive`` (:func:`nve_drive`) replays."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from .. import ops
+    from . import profiling
+
+    dev = state.positions.device
+    timed(drive, rebuild_every)                       # captures the chunk
+    chunk = next(c for c in owner.nve_chunks.values()
+                 if c.k == rebuild_every and c.graph is not None)
+    start = tuple(t.clone() for t in chunk.carry)
+    per_step = len(profiling.ENERGY_STAGES) * 4 + 4 / rebuild_every
+    print(f"stamps: {len(chunk.stamps.nodes)} stamp nodes in the "
+          f"{rebuild_every}-step chunk graph ({per_step:.1f} a step); "
+          f"edges made to keep the work's order without them: "
+          f"{chunk.stamps.bridged}",
+          flush=True)
+
+    launch = {"none": None, "out": chunk.graph.replay,
+              "in": chunk.stamps.launch}
+
+    def run(how: str):
+        """One replay from ``start``, with the stamps (``in``) or
+        without; its outputs."""
+        chunk._copy_in(start)
+        launch[how]()
+        torch.cuda.synchronize()
+        return [t.clone() for t in (*chunk.carry, chunk.potential,
+                                    chunk.es)]
+
+    same = all(torch.equal(a, b) for a, b in zip(run("out"), run("in")))
+    print(f"stamps: a replay with the stamps gives the bits of one "
+          f"without: {same}", flush=True)
+
+    launch["none"] = _bare_copy(chunk).graph.replay
+    chunk._copy_in(start)
+    ms = {k: [] for k in launch}
+    for r in range(ROUNDS):
+        for k in (list(launch) if r % 2 == 0 else list(launch)[::-1]):
+            ms[k].append(_replays_ms(launch[k], 10) / (10 * rebuild_every))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    pct = {k: 100 * (med[k] - med["none"]) / med["none"] for k in med}
+    print(f"stamps: ten back-to-back replays of the {rebuild_every}-step "
+          f"chunk (CUDA events, median of {ROUNDS} rounds in turns): "
+          f"captured without stamps {med['none']:.4f} ms/step "
+          f"{['%.4f' % t for t in ms['none']]}, the graph's own (stamps "
+          f"out) {med['out']:.4f} ms/step {['%.4f' % t for t in ms['out']]} "
+          f"({pct['out']:+.3f} %), with the stamps {med['in']:.4f} ms/step "
+          f"{['%.4f' % t for t in ms['in']]} ({pct['in']:+.3f} %, "
+          f"{1e3 * (med['in'] - med['none']) / per_step:.3f} us a stamp)",
+          flush=True)
+    del launch["none"]
+
+    # the host's time inside replay() against the replay's device time,
+    # without a profiler and with one (CPU and CUDA activity)
+    for label, acts in (("no profiler", None),
+                        ("a CPU+CUDA profiler", [ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])):
+        with (torch_profile(activities=acts) if acts
+              else contextlib.nullcontext()):
+            host = []
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            a.record()
+            for _ in range(10):
+                t0 = time.perf_counter()
+                chunk.graph.replay()
+                host.append(1e3 * (time.perf_counter() - t0))
+            b.record()
+            torch.cuda.synchronize()
+        print(f"stamps: host ms inside replay(), ten back-to-back replays "
+              f"with {label}: {['%.3f' % h for h in host]}; device "
+              f"{a.elapsed_time(b) / 10:.3f} ms per replay (CUDA events)",
+              flush=True)
+
+    # the record's replay time against CUDA events around the same replays;
+    # the launch counters against the kernels the profiler saw
+    n_rep = 10
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ops.reset_launch_counts()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(n_rep):
+            chunk()
+        b.record()
+        torch.cuda.synchronize()
+    rec = profiling.totals()
+    stamped = rec["stages"]["replay"]["replay"]["fwd"]
+    events_ms = a.elapsed_time(b)
+    print(f"stamps: {n_rep} replays under the profiler: the record's replay "
+          f"time {stamped['seconds'] * 1e3:.3f} ms over {stamped['count']} "
+          f"replays, CUDA events {events_ms:.3f} ms (ratio "
+          f"{stamped['seconds'] * 1e3 / events_ms:.5f})", flush=True)
+    by_stage = profiling.stage_ms(rec, n_rep * rebuild_every)
+    print(f"stamps: device ms per replayed step by stage: {by_stage}",
+          flush=True)
+    counted = ops.launch_counts()
+    traced = traced_launches(prof.events())
+    print(f"stamps: launch counters after {n_rep} replays {counted}; "
+          f"kernels traced {traced}; equal: {counted == traced}", flush=True)
+
+    # one trajectory call of 25 chunks, as a report interval runs them
+    n_call = 25 * rebuild_every
+    drive(n_call)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        drive(n_call)
+        torch.cuda.synchronize()
+    rec = profiling.totals()
+    print(f"stamps: one call of {n_call} steps under the profiler: device "
+          f"ms per replayed step by stage "
+          f"{profiling.stage_ms(rec, n_call)}", flush=True)
+    for name, r in rec["host"].items():
+        if name.startswith("cf.md."):
+            print(f"  host span {name}: {r['count']} x, total "
+                  f"{r['total_s'] * 1e3:.3f} ms, self "
+                  f"{r['self_s'] * 1e3:.3f} ms, in {r['parents']}",
+                  flush=True)
+    eager = {s: {p: round(v["seconds"] * 1e3, 4) for p, v in d.items()}
+             for s, d in rec["stages"]["eager"].items()}
+    print(f"  eager stages (ms, the final evaluation and rebuild): {eager}",
+          flush=True)
+    for name, r in list(profiling.idle_by_span(prof).items())[:12]:
+        print(f"  idle in {name}: {r['seconds'] * 1e3:.3f} ms over "
+              f"{r['gaps']} gaps, longest {r['longest_s'] * 1e3:.3f} ms",
+              flush=True)
 
 
 def rbe_profile(system, state, rebuild_every, masses, bonded, device):
@@ -1686,7 +1862,7 @@ def thermo_windows(system, state, rebuild_every, masses, bonded, device):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("profile", "f64", "thermo",
-                                     "multigpu"))
+                                     "multigpu", "stamps"))
     ap.add_argument("--path", choices=("30k", "216", "rigid", "respa", "npt",
                                        "csvr", "nhc", "4k", "100k", "tri30k",
                                        "hetero30k", "onramp30k", "rbe",
@@ -1709,6 +1885,9 @@ def main(argv=None):
         raise SystemExit("measure f64: NVE paths only")
     if args.what == "thermo" and args.path != "30k":
         raise SystemExit("measure thermo: the 30k path only")
+    if args.what == "stamps" and args.path not in BENCH_SIDES:
+        raise SystemExit(f"measure stamps: the NVE paths "
+                         f"{sorted(BENCH_SIDES)} only")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1788,6 +1967,10 @@ def main(argv=None):
         return
     if args.what == "thermo":
         thermo_windows(system, state, rebuild_every, m, bonded, dev)
+        return
+    if args.what == "stamps":
+        drive, owner, _ = nve_drive(system, state, rebuild_every, m, bonded)
+        stamp_costs(drive, owner, state, rebuild_every)
         return
     if args.path in ("rbe", "rbe100k"):
         rbe_profile(system, state, rebuild_every, m, bonded, dev)

@@ -62,17 +62,24 @@ def test_no_module_imports_jax_or_the_jax_package(path):
 
 def test_energy_phases_show_in_a_profiler_table(tmp_path):
     from chargeflux_tpu_torch.energy import energy_and_forces
+    from chargeflux_tpu_torch.integrate import make_nb_energy_fn
+    from chargeflux_tpu_torch.models import water_bonded_params
     from chargeflux_tpu_torch.utils import profiling
 
     _, psys, pos, _ = jax_water(5, 0.45, direct_method="cell",
                                 recip_method="pme")
     x = torch.tensor(pos)
+    bonded = water_bonded_params(len(pos) // 3, box=psys.box.numpy(),
+                                 device="cpu")
+    e_fn, init_nb = make_nb_energy_fn(psys, bonded=bonded)
     with profiling.trace(str(tmp_path / "tr")) as prof:
         with profiling.phase_scope("outer"):
             energy_and_forces(x, psys)
+            e_fn(x, init_nb(x))
     names = {e.key for e in prof.key_averages()}
     for phase in ("outer", "cf_charges", "cf_binning", "cf_direct",
-                  "cf_exclusion", "cf_reciprocal"):
+                  "cf_exclusion", "cf_reciprocal", "cf_bonded",
+                  "cf_rebuild"):
         assert phase in names
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
 

@@ -21,13 +21,15 @@ from chargeflux_tpu_torch.system import ARRAY_FIELDS, system_from_arrays
 # kMaxCoef, kMaxCap (direct_walk.cu); kMaxKy, kMaxKz2 and the forward's
 # plan inputs (``ops.structure_factor.ForwardLimits``: atom chunk, most
 # threads per block, most splits, most ky rows per block, micro-tile rows
-# and columns, most threads per micro-tile; structure_factor.cu).  Building
+# and columns, most threads per micro-tile; structure_factor.cu); kMaxCells,
+# kChunk (cell_bin.cu); kSlots, kStages (stage_stamp.cu).  Building
 # needs nvcc, so tests that ask for them without a card use these values;
 # a test on the card holds this table to the built library.
 KERNEL_LIMITS = {"cf_spread_limits": (32, 16, 36),
                  "cf_walk_limits": (16, 1024),
                  "cf_sf_limits": (64, 128, 128, 256, 8, 32, 2, 4, 16),
-                 "cf_cell_bin_limits": (49152, 1024)}
+                 "cf_cell_bin_limits": (49152, 1024),
+                 "cf_stamp_limits": (32, 8)}
 
 
 def fake_kernel_limits(monkeypatch):
