@@ -23,7 +23,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("pme_spread.cu", "direct_walk.cu", "structure_factor.cu",
-           "cell_bin.cu", "stage_stamp.cu")
+           "cell_bin.cu", "stage_stamp.cu", "bspline_patch.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -95,6 +95,7 @@ def library() -> ctypes.CDLL:
         lib.cf_walk_limits.argtypes = [ctypes.POINTER(i)] * 2
         lib.cf_sf_limits.argtypes = [ctypes.POINTER(i)] * 9
         lib.cf_cell_bin_limits.argtypes = [ctypes.POINTER(i)] * 2
+        lib.cf_bspline_limits.argtypes = [ctypes.POINTER(i)] * 2
         lib.cf_spread_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.cf_spread_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.cf_direct_walk.argtypes = ([p] * 11 + [i, f, f, i, i, i, i]
@@ -107,6 +108,8 @@ def library() -> ctypes.CDLL:
         lib.cf_sf_bwd_tables.argtypes = [p] * 11 + [i] * 5 + [ll] * 4 + [p]
         lib.cf_sf_bwd_zq.argtypes = [p] * 7 + [i] * 5 + [ll] * 4 + [p]
         lib.cf_cell_bin.argtypes = [p, i, i, i] + [p] * 4 + [p]
+        lib.cf_bspline_patch_fwd.argtypes = [p] * 8 + [i] * 12 + [p] * 4 + [p]
+        lib.cf_bspline_patch_bwd.argtypes = [p] * 11 + [i] * 12 + [p] * 4 + [p]
         lib.cf_stamp_limits.argtypes = [ctypes.POINTER(i)] * 2
         lib.cf_stage_stamp.argtypes = [p, i, i, p, p]
         lib.cf_stamp_set_new.argtypes = [p, p, i, p, p]
@@ -118,7 +121,9 @@ def library() -> ctypes.CDLL:
                    lib.cf_direct_walk, lib.cf_direct_walk_slab,
                    lib.cf_sf_fwd, lib.cf_sf_bwd_tables,
                    lib.cf_sf_bwd_zq, lib.cf_cell_bin_limits,
-                   lib.cf_cell_bin, lib.cf_stamp_limits,
+                   lib.cf_cell_bin, lib.cf_bspline_limits,
+                   lib.cf_bspline_patch_fwd, lib.cf_bspline_patch_bwd,
+                   lib.cf_stamp_limits,
                    lib.cf_stage_stamp, lib.cf_stamp_set_new,
                    lib.cf_stamp_set_launch):
             fn.restype = i

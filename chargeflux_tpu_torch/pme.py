@@ -16,8 +16,10 @@ each cell's atoms touch only a static patch of the mesh, so per cell
 column the compact x/y weights and the order-p z taps go to
 ``ops.pme_spread.spread_columns`` (the hand-written CUDA kernel on the
 card), two static folds wrap the padded x/y edges, and ``torch.fft.rfftn``
-(cuFFT) does the transform.  Forces come from autograd; the B-spline
-backward uses the analytic identity M_p' = M_{p-1}(t) - M_{p-1}(t-1).
+(cuFFT) does the transform.  The column weights come from
+``ops.pme_weights.patch_weights`` (a hand-written CUDA kernel forward and
+backward on the card).  Forces come from autograd; the B-spline backward
+uses the analytic identity M_p' = M_{p-1}(t) - M_{p-1}(t-1).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from .device import constant, device_key, ieee_matmul
 from .ops.pme_spread import fold_padded_axis, spread_columns
+from .ops.pme_weights import PatchGeometry, bspline, patch_weights
 from .pairs import (box_inverse, box_volume, frac_coords, metric_k2,
                     reciprocal_metric)
 from .units import ONE_4PI_EPS0
@@ -67,39 +70,6 @@ def pme_grid_size(box, alpha: float, tol: float,
         n = max(int(math.ceil(float(L) / h)), 2 * order)
         out.append(good_fft_size(n))
     return tuple(out)
-
-
-def _bspline_raw(t: torch.Tensor, order: int, depth: int = 1):
-    """B-spline recursion M_n(t) = [t M_{n-1}(t) + (n - t) M_{n-1}(t-1)] /
-    (n - 1) on a stack whose level j holds M_n(t - j); returns the top
-    ``depth`` levels."""
-    level = [torch.clamp(1.0 - torch.abs(t - 1.0 - j), min=0.0)
-             for j in range(order - 2 + depth)]
-    for n in range(3, order + 1):
-        tj = [t - j for j in range(len(level) - 1)]
-        level = [(tj[j] * level[j] + (n - tj[j]) * level[j + 1]) / (n - 1)
-                 for j in range(len(level) - 1)]
-    return level[:depth]
-
-
-class _BSpline(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, t, order):
-        ctx.save_for_backward(t)
-        ctx.order = order
-        return _bspline_raw(t, order)[0]
-
-    @staticmethod
-    def backward(ctx, ct):
-        (t,) = ctx.saved_tensors
-        lo = _bspline_raw(t, ctx.order - 1, depth=2)
-        return ct * (lo[0] - lo[1]), None
-
-
-def bspline(t: torch.Tensor, order: int) -> torch.Tensor:
-    """Cardinal B-spline M_p(t), support (0, p), with the analytic
-    derivative identity in its backward."""
-    return _BSpline.apply(t, order)
 
 
 def spread_weights(u: torch.Tensor, grid_n: int, order: int) -> torch.Tensor:
@@ -220,90 +190,69 @@ def _patch_width(n_cells: int, grid_n: int, order: int,
 
 
 def _cell_patch_weights(coord, n_cells, grid_n, length, extra, cell_axis,
-                        order, dtype, transposed: bool = False):
-    """Per-cell compact B-spline patch weights; returns (weights, int
-    patch origins [n_cells], patch width).  ``transposed`` lands the tap
-    axis third ([ngx, ngy, W, ngz, cap]) — the column layout of the
-    spread — instead of last."""
+                        order, dtype):
+    """Per-cell compact B-spline patch weights [..., W] (the tap axis
+    last); returns (weights, int patch origins [n_cells], patch width)."""
     u = coord * (grid_n / length)
     org = _patch_origins(n_cells, grid_n, order, extra)
     w = _patch_width(n_cells, grid_n, order, extra)
     shape = [1, 1, 1, 1, 1]
     shape[cell_axis] = n_cells
     base = constant(org.tolist(), dtype, coord.device).reshape(shape)
-    if transposed:
-        j = torch.arange(w, device=coord.device).to(dtype).reshape(
-            1, 1, w, 1, 1)
-        t = u[:, :, None, :, :] - (base + j)
-    else:
-        j = torch.arange(w, device=coord.device).to(dtype).reshape(
-            1, 1, 1, 1, w)
-        t = u[..., None] - (base + j)
-    return bspline(t, order), org, w
+    j = torch.arange(w, device=coord.device).to(dtype).reshape(1, 1, 1, 1, w)
+    return bspline(u[..., None] - (base + j), order), org, w
 
 
 def _block_spread_coords(blocks, box):
-    """Per-axis spread coordinates (coord, length), u = coord * G / length:
-    the Cartesian block coordinates against the edge lengths, or for a
-    [3, 3] lattice the fractional ones (f = x B^-1 by lower-triangular
-    back-substitution on the blocks) against length 1, the B-spline mesh
-    living on the unit cell."""
+    """Per-axis spread coordinates and the axis lengths L [3] of u = coord
+    * G / L: the Cartesian block coordinates against the edge lengths, or
+    for a [3, 3] lattice the fractional ones (f = x B^-1 by
+    lower-triangular back-substitution on the blocks) against ones, the
+    B-spline mesh living on the unit cell."""
     if box.ndim == 2:
         inv = box_inverse(box)
         fx = blocks.x * inv[0, 0] + blocks.y * inv[1, 0] + blocks.z * inv[2, 0]
         fy = blocks.y * inv[1, 1] + blocks.z * inv[2, 1]
         fz = blocks.z * inv[2, 2]
-        return (fx, 1.0), (fy, 1.0), (fz, 1.0)
-    return ((blocks.x, box[0]), (blocks.y, box[1]), (blocks.z, box[2]))
+        return (fx, fy, fz), constant((1.0, 1.0, 1.0), fx.dtype, fx.device)
+    return (blocks.x, blocks.y, blocks.z), box
 
 
-def column_spread_inputs(blocks, ids, system):
-    """The arguments of ``spread_columns`` for the cell blocks: (qwlxt,
-    wlyt, wzt, zorg, offsets, pad_xy), laid out as the JAX package's
-    Pallas route lays them out."""
-    spec = system.spec
-    dtype = blocks.x.dtype
-    box = system.box
-    grid = spec.pme_grid
+def column_patch_geometry(spec):
+    """The static layout of the column spread: (``PatchGeometry`` of the
+    weights, per-column (x, y) offsets into the padded mesh, the padded
+    mesh (Px, Py, Gz)), laid out as the JAX package's Pallas route lays
+    them out."""
+    gx, gy, gz = spec.pme_grid
     order = spec.pme_order
-    ngx, ngy, ngz = spec.cell_grid
-    cap = blocks.x.shape[-1]
-    gx, gy, gz = grid
-    n = system.n_atoms
-    qv = torch.where(ids < n, blocks.q, 0.0)
-
-    def compact_weights_t(coord, n_cells, grid_n, length, cell_axis):
-        # transposed layout + the kernel's placement-origin convention
-        wl, org, w = _cell_patch_weights(
-            coord, n_cells, grid_n, length, spec.pme_slack[cell_axis],
-            cell_axis, order, dtype, transposed=True)
-        return wl, org + order + spec.pme_slack[cell_axis], w
-
-    (cx_, lx), (cy_, ly), (cz_, lz) = _block_spread_coords(blocks, box)
-    wlxt, opx, wx = compact_weights_t(cx_, ngx, gx, lx, 0)
-    wlyt5, opy, wy = compact_weights_t(cy_, ngy, gy, ly, 1)
-
-    # compact z taps + int origins (the spread places tap k at
-    # (zorg + k) mod Gz)
-    uz = cz_ * (gz / lz)                          # [ngx, ngy, ngz, cap]
-    org_f = torch.floor(uz).detach() - (order - 1)
-    tzk = (uz - org_f)[:, :, None, :, :] - torch.arange(
-        order, device=uz.device).to(dtype).reshape(1, 1, order, 1, 1)
-    wzt5 = bspline(tzk, order)                    # [ngx, ngy, order, ngz, cap]
-    zorg = torch.remainder(org_f, gz).to(torch.int32)
-
-    n_col = ngx * ngy
-    rows = ngz * cap
+    ngx, ngy, _ = spec.cell_grid
+    ex, ey, _ = spec.pme_slack
+    orgx = _patch_origins(ngx, gx, order, ex)
+    orgy = _patch_origins(ngy, gy, order, ey)
+    wx = _patch_width(ngx, gx, order, ex)
+    wy = _patch_width(ngy, gy, order, ey)
     wyp = -(-wy // 8) * 8          # Wy padded with zero weight rows
-    qwlxt = (qv[:, :, None] * wlxt).reshape(n_col, wx, rows)
-    wlyt = torch.nn.functional.pad(wlyt5.reshape(n_col, wy, rows),
-                                   (0, 0, 0, wyp - wy))
+    geom = PatchGeometry((gx, gy, gz), order, tuple(orgx.tolist()),
+                         tuple(orgy.tolist()), wx, wy, wyp)
+    # the kernel's placement-origin convention: patch origins shifted by
+    # order + slack, so that none is negative
+    opx, opy = orgx + order + ex, orgy + order + ey
+    n_col = ngx * ngy
     offsets = (tuple(int(opx[c // ngy]) for c in range(n_col)),
                tuple(int(opy[c % ngy]) for c in range(n_col)))
-    pad_xy = (int(opx.max()) + wx, int(opy.max()) + wyp, gz)
-    return (qwlxt.contiguous(), wlyt.contiguous(),
-            wzt5.reshape(n_col, order, rows).contiguous(),
-            zorg.reshape(n_col, 1, rows).contiguous(), offsets, pad_xy)
+    return geom, offsets, (int(opx.max()) + wx, int(opy.max()) + wyp, gz)
+
+
+def column_spread_inputs(blocks, ids, system, plain: bool = False):
+    """The arguments of ``spread_columns`` for the cell blocks: (qwlxt,
+    wlyt, wzt, zorg, offsets, pad_xy).  The weights come from
+    ``ops.pme_weights.patch_weights`` (its plain version with
+    ``plain=True``)."""
+    geom, offsets, pad_xy = column_patch_geometry(system.spec)
+    coords, lengths = _block_spread_coords(blocks, system.box)
+    weights = patch_weights(*coords, blocks.q, ids, lengths, system.n_atoms,
+                            geom, plain=plain)
+    return (*weights, offsets, pad_xy)
 
 
 def mesh_energy(qpad, system) -> torch.Tensor:
@@ -326,9 +275,11 @@ def pme_cell_column_reciprocal_energy(blocks, ids, system,
     """SPME reciprocal energy through the cell-column spread (counterpart
     of the JAX package's ``pme_cell_pallas_reciprocal_energy``: same
     weights, patch offsets, folds and influence function).  ``plain=True``
-    spreads with the plain version on any device."""
-    return mesh_energy(spread_columns(*column_spread_inputs(blocks, ids, system),
-                                      plain=plain), system)
+    computes the weights and spreads with the plain versions on any
+    device."""
+    return mesh_energy(spread_columns(
+        *column_spread_inputs(blocks, ids, system, plain=plain),
+        plain=plain), system)
 
 
 # ---------------------------------------------------------------------------
@@ -407,9 +358,9 @@ def pme_halo_local_mesh(g8, ids, system, dev: int,
     with wrapped coordinates); the sum over the ranks is the full charge
     mesh.  ``mesh_grid`` from :func:`pme_halo_mesh`; for the 2-D
     decomposition pass the rank's y index ``dev_y`` and a ``pad_y`` mesh.
-    The spread weights, patch contraction and folds are the cell route's
-    (:func:`_cell_patch_weights`), so on a matching mesh the two routes
-    agree to reduction-order rounding."""
+    The spread weights are the cell route's B-spline taps on the same patch
+    origins, in plain tensor ops (:func:`_cell_patch_weights`), so on a
+    matching mesh the two routes agree to reduction-order rounding."""
     spec = system.spec
     dtype, device = g8.dtype, g8.device
     box = system.box

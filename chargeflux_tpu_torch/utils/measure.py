@@ -159,6 +159,17 @@ def kernel_bound(name: str, **dims) -> dict:
     cell_bin (n_atoms, n_slots): the binning kernel alone
       (``ops.cell_bin``), from the cell ids: one int per atom in, the
       slots, inverse slots and overflow count out.
+    patch_weights_fwd / patch_weights_bwd (n_slots, wx, wyp, order): the
+      B-spline patch weights (``ops.pme_weights``), one slot of the blocks
+      each.  Forward: de Boor's recursion to the order on the support
+      points of three axes (5 flops a point of each level n, n points at
+      level n from 3) and the charge on each x tap; bytes: x, y, z, q and
+      the id in, the wx + wyp + order weights and the z origin out.
+      Backward: the recursion to order - 1 on three axes, per in-support
+      tap the slope and its product (3), on x also the charge (1) and the
+      value with its product (7); bytes: x, y, z, q and the id, the
+      3 order in-support cotangents in, dE/dx, dE/dy, dE/dz and dE/dq out
+      (the origin tables and the lengths, a few words, aside).
     """
     d = dims
     if name in ("spread_fwd", "spread_bwd"):
@@ -196,6 +207,17 @@ def kernel_bound(name: str, **dims) -> dict:
     elif name == "cell_bin":
         flops = 0
         nbytes = F32 * (2 * d["n_atoms"] + d["n_slots"] + 1)
+    elif name in ("patch_weights_fwd", "patch_weights_bwd"):
+        o, n = d["order"], d["n_slots"]
+
+        def recursion(top):
+            return 5 * (top * (top + 1) // 2 - 3)
+        if name == "patch_weights_fwd":
+            flops = n * (3 * recursion(o) + d["wx"])
+            nbytes = F32 * n * (5 + d["wx"] + d["wyp"] + o + 1)
+        else:
+            flops = n * (3 * recursion(o - 1) + 9 * o + 8 * o)
+            nbytes = F32 * n * (5 + 3 * o + 4)
     else:
         raise ValueError(f"no bound for kernel {name!r}")
     t_ops, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -1120,6 +1142,27 @@ def spread_inputs(x, system):
                            nb.slots, nb.inv_slot, wrap=nb.wrap)
         ids = nb.slots.reshape(b.x.shape)
         return pme.column_spread_inputs(b, ids, system), b, ids
+
+
+def patch_weight_inputs(b, ids, system):
+    """The arguments of ``ops.pme_weights.patch_weights_fwd`` for the cell
+    blocks ``b`` (x, y, z, q, ids, lengths, n_atoms, geometry) and the
+    reciprocal energy's cotangents of its three weight outputs (through
+    the plain spread and the mesh energy)."""
+    from .. import pme
+    from ..ops import pme_spread as ps
+    from ..ops import pme_weights as pw
+
+    geom, offsets, pad_xy = pme.column_patch_geometry(system.spec)
+    with torch.no_grad():
+        coords, lengths = pme._block_spread_coords(b, system.box)
+        args = (*coords, b.q, ids, lengths, system.n_atoms, geom)
+        w = pw.patch_weights_fwd_plain(*args)
+    with torch.enable_grad():
+        qpad = ps.spread_fwd_plain(*w, offsets, pad_xy).requires_grad_(True)
+        (ct,) = torch.autograd.grad(pme.mesh_energy(qpad, system), qpad)
+    with torch.no_grad():
+        return args, ps.spread_bwd_plain(*w, offsets, ct.contiguous())
 
 
 def drifted_blocks(system, state, e_fn, masses, n_steps: int):

@@ -20,17 +20,19 @@ in order:
 1. CUDA present (else exit non-zero), the card's name and power limit;
 2. build the CUDA kernels from ``chargeflux_tpu_torch/csrc``;
 3. at the 30k shapes (water_box(n_side=22), 8^3 cells, capacity 88, 64^3
-   PME mesh, order 8) the spread and walk kernels against their
-   plain-PyTorch versions on the card: max |diff| / max |plain|, bitwise
-   equality of two launches, and the time per call of each: a CUDA graph
-   of 20 back-to-back calls (no host enqueue in the timed span) replayed
-   between CUDA events, kernel, plain version and library yardstick in
-   turns over 7 rounds, median.  The yardstick is one PyTorch call for the
-   kernel's core product (``library_ms``; the port never calls it; none
-   for the walk, which no single call computes).  Beside each time, the
-   kernel's bound at these inputs (``utils.measure.kernel_bound``: the
-   larger of flops over the H100's f32 peak and bytes over its memory
-   rate) and ``bound_share`` = bound / ms;
+   PME mesh, order 8) the B-spline patch weights' kernels (the backward on
+   the reciprocal energy's real weight cotangents), the spread and walk
+   kernels against their plain-PyTorch versions on the card: max |diff| /
+   max |plain|, bitwise equality of two launches, and the time per call of
+   each: a CUDA graph of 20 back-to-back calls (no host enqueue in the
+   timed span) replayed between CUDA events, kernel, plain version and
+   library yardstick in turns over 7 rounds, median.  The yardstick is one
+   PyTorch call for the kernel's core product (``library_ms``; the port
+   never calls it; none for the weights and the walk, which no single call
+   computes).  Beside each time, the kernel's bound at these inputs
+   (``utils.measure.kernel_bound``: the larger of flops over the H100's
+   f32 peak and bytes over its memory rate) and ``bound_share`` = bound /
+   ms;
 3b. the same for the three structure-factor kernels, at the 216 path's
    shapes and at a 4k box's (n_side 11, kmax 13^3), on the real tables
    and the real cotangents dE_rec/dA, dE_rec/dB; the forward once more at
@@ -54,7 +56,8 @@ in order:
    burned-in state after all but one step of a rebuild interval on one
    neighbor state, where atoms have left their cells' nominal bounds, and
    the binning kernel on those drifted positions (the cases of 3c at the
-   30k box); then 200 NVE steps with neighbor reuse;
+   30k box), and the patch weights' kernels on those blocks; then 200 NVE
+   steps with neighbor reuse;
 5b. the 216 path: 200 NVE steps from the lattice at rest;
    in 5 and 5b a trajectory runs each rebuild chunk as one CUDA graph
    replay, as a user's does.  Before the 200 steps, the same start state
@@ -233,6 +236,14 @@ KERNELS = {
     # its halo route's ownership-masked copy)
     "cell_bin": ("chargeflux_tpu_torch/csrc/cell_bin.cu",
                  "chargeflux_tpu/cells.py:151", "30k"),
+    # the cell route's B-spline patch weights (no Pallas kernel: the JAX
+    # package's jnp chain, which XLA fuses)
+    "patch_weights_fwd": ("chargeflux_tpu_torch/csrc/bspline_patch.cu",
+                          "chargeflux_tpu/pme.py:445 (XLA fusion, not "
+                          "Pallas)", "30k"),
+    "patch_weights_bwd": ("chargeflux_tpu_torch/csrc/bspline_patch.cu",
+                          "chargeflux_tpu/pme.py:445 (XLA fusion, not "
+                          "Pallas)", "30k"),
     "sf_fwd": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:145", "216"),
     "sf_bwd_tables": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:157",
                       "216"),
@@ -247,6 +258,9 @@ KERNELS = {
                       "replicas"),
 }
 N_STEPS = 200
+# the cell route's SPME kernels (the dense, RBE and halo paths run none)
+WEIGHT_AND_SPREAD = ("patch_weights_fwd", "patch_weights_bwd", "spread_fwd",
+                     "spread_bwd")
 T_TOL = 0.10          # the NVT phases' mean temperature, relative to 300 K
 # ps each NVT driver runs from its burn-in state before its chunk check and
 # timed window: the burn-ins leave the box relaxing, and the first 0.1 ps
@@ -255,6 +269,10 @@ T_TOL = 0.10          # the NVT phases' mean temperature, relative to 300 K
 SETTLE_PS = 1.0
 RESIDUAL_TOL = 1e-4   # nm^2, the JAX package's f32 constraint tolerance
 WALK_TOLS = (1e-5, 1e-4, 1e-4)  # the walk's energy, dE/dx and dE/dq
+# the patch weights' qwlxt, wlyt, wzt and zorg (the same floors, so equal),
+# and dE/dx, dE/dy, dE/dz, dE/dq (sums of 8 f32 terms in other orders)
+WEIGHT_TOLS = (1e-6, 1e-6, 1e-6, 0.0)
+WEIGHT_BWD_TOLS = 2e-5
 
 
 def fail(msg: str):
@@ -331,24 +349,34 @@ def check_kernels(system, x, results):
     results["direct_walk"]["library_note"] = (
         "no single call: no PyTorch call computes the cell walk's energy, "
         "dE/dx and dE/dq")
+    for name in ("patch_weights_fwd", "patch_weights_bwd"):
+        results[name]["library_note"] = (
+            "no single call: no PyTorch call computes B-spline weights")
 
 
 def kernel_cases(system, x, where):
-    """The spread and walk kernels' calls at positions ``x`` on
-    ``system`` (its box): per kernel (kernel call, plain call, tolerances,
-    bound, library yardstick or None), with the real mesh cotangent for
-    the spread's backward."""
+    """The patch weights', spread and walk kernels' calls at positions
+    ``x`` on ``system`` (its box): per kernel (kernel call, plain call,
+    tolerances, bound, library yardstick or None), with the real mesh
+    cotangent for the spread's backward and the real weight cotangents
+    for the weights' backward."""
     import torch
 
     from chargeflux_tpu_torch import pme
     from chargeflux_tpu_torch.ops import direct_walk as dw
     from chargeflux_tpu_torch.ops import pme_spread as ps
+    from chargeflux_tpu_torch.ops import pme_weights as pw
     from chargeflux_tpu_torch.ops.erfc import erf_over_r_coeffs
     from chargeflux_tpu_torch.utils.measure import (kernel_bound,
                                                     pairs_within_cutoff,
+                                                    patch_weight_inputs,
                                                     spread_inputs)
 
     spread_in, b, ids = spread_inputs(x, system)
+    w_args, w_cts = patch_weight_inputs(b, ids, system)
+    geom = w_args[-1]
+    weight_dims = dict(n_slots=b.x.numel(), wx=geom.wx, wyp=geom.wyp,
+                       order=geom.order)
     spec = system.spec
     walk_args = (b.x, b.y, b.z, b.q, b.hs, b.se, ids, system.box,
                  system.n_atoms, spec.alpha, spec.cutoff)
@@ -379,6 +407,17 @@ def kernel_cases(system, x, where):
           f"within the cutoff over {b.x.numel()} slots", flush=True)
 
     cases = {
+        "patch_weights_fwd": (lambda: pw.patch_weights_fwd(*w_args),
+                              lambda: pw.patch_weights_fwd_plain(*w_args),
+                              WEIGHT_TOLS,
+                              kernel_bound("patch_weights_fwd",
+                                           **weight_dims), None),
+        "patch_weights_bwd": (lambda: pw.patch_weights_bwd(*w_args, *w_cts),
+                              lambda: pw.patch_weights_bwd_plain(*w_args,
+                                                                 *w_cts),
+                              WEIGHT_BWD_TOLS,
+                              kernel_bound("patch_weights_bwd",
+                                           **weight_dims), None),
         "spread_fwd": (lambda: (ps.spread_fwd(*spread_in),),
                        lambda: (ps.spread_fwd_plain(*spread_in),), 1e-6,
                        kernel_bound("spread_fwd", **spread_dims),
@@ -399,6 +438,27 @@ def kernel_cases(system, x, where):
                         None),
     }
     return cases
+
+
+def weights_agree(walk_args, system, where):
+    """The patch weights' kernels against their plain versions on the
+    blocks of the walk's arguments ``walk_args`` (phase 3's tolerances,
+    bitwise repeat; the backward on the real weight cotangents)."""
+    import torch
+
+    from chargeflux_tpu_torch.cells import CellBlocks
+    from chargeflux_tpu_torch.ops import pme_weights as pw
+    from chargeflux_tpu_torch.utils.measure import patch_weight_inputs
+
+    args, cts = patch_weight_inputs(CellBlocks(*walk_args[:6]),
+                                    walk_args[6], system)
+    with torch.no_grad():
+        agree("patch_weights_fwd", lambda: pw.patch_weights_fwd(*args),
+              lambda: pw.patch_weights_fwd_plain(*args), WEIGHT_TOLS, where)
+        agree("patch_weights_bwd",
+              lambda: pw.patch_weights_bwd(*args, *cts),
+              lambda: pw.patch_weights_bwd_plain(*args, *cts),
+              WEIGHT_BWD_TOLS, where)
 
 
 def binning_agree(cases, where):
@@ -542,6 +602,7 @@ def run_md(force, system0, x, masses, box):
     with torch.no_grad():
         agree("direct_walk", lambda: dw.direct_walk(*walk_args),
               lambda: dw.direct_walk_plain(*walk_args), WALK_TOLS, where)
+    weights_agree(walk_args, system, where)
     binning_agree(binning_cases(system, info["positions"], "drifted"),
                   "phase 5")
 
@@ -608,6 +669,7 @@ def run_tri(dev, results):
         lambda: dw.direct_walk_plain(*walk_args), WALK_TOLS, where, bound))
     results["direct_walk_tri"]["library_note"] = (
         results["direct_walk"]["library_note"])
+    weights_agree(walk_args, system, where)
     check_energy(system, s1.positions, "6")
     ms_eager, _ = check_chunks("6", drive, every)
     launches, ms, final, _ = timed_run(drive)
@@ -618,10 +680,10 @@ def run_tri(dev, results):
     if int(final.nb.overflow) != 0:
         fail("phase 6: binning overflow in the NVE run")
     counts = check_launches(launches, "tri30k", lambda c: c > 0)
-    if not (launches["spread_fwd"] > 0 and launches["spread_bwd"] > 0
+    if not (all(launches[k] > 0 for k in WEIGHT_AND_SPREAD)
             and launches["direct_walk"] == 0):
-        fail("phase 6: the sheared box must run the spread kernels and the "
-             "triclinic walk only")
+        fail("phase 6: the sheared box must run the weights and spread "
+             "kernels and the triclinic walk only")
     return counts, ms, ms_eager, walk_args
 
 
@@ -1187,9 +1249,10 @@ def run_rbe(dev, ctx):
         fail(f"phase 9b: mean temperature {t_mean4:.2f} K at p = "
              f"{RBE_CHECK_SAMPLES} is not within {T_TOL:.0%} of 300 K")
     for counts in (launches, launches4):
-        if not (counts["direct_walk"] > 0 and counts["spread_fwd"] == 0
-                and counts["spread_bwd"] == 0):
-            fail("phase 9b: RBE must run the walk kernel and no spread")
+        if not (counts["direct_walk"] > 0
+                and not any(counts[k] for k in WEIGHT_AND_SPREAD)):
+            fail("phase 9b: RBE must run the walk kernel and no spread or "
+                 "patch weights")
     x = s1.positions
     with torch.no_grad():
         q = effective_charges(x, system)
@@ -1496,6 +1559,8 @@ def run_dense_md(x, masses, bonded, system):
           f"{float(es[-1]):.3f} kJ/mol, drift {drift:.4f} kJ/mol, max "
           f"|E - E0| {float((es - e0).abs().max()):.4f}; launches "
           f"{launches}", flush=True)
+    if any(launches[k] for k in WEIGHT_AND_SPREAD):
+        fail("phase 5b: the dense path launched a cell-column SPME kernel")
     return (check_launches(launches, "216", lambda c: c == N_STEPS + 1), ms,
             ms_eager)
 
@@ -1670,7 +1735,7 @@ def run_replicas(dev, results):
             fail(f"phase 10: {name} launched {launches[name]} times in "
                  f"{REPLICA_STEPS} batched steps")
         results[name + "_x64"]["launches"] = launches[name]
-    if any(launches[k] for k in ("spread_fwd", "spread_bwd", "direct_walk",
+    if any(launches[k] for k in (*WEIGHT_AND_SPREAD, "direct_walk",
                                  "direct_walk_tri")):
         fail("phase 10: the dense replica path launched a cell-route kernel")
 
@@ -2048,6 +2113,9 @@ def run_halo(dev, results, ctx30k, walk_tri):
             fail("phase 10c: non-finite halo NVE run")
         if launches["direct_walk"] or launches["direct_walk_tri"]:
             fail("phase 10c: the halo route launched the periodic walk")
+        if any(launches[k] for k in WEIGHT_AND_SPREAD):
+            fail("phase 10c: the halo route's plain patch spread launched "
+                 "a cell-column SPME kernel")
         counts = check_launches(launches, "halo1", lambda c: c > 0)
         results["direct_walk_halo"]["launches"] = counts["direct_walk_halo"]
         if launches["cell_bin"] == 0:

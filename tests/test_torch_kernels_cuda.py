@@ -21,9 +21,11 @@ from chargeflux_tpu_torch.ops import cell_bin as cb
 from chargeflux_tpu_torch.ops import direct_walk as dw
 from chargeflux_tpu_torch.ops import native
 from chargeflux_tpu_torch.ops import pme_spread as ps
+from chargeflux_tpu_torch.ops import pme_weights as pw
 from chargeflux_tpu_torch.ops import structure_factor as sf
 from chargeflux_tpu_torch.ops.erfc import erf_over_r_coeffs
-from chargeflux_tpu_torch.utils.measure import dense_path
+from chargeflux_tpu_torch.utils.measure import (dense_path,
+                                                patch_weight_inputs)
 
 from torch_helpers import KERNEL_LIMITS, lattice_blocks, untemplated
 
@@ -70,6 +72,136 @@ def test_spread_kernels_match_plain_and_repeat_bitwise(setup):
     counts = ops.launch_counts()
     assert counts["spread_fwd"] == n0["spread_fwd"] + 2
     assert counts["spread_bwd"] == n0["spread_bwd"] + 2
+
+
+@pytest.fixture(scope="module")
+def weights_96k(setup):
+    """The B-spline patch weights' inputs at the shapes of the benchmark's
+    98k-atom water box (32^3 waters, 8^3 cells of 256 slots, 64^3 mesh,
+    order 8, slack 1) on blocks drifted up to 0.05 nm from where the cells
+    were binned, with the reciprocal energy's weight cotangents."""
+    dev = setup["x"].device
+    force, pos, _, box = water_box(n_side=32, cutoff=1.0)
+    system = force.create_system(box=box, dtype=torch.float32,
+                                 direct_method="cell", recip_method="pme",
+                                 cell_grid=(8, 8, 8), cell_capacity=256,
+                                 pme_grid=(64, 64, 64), device=dev)
+    spec = system.spec
+    assert (spec.pme_order, spec.pme_slack) == (8, (1, 1, 1))
+    x = torch.tensor(pos, dtype=torch.float32, device=dev)
+    g = torch.Generator(dev).manual_seed(96)
+    with torch.no_grad():
+        nb = build_neighbor_state(x, system)
+        assert int(nb.overflow) == 0
+        x = x + 0.05 * (2.0 * torch.rand(x.shape, device=dev, generator=g)
+                        - 1.0)
+        b = cells.blockify(x, effective_charges(x, system), system, nb.slots,
+                           nb.inv_slot, wrap=nb.wrap)
+    args, cts = patch_weight_inputs(b, nb.slots.reshape(b.x.shape), system)
+    return dict(system=system, args=args, cts=cts)
+
+
+def test_patch_weights_kernels_match_plain_at_the_96k_shapes(weights_96k):
+    """Forward: the weights within 1e-6 absolute of the plain version, the
+    z origins equal; backward on the real cotangents: dE/dx, dE/dy, dE/dz
+    and dE/dq within 2e-5 of their max (chip_smoke phase 3's tolerance);
+    two calls bit-equal; each wrapper counts one launch a call."""
+    args, cts = weights_96k["args"], weights_96k["cts"]
+    n0 = dict(ops.launch_counts())
+    k1, k2 = pw.patch_weights_fwd(*args), pw.patch_weights_fwd(*args)
+    plain = pw.patch_weights_fwd_plain(*args)
+    for u, v, w in zip(k1, k2, plain):
+        assert u.shape == w.shape and u.dtype == w.dtype
+        assert torch.equal(u, v)
+    for u, w in zip(k1[:3], plain[:3]):
+        assert float((u - w).abs().max()) <= 1e-6
+    assert torch.equal(k1[3], plain[3])
+    assert float(k1[1][:, 20:].abs().max()) == 0.0       # Wy 20 of Wyp 24
+    g1, g2 = pw.patch_weights_bwd(*args, *cts), pw.patch_weights_bwd(*args,
+                                                                       *cts)
+    for u, v, w in zip(g1, g2, pw.patch_weights_bwd_plain(*args, *cts)):
+        assert torch.equal(u, v)
+        assert _max_rel(u, w) <= 2e-5
+    counts = ops.launch_counts()
+    assert counts["patch_weights_fwd"] == n0["patch_weights_fwd"] + 2
+    assert counts["patch_weights_bwd"] == n0["patch_weights_bwd"] + 2
+
+
+def test_patch_weights_kernels_on_a_sheared_lattice(tri_setup):
+    """The fractional coordinates against ones: the kernels against the
+    plain version on the sheared box (weights 1e-6 absolute, gradients
+    2e-5 of their max), and the cell route's reciprocal energy and its
+    gradients through the fractional transform against plain=True."""
+    s = tri_setup
+    args, cts = patch_weight_inputs(s["blocks"], s["ids"], s["system"])
+    for u, w in zip(pw.patch_weights_fwd(*args),
+                    pw.patch_weights_fwd_plain(*args)):
+        assert float((u.double() - w.double()).abs().max()) <= 1e-6
+    for u, w in zip(pw.patch_weights_bwd(*args, *cts),
+                    pw.patch_weights_bwd_plain(*args, *cts)):
+        assert _max_rel(u, w) <= 2e-5
+    grads = []
+    for plain in (False, True):
+        leaves = [getattr(s["blocks"], f).clone().requires_grad_(True)
+                  for f in ("x", "y", "z", "q")]
+        e = pme.pme_cell_column_reciprocal_energy(
+            cells.CellBlocks(*leaves, s["blocks"].hs, s["blocks"].se),
+            s["ids"], s["system"], plain=plain)
+        grads.append((e, torch.autograd.grad(e, leaves)))
+    (e_k, g_k), (e_p, g_p) = grads
+    assert abs(float(e_k - e_p)) <= 1e-5 * abs(float(e_p))
+    for u, w in zip(g_k, g_p):
+        assert _max_rel(u, w) <= 1e-4
+
+
+def test_an_evaluation_launches_the_weights_once_each_way(setup):
+    """energy_and_forces on the kernel route: one forward and one backward
+    weights launch; plain=True none."""
+    s = setup
+    ops.reset_launch_counts()
+    energy_and_forces(s["x"], s["system"])
+    counts = ops.launch_counts()
+    assert (counts["patch_weights_fwd"], counts["patch_weights_bwd"]) == (1, 1)
+    ops.reset_launch_counts()
+    energy_and_forces(s["x"], s["system"], plain=True)
+    assert not any(ops.launch_counts().values())
+
+
+def test_patch_weights_wrappers_refuse_what_the_kernels_do_not_take(
+        weights_96k):
+    """An order outside the built instantiations, float64 coordinates, a
+    non-contiguous coordinate or a cotangent of the wrong shape raises."""
+    args, cts = weights_96k["args"], weights_96k["cts"]
+    for order in (3, 9):
+        bad = (*args[:-1], args[-1]._replace(order=order))
+        with pytest.raises(ValueError, match="order"):
+            pw.patch_weights_fwd(*bad)
+        with pytest.raises(ValueError, match="order"):
+            pw.patch_weights_bwd(*bad, *cts)
+    with pytest.raises(TypeError):
+        pw.patch_weights_fwd(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        pw.patch_weights_fwd(args[0].transpose(0, 1), *args[1:])
+    with pytest.raises(ValueError, match="d_wzt"):
+        pw.patch_weights_bwd(*args, *cts[:2], cts[2][:, :4].contiguous())
+
+
+def test_patch_weights_kernel_poisons_a_non_finite_row(weights_96k):
+    """A NaN coordinate: NaN on every tap of its row's x patch and on its
+    dE/dx, as the plain version; the other rows finite."""
+    args, cts = weights_96k["args"], weights_96k["cts"]
+    x = args[0].clone()
+    x[3, 4, 5, 6] = float("nan")
+    bad = (x, *args[1:])
+    qwlxt = pw.patch_weights_fwd(*bad)[0]
+    col, row = 3 * x.shape[1] + 4, 5 * x.shape[3] + 6
+    assert bool(torch.isnan(qwlxt[col, :, row]).all())
+    assert bool(torch.isnan(pw.patch_weights_fwd_plain(*bad)[0][
+        col, :, row]).all())
+    assert int(torch.isnan(qwlxt).sum()) == qwlxt.shape[1]
+    g_x = pw.patch_weights_bwd(*bad, *cts)[0]
+    assert bool(torch.isnan(g_x[3, 4, 5, 6]))
+    assert int(torch.isnan(g_x).sum()) == 1
 
 
 # (id, n_col, Wx, Wyp, rows, order, Gz, zorg layout, one column all q = 0)

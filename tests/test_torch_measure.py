@@ -272,13 +272,18 @@ def test_traced_launches_counts_each_wrappers_kernel():
         Event("(anonymous namespace)::sf_bwd_tables_kernel(float const*)"),
         Event("(anonymous namespace)::cell_bin_count_kernel(int const*)"),
         Event("(anonymous namespace)::cell_bin_rank_kernel(int const*)"),
+        Event("void (anonymous namespace)::bspline_patch_fwd_kernel<8>("
+              "float const*)"),
+        Event("void (anonymous namespace)::bspline_patch_bwd_kernel<8>("
+              "float const*)"),
         Event("cudaGraphLaunch", "DeviceType.CPU"),
     ]
     assert measure.traced_launches(events) == {
         "spread_fwd": 1, "spread_bwd": 1, "direct_walk": 1,
         "direct_walk_tri": 1, "direct_walk_halo": 1, "sf_fwd": 0,
-        "sf_bwd_tables": 2, "sf_bwd_zq": 0, "cell_bin": 1}
-    assert len(measure.device_events(events)) == 10
+        "sf_bwd_tables": 2, "sf_bwd_zq": 0, "cell_bin": 1,
+        "patch_weights_fwd": 1, "patch_weights_bwd": 1}
+    assert len(measure.device_events(events)) == 12
 
 
 def test_rigid_path_small_box():
@@ -401,3 +406,48 @@ def test_thermo_windows_small_box(capsys, monkeypatch):
     assert [len(w) for w in out.values()] == [2, 2, 2, 1, 1]
     assert all(math.isfinite(t) and t > 0 for w in out.values() for t in w)
     assert capsys.readouterr().out.count("thermo ") == 5
+
+
+@pytest.mark.parametrize("name, flops, words", [
+    ("patch_weights_fwd", 3 * 165 + 20, 5 + 20 + 24 + 8 + 1),
+    ("patch_weights_bwd", 3 * 125 + 17 * 8, 5 + 3 * 8 + 4)])
+def test_kernel_bound_patch_weights_at_the_96k_shapes(name, flops, words):
+    """The B-spline patch weights at the benchmark box's shapes (8^3 cells
+    of 256 slots, Wx 20, Wyp 24, order 8): de Boor's recursion (5 flops a
+    point, 165 to order 8, 125 to order 7), the words a slot moves, and
+    bytes set the bound."""
+    b = measure.kernel_bound(name, n_slots=131_072, wx=20, wyp=24, order=8)
+    assert b["flops"] == 131_072 * flops
+    assert b["bytes"] == 4 * 131_072 * words
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e9)
+
+
+def test_patch_weight_inputs_are_the_reciprocal_energy_cotangents():
+    """The weights' arguments give the column spread's weights, and the
+    cotangents are autograd's dE_rec / d(qwlxt, wlyt, wzt) through the
+    plain spread and the mesh energy (f64, 1e-12 of their max)."""
+    from chargeflux_tpu_torch import cells, pme
+    from chargeflux_tpu_torch.charges import effective_charges
+    from chargeflux_tpu_torch.neighbors import build_neighbor_state
+    from chargeflux_tpu_torch.ops import pme_spread as ps
+    from chargeflux_tpu_torch.ops import pme_weights as pw
+
+    force, pos, _, box = water_box(n_side=6, cutoff=0.42)
+    system = force.create_system(box=box, dtype=torch.float64,
+                                 direct_method="cell", recip_method="pme",
+                                 device="cpu")
+    x = torch.as_tensor(pos)
+    nb = build_neighbor_state(x, system)
+    b = cells.blockify(x, effective_charges(x, system), system, nb.slots,
+                       nb.inv_slot, wrap=nb.wrap)
+    ids = nb.slots.reshape(b.x.shape)
+    args, cts = measure.patch_weight_inputs(b, ids, system)
+    ins = pme.column_spread_inputs(b, ids, system)
+    w = [t.detach().clone().requires_grad_(True) for t in ins[:3]]
+    for got, want in zip(pw.patch_weights_fwd_plain(*args), ins[:4]):
+        assert torch.equal(got, want)
+    e = pme.mesh_energy(ps.spread_fwd_plain(*w, *ins[3:]), system)
+    for got, want in zip(cts, torch.autograd.grad(e, w)):
+        assert float((got - want).abs().max()) <= 1e-12 * float(
+            want.abs().max())
