@@ -35,9 +35,9 @@ from .energy import (energy, energy_and_forces, energy_components,
                      energy_fixed_charges, forces, forces_manual)
 from .bonded import (BondedParams, bonded_energy,
                      flat_bottom_restraint_energy, position_restraint_energy)
-from .integrate import (MDState, MDStateNB, baoab_coeffs, baoab_pre_force,
-                        init_state, init_state_nb, kinetic_energy,
-                        langevin_step, langevin_trajectory,
+from .integrate import (MDState, MDStateNB, RespaStateNB, baoab_coeffs,
+                        baoab_pre_force, init_state, init_state_nb,
+                        kinetic_energy, langevin_step, langevin_trajectory,
                         langevin_trajectory_nb, make_energy_fn,
                         make_nb_energy_fn, make_respa_force_fns,
                         maxwell_velocities, minimize_fire, nve_step,

@@ -34,7 +34,7 @@
 
 namespace {
 
-constexpr int kStages = 8;                 // as profiling.STAGES
+constexpr int kStages = 9;                 // as profiling.TIMED
 constexpr int kSlots = kStages * 2 * 2;    // x (forward, backward) x modes
 
 __device__ __forceinline__ void stamp(unsigned long long* buf, int slot,
@@ -63,14 +63,16 @@ CF_STAMP_KERNEL(reciprocal)
 CF_STAMP_KERNEL(bonded)
 CF_STAMP_KERNEL(rebuild)
 CF_STAMP_KERNEL(replay)
+CF_STAMP_KERNEL(respa_fast)
 
 #undef CF_STAMP_KERNEL
 
 typedef void (*StampKernel)(unsigned long long*, int, int);
-// the stages in the order of profiling.STAGES
+// the stages in the order of profiling.TIMED
 const StampKernel kKernels[kStages] = {
-    cf_stamp_charges, cf_stamp_binning, cf_stamp_direct, cf_stamp_exclusion,
-    cf_stamp_reciprocal, cf_stamp_bonded, cf_stamp_rebuild, cf_stamp_replay};
+    cf_stamp_charges,   cf_stamp_binning,    cf_stamp_direct,
+    cf_stamp_exclusion, cf_stamp_reciprocal, cf_stamp_bonded,
+    cf_stamp_rebuild,   cf_stamp_replay,     cf_stamp_respa_fast};
 
 // The stamped executable graph of one template, whose stamps were taken
 // out of the template.

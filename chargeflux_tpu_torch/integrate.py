@@ -52,10 +52,12 @@ stamps of the stage ``replay``, around the energy's own stage stamps.
 The capture is instantiated twice (``profiling.GraphStamps``): as the
 graph's own without the stamps, which ``graph.replay()`` runs, and with
 them, which a chunk call launches instead while a profiler records (and
-then counts the replay).  The host work of a call runs in the
-spans ``cf.md.call`` (the chunks), ``cf.md.load`` (the copy-in),
-``cf.md.capture``, ``cf.md.replay`` (``graph.replay()``) and
-``cf.md.final`` (the eager rebuild and evaluation at the end).
+then counts the replay, and the r-RESPA steps the capture ran).  An
+r-RESPA outer step's fast tier is the stage ``respa_fast``.  The host
+work of a call runs in the spans ``cf.md.call`` (the chunks),
+``cf.md.load`` (the copy-in), ``cf.md.capture``, ``cf.md.replay``
+(``graph.replay()``) and ``cf.md.final`` (the eager rebuild and
+evaluation at the end).
 
 On the cell route the neighbor state is rebuilt at the start of each
 chunk, and in between the energy function's freshness guard NaN-poisons
@@ -99,6 +101,22 @@ class MDStateNB:
     forces: torch.Tensor      # [N, 3] kJ/mol/nm
     potential: torch.Tensor   # scalar kJ/mol
     nb: object                # neighbors.NeighborState, None when dense
+
+
+@dataclasses.dataclass(frozen=True)
+class RespaStateNB(MDStateNB):
+    """The state the r-RESPA drivers return: ``forces`` and ``potential``
+    evaluated afresh at the final positions, and beside them the tier
+    forces the last replayed outer step left in the chunk's carry, both at
+    the same positions: ``f_slow`` (the slow tier, on the chunk's reused
+    neighbor state) and ``f_fast`` (the fast tier, of the last substep).
+    A RESPA driver handed such a state starts its carry from these tier
+    forces and evaluates nothing first, so two calls of n outer steps
+    give one call of 2n (n a multiple of ``rebuild_every``).  A state
+    whose positions changed since it was returned goes in as an
+    :class:`MDStateNB`, whose tiers the driver evaluates."""
+    f_slow: torch.Tensor      # [N, 3] kJ/mol/nm
+    f_fast: torch.Tensor      # [N, 3] kJ/mol/nm
 
 
 def kinetic_energy(velocities, masses) -> torch.Tensor:
@@ -358,7 +376,7 @@ class Chunk:
         if own is not None:
             source.set_state(own.get_state())
         ops.add_launches(self.captured)
-        profiling.count_replay(self.k)
+        profiling.count_replay(self.k, self.stamps.respa)
 
     def _replay_stamped(self):
         """The graph with its stage stamps (while a profiler records).  The
@@ -763,37 +781,45 @@ def make_respa_force_fns(system, bonded, plain: bool = False):
 
 
 def _respa_start(state, slow_fn, fast_fn, init_nb):
-    """The RESPA carry at ``state``: x, v, f_slow, f_fast."""
+    """The RESPA carry at ``state``: x, v, f_slow, f_fast, the tier forces
+    of a :class:`RespaStateNB` as they are, else evaluated at ``state``."""
+    if isinstance(state, RespaStateNB):
+        return state.positions, state.velocities, state.f_slow, state.f_fast
     nb = init_nb(state.positions)
     _e, f_slow, _nb = slow_fn(state.positions, nb)
     _ef, f_fast = fast_fn(state.positions)
     return state.positions, state.velocities, f_slow, f_fast
 
 
-def _respa_final(chunk, slow_fn, fast_fn, init_nb) -> MDStateNB:
+def _respa_final(chunk, slow_fn, fast_fn, init_nb) -> RespaStateNB:
     """The final state of a RESPA driver: total forces and potential
-    evaluated afresh at the last positions, with a fresh neighbor state."""
+    evaluated afresh at the last positions, with a fresh neighbor state,
+    and the carry's tier forces."""
     with phase_scope("cf.md.final"):
         x = chunk.x.clone()
         nb = init_nb(x)
         e_slow, f_slow, nb = slow_fn(x, nb)
         e_fast, f_fast = fast_fn(x)
-    return MDStateNB(x, chunk.v.clone(), f_slow + f_fast, e_slow + e_fast,
-                     nb)
+    return RespaStateNB(x, chunk.v.clone(), f_slow + f_fast,
+                        e_slow + e_fast, nb, chunk.carry[2].clone(),
+                        chunk.carry[3].clone())
 
 
 def _respa_outer(slow_fn, inner, masses, dt, n_inner):
     """One outer RESPA step as a :class:`Chunk` step on the carry (x, v,
     f_slow, f_fast): a slow half kick, ``n_inner`` substeps
-    ``inner(x, v, f_fast) -> (x, v, f_fast, e_fast)``, the slow force, a
-    slow half kick.  Its record is (e_slow, e_fast of the last substep)."""
+    ``inner(x, v, f_fast) -> (x, v, f_fast, e_fast)`` (the stage
+    ``cf_respa_fast``), the slow force, a slow half kick.  Its record is
+    (e_slow, e_fast of the last substep)."""
 
     def step(carry, nb):
         inv_m = (1.0 / masses)[:, None]
         x, v, f_slow, f_fast = carry
         v = v + 0.5 * dt * f_slow * inv_m                   # slow kick
-        for _ in range(n_inner):
-            x, v, f_fast, e_fast = inner(x, v, f_fast, inv_m)
+        profiling.count_respa(x, n_inner)
+        with phase_scope("cf_respa_fast", x):
+            for _ in range(n_inner):
+                x, v, f_fast, e_fast = inner(x, v, f_fast, inv_m)
         e_slow, f_slow, _nb = slow_fn(x, nb)
         v = v + 0.5 * dt * f_slow * inv_m                   # slow kick
         return (x, v, f_slow, f_fast), e_slow, e_fast
@@ -832,8 +858,9 @@ def respa_trajectory_nb(state: MDStateNB, slow_fn, fast_fn, init_nb, masses,
     ``rebuild_every`` of them (a remainder runs as one shorter chunk,
     where the JAX package asks for a multiple), each chunk a CUDA graph
     replay on a CUDA device unless ``graph=False``.  Returns (final_state,
-    per-outer-step total energies); the final state's forces and potential
-    are evaluated afresh."""
+    per-outer-step total energies); the final state (:class:`RespaStateNB`)
+    has its forces and potential evaluated afresh, and the last outer
+    step's tier forces beside them, from which a call handed it goes on."""
     dt_in = dt / n_inner
 
     def make_step(m, _generator):
@@ -867,7 +894,8 @@ def respa_langevin_trajectory_nb(state: MDStateNB, slow_fn, fast_fn,
     noise act at the inner timestep), the slow (nonbonded) force kicks at
     the outer boundaries.  With ``n_inner=1`` this is
     :func:`langevin_trajectory_nb` (kicks differ only by summation order).
-    Returns (final_state, per-outer-step kinetic energies)."""
+    Returns (final_state, per-outer-step kinetic energies), the final state
+    as :func:`respa_trajectory_nb`'s."""
     _check_generator(generator, state.positions.device)
     dt_in = dt / n_inner
 

@@ -4,7 +4,7 @@
 :func:`phase_scope` names a phase of the program in a profiler trace: a
 ``torch.profiler.record_function`` range and, on the card, an NVTX range,
 both on the host.  Given the tensors a phase reads, the scope is also one
-of the energy's *stages* (its name ``cf_<stage>``, :data:`STAGES`), timed
+of the program's *stages* (its name ``cf_<stage>``, :data:`TIMED`), timed
 on the device as well: a stamp at each edge of the forward, and an
 identity ``torch.autograd.Function`` around the stage's inputs and its
 output whose backward stamps the edges of the stage's backward.  On the
@@ -29,11 +29,13 @@ call), the record starts empty.  It keeps
 * per host span (every ``phase_scope`` entered while recording, such as
   the MD driver's ``cf.md.*``) its count, total and self seconds (the
   total less the time its child spans cover) and its parents' names;
-* the chunk replays, per chunk length.
+* the chunk replays, per chunk length, and the r-RESPA outer steps and
+  substeps they ran.
 
 :func:`totals` returns it, :func:`stage_ms` reads the replays' per-step
-device time by stage from it, and :func:`idle_by_span` credits the idle
-time of a finished profiler's trace to the program's host spans.
+device time by stage from it, :func:`respa_ms` the r-RESPA tiers' and the
+slow tier's stages' per outer step, and :func:`idle_by_span` credits the idle time of a finished
+profiler's trace to the program's host spans.
 
 :func:`trace` records a ``torch.profiler`` trace of a block into a
 directory; :class:`step_timer` times a block with CUDA events on the card,
@@ -51,17 +53,23 @@ import time
 
 import torch
 
-#: The stages the stamps time, in the slot order of ``stage_stamp.cu``:
-#: the energy's phases, the chunk head's neighbor rebuild, and ``replay``,
-#: the first and last node of each chunk graph.
+#: The stages :func:`stage_ms` reads: the energy's phases, the chunk
+#: head's neighbor rebuild, and ``replay``, the first and last node of each
+#: chunk graph.
 STAGES = ("charges", "binning", "direct", "exclusion", "reciprocal",
           "bonded", "rebuild", "replay")
 #: The stages of one energy evaluation.
 ENERGY_STAGES = STAGES[:6]
+#: The r-RESPA slow tier's stages (the energy's but the bonded terms).
+SLOW_STAGES = ENERGY_STAGES[:5]
+#: Every stage the stamps time, in the slot order of ``stage_stamp.cu``:
+#: :data:`STAGES`, then ``respa_fast``, an r-RESPA outer step's fast tier
+#: (its substeps, their bonded evaluations inside).
+TIMED = STAGES + ("respa_fast",)
 PASSES = ("fwd", "bwd")
 MODES = ("eager", "replay")
-SLOTS = len(STAGES) * len(PASSES) * len(MODES)
-_STAGE_OF = {f"cf_{s}": i for i, s in enumerate(STAGES)}
+SLOTS = len(TIMED) * len(PASSES) * len(MODES)
+_STAGE_OF = {f"cf_{s}": i for i, s in enumerate(TIMED)}
 _EAGER, _REPLAY = 0, 1
 
 
@@ -83,10 +91,10 @@ class _Buffer:
             from ..ops import native
 
             built = native.limits("cf_stamp_limits")
-            if built != (SLOTS, len(STAGES)):
+            if built != (SLOTS, len(TIMED)):
                 raise RuntimeError(f"stage_stamp.cu has {built} (slots, "
                                    f"stages); profiling expects "
-                                   f"{(SLOTS, len(STAGES))}")
+                                   f"{(SLOTS, len(TIMED))}")
             self.buf = torch.zeros(3 * SLOTS, dtype=torch.int64,
                                    device=device)
         else:
@@ -146,8 +154,10 @@ class _Record:
         self.session = 0
         self.host = {}
         self.replays = {}
+        self.respa = {"outer": 0, "inner": 0}
         self.buffers = {}
         self.nodes = None       # the stamp nodes of a graph being captured
+        self.captured = None    # the r-RESPA steps of a graph being captured
 
     def stack(self) -> list:
         if not hasattr(self.local, "stack"):
@@ -167,6 +177,7 @@ def recording() -> bool:
         with _REC.lock:
             _REC.session += 1
             _REC.host, _REC.replays = {}, {}
+            _REC.respa = {"outer": 0, "inner": 0}
             _REC.closed = False
     _REC.was_on = on
     return on
@@ -198,6 +209,7 @@ class GraphStamps:
         self.device = device
         self.nodes = []
         self.bridged = 0        # edges that keep the work's order without
+        self.respa = {"outer": 0, "inner": 0}   # r-RESPA steps a replay runs
         self._set = None
 
     def attach(self, graph):
@@ -248,8 +260,9 @@ class GraphStamps:
 def capture_stamps(device):
     """Around a CUDA graph's capture on ``device``: yields the
     :class:`GraphStamps` that collects the stamp nodes captured in the
-    block.  The device's record is made first, outside the capture.  A
-    graph captured outside this block carries no stamps."""
+    block, and the r-RESPA steps (:func:`count_respa`) the graph runs.  The
+    device's record is made first, outside the capture.  A graph captured
+    outside this block carries no stamps."""
     device = torch.device(*_key(device))
     _buffer(device)
     stamps = GraphStamps(device)
@@ -257,20 +270,34 @@ def capture_stamps(device):
         if _REC.nodes is not None:
             raise RuntimeError("capture_stamps: another capture collects "
                                "stamp nodes")
-        _REC.nodes = stamps.nodes
+        _REC.nodes, _REC.captured = stamps.nodes, stamps.respa
     try:
         yield stamps
     finally:
         with _REC.lock:
-            _REC.nodes = None
+            _REC.nodes = _REC.captured = None
 
 
-def count_replay(steps: int):
-    """Record one replay of a chunk graph of ``steps`` steps (while a
-    profiler records)."""
+def count_replay(steps: int, respa: dict):
+    """Record one replay of a chunk graph of ``steps`` steps, and the
+    r-RESPA steps ``respa`` of its capture (:attr:`GraphStamps.respa`),
+    while a profiler records."""
     if recording():
         with _REC.lock:
             _REC.replays[steps] = _REC.replays.get(steps, 0) + 1
+            for k in _REC.respa:
+                _REC.respa[k] += respa[k]
+
+
+def count_respa(like: torch.Tensor, n_inner: int):
+    """Count one r-RESPA outer step of ``n_inner`` substeps into the
+    capture that collects stamps (:func:`count_replay` adds it at each
+    replay); outside such a capture nothing is counted."""
+    if like.is_cuda and torch.cuda.is_current_stream_capturing():
+        with _REC.lock:
+            if _REC.captured is not None:
+                _REC.captured["outer"] += 1
+                _REC.captured["inner"] += n_inner
 
 
 class _Edge(torch.autograd.Function):
@@ -426,28 +453,32 @@ def totals() -> dict:
       modes ``eager`` and ``replay``, passes ``fwd`` and ``bwd``, summed
       over the devices (each device's accumulators copied to the host
       once);
-    * ``replays``: chunk length -> replays of it."""
+    * ``replays``: chunk length -> replays of it;
+    * ``respa``: ``{"outer", "inner"}``, the r-RESPA outer steps and
+      inner substeps the replays ran (:func:`count_respa`)."""
     with _REC.lock:
         if not torch._C._autograd._profiler_enabled():
             _REC.closed = True
         host = {k: dict(v, parents=sorted(v["parents"]))
                 for k, v in _REC.host.items()}
         replays = dict(_REC.replays)
+        respa = dict(_REC.respa)
         session = _REC.session
     stages = {m: {s: {p: {"seconds": 0.0, "count": 0} for p in PASSES}
-                  for s in STAGES} for m in MODES}
+                  for s in TIMED} for m in MODES}
     for buf in list(_REC.buffers.values()):
         if buf.session != session:
             continue
         vals = buf.read()
-        for si, s in enumerate(STAGES):
+        for si, s in enumerate(TIMED):
             for bi, p in enumerate(PASSES):
                 for mi, m in enumerate(MODES):
                     k = _slot(si, bi, mi)
                     cell = stages[m][s][p]
                     cell["seconds"] += vals[SLOTS + k] * 1e-9
                     cell["count"] += vals[2 * SLOTS + k]
-    return {"host": host, "stages": stages, "replays": replays}
+    return {"host": host, "stages": stages, "replays": replays,
+            "respa": respa}
 
 
 def stage_ms(record: dict, steps: int):
@@ -478,6 +509,40 @@ def stage_ms(record: dict, steps: int):
            / steps for s in STAGES[:-1]}
     out["other"] = (1e3 * rep["replay"]["fwd"]["seconds"] / steps
                     - sum(out.values()))
+    return out
+
+
+def respa_ms(record: dict, outer_steps: int):
+    """Device milliseconds per replayed r-RESPA outer step in the chunk
+    graphs' replays of ``record`` (:func:`totals`): ``fast``, the stage
+    ``respa_fast`` (the substeps: their kicks, drifts, noise and bonded
+    evaluations); ``bonded``, the ``bonded`` stage inside it, forward and
+    backward; each slow-tier stage (:data:`SLOW_STAGES`), forward and
+    backward, and ``slow``, their sum.  A stage's time runs from edge to
+    edge, as in :func:`stage_ms`.  None where the replays ran another
+    number of steps than ``outer_steps`` or counted other r-RESPA steps,
+    or where a replayed outer step did not run one fast tier, one forward
+    and one backward of each slow-tier stage, and one bonded evaluation
+    per counted substep."""
+    counted = record.get("respa")
+    rep = record["stages"]["replay"]
+    replayed = sum(k * n for k, n in record["replays"].items())
+    if (not outer_steps or replayed != outer_steps or not counted
+            or counted["outer"] != outer_steps or "respa_fast" not in rep):
+        return None
+    if (rep["respa_fast"]["fwd"]["count"] != outer_steps
+            or any(rep["bonded"][p]["count"] != counted["inner"]
+                   for p in PASSES)
+            or any(rep[s][p]["count"] != outer_steps for s in SLOW_STAGES
+                   for p in PASSES)):
+        return None
+
+    def ms(stage, passes=PASSES):
+        return 1e3 * sum(rep[stage][p]["seconds"]
+                         for p in passes) / outer_steps
+    out = {s: ms(s) for s in SLOW_STAGES}
+    out.update(fast=ms("respa_fast", ("fwd",)), bonded=ms("bonded"),
+               slow=sum(out[s] for s in SLOW_STAGES))
     return out
 
 

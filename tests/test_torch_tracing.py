@@ -15,27 +15,34 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from chargeflux_tpu_torch import integrate
 from chargeflux_tpu_torch.integrate import (init_state_nb,
                                             langevin_trajectory_nb,
                                             make_nb_energy_fn,
-                                            nve_trajectory_nb)
+                                            make_respa_force_fns,
+                                            nve_trajectory_nb,
+                                            respa_langevin_trajectory_nb)
 from chargeflux_tpu_torch.models import water_bonded_params, water_box
 from chargeflux_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
 
-def _water(dtype, device="cpu", n_side=5, cutoff=0.45, **kw):
+def _water(dtype, device="cpu", n_side=5, cutoff=0.45, tiers=False,
+           **kw):
     """(e_fn, init_nb, x, masses) of a cell + SPME water box with its water
-    bonds: every energy stage runs.  ``kw`` goes to ``create_system``."""
+    bonds: every energy stage runs.  ``kw`` goes to ``create_system``.
+    With ``tiers``, also the r-RESPA tiers ``make_respa_force_fns`` makes
+    of the same system and bonds."""
     force, pos, masses, box = water_box(n_side=n_side, flux="bond_angle",
                                         cutoff=cutoff)
     system = force.create_system(box=box, dtype=dtype, direct_method="cell",
                                  recip_method="pme", device=device, **kw)
     bonded = water_bonded_params(len(masses) // 3, box=box, device=device)
     e_fn, init_nb = make_nb_energy_fn(system, bonded=bonded)
-    return (e_fn, init_nb, torch.tensor(pos, dtype=dtype, device=device),
-            torch.tensor(masses, dtype=dtype, device=device))
+    out = (e_fn, init_nb, torch.tensor(pos, dtype=dtype, device=device),
+           torch.tensor(masses, dtype=dtype, device=device))
+    return out + (make_respa_force_fns(system, bonded),) if tiers else out
 
 
 def _recorded(fn):
@@ -217,6 +224,152 @@ def test_stage_ms_is_none_on_an_empty_or_mismatched_record(case):
     assert profiling.stage_ms(rec, 80 if case == "steps" else 100) is None
 
 
+# r-RESPA: 4 outer steps of 1 fs, 2 substeps each, rebuilt every 2
+RESPA = dict(dt=1e-3, n_inner=2, n_steps=4, every=2)
+
+
+def _respa_run(dtype=torch.float64, device="cpu", seed=7, **kw):
+    """(final state, kinetic energies) of ``respa_langevin_trajectory_nb``
+    on the water box, from rest, and the call itself (for re-runs)."""
+    e_fn, init_nb, x, m, (slow_fn, fast_fn, init_slow) = _water(
+        dtype, device, tiers=True, **kw)
+    state = init_state_nb(x, torch.zeros_like(x), e_fn, init_nb)
+
+    def run(n_steps=RESPA["n_steps"], gen=None):
+        gen = gen or torch.Generator(device).manual_seed(seed)
+        return respa_langevin_trajectory_nb(
+            state, slow_fn, fast_fn, init_slow, m, RESPA["dt"],
+            RESPA["n_inner"], 300.0, 1.0, gen, n_steps, RESPA["every"])
+    return run
+
+
+def _chunks_recorded(monkeypatch, run):
+    """``run()`` with a CPU profiler around its chunks alone (not the
+    driver's eager evaluations at the call's start and end); (its result,
+    the chunks' record)."""
+    real, box = integrate._run_chunks, {}
+
+    def recorded(*args, **kwargs):
+        out, box["rec"] = _recorded(lambda: real(*args, **kwargs))
+        return out
+    monkeypatch.setattr(integrate, "_run_chunks", recorded)
+    return run(), box["rec"]
+
+
+def _as_replayed(rec, chunks: dict, respa: dict) -> dict:
+    """A CPU record's eager stages read as replays of ``chunks`` (chunk
+    length -> replays) that ran the r-RESPA steps ``respa``."""
+    return {"host": rec["host"], "replays": dict(chunks),
+            "stages": {"eager": rec["stages"]["replay"],
+                       "replay": rec["stages"]["eager"]},
+            "respa": dict(respa)}
+
+
+def test_respa_ms_reads_a_cpu_respa_record(monkeypatch):
+    """A RESPA call's chunks on the CPU: one respa_fast stage per outer
+    step with n_inner bonded evaluations inside it, one forward and one
+    backward of each slow-tier stage, and no r-RESPA steps counted (only a
+    replay counts them); respa_ms reads that record, as a replay's, per
+    outer step."""
+    n, k = RESPA["n_steps"], RESPA["n_inner"]
+    (_fin, kes), rec = _chunks_recorded(monkeypatch, _respa_run())
+    counts = _counts(rec)
+    assert counts["respa_fast"] == (n, 0)
+    assert counts["bonded"] == (n * k, n * k)
+    assert all(counts[s] == (n, n) for s in profiling.SLOW_STAGES)
+    assert rec["respa"] == {"outer": 0, "inner": 0}
+    assert rec["host"]["cf_bonded"]["parents"] == ["cf_respa_fast"]
+    assert "cf_respa_fast" not in rec["host"]["cf_direct"]["parents"]
+    assert profiling.respa_ms(rec, n) is None              # nothing replayed
+    ms = profiling.respa_ms(_as_replayed(
+        rec, {RESPA["every"]: 2}, {"outer": n, "inner": n * k}), n)
+    eager = rec["stages"]["eager"]
+    assert ms["fast"] == pytest.approx(
+        1e3 * eager["respa_fast"]["fwd"]["seconds"] / n)
+    assert ms["bonded"] == pytest.approx(1e3 * sum(
+        eager["bonded"][p]["seconds"] for p in profiling.PASSES) / n)
+    for s in profiling.SLOW_STAGES:
+        assert ms[s] == pytest.approx(1e3 * sum(
+            eager[s][p]["seconds"] for p in profiling.PASSES) / n), s
+    assert ms["slow"] == pytest.approx(
+        sum(ms[s] for s in profiling.SLOW_STAGES))
+    assert 0.0 < ms["bonded"] < ms["fast"] and ms["slow"] > 0.0
+    assert torch.isfinite(kes).all()
+
+
+def _respa_record(outer=100, n_inner=4, chunk=5, fast=None, bonded=None,
+                  slow=None, counted=None):
+    """A synthetic record of ``totals``' shape for ``outer`` replayed
+    r-RESPA outer steps in chunks of ``chunk``: the fast tier 0.3 s, each
+    bonded pass 0.05 s, each slow stage's pass 0.1 s."""
+    rec = _record({chunk: outer // chunk}, 0.1, counts=outer)
+    rep = rec["stages"]["replay"]
+    for m in profiling.MODES:
+        rec["stages"][m]["respa_fast"] = {
+            p: {"seconds": 0.0, "count": 0} for p in profiling.PASSES}
+    rep["respa_fast"]["fwd"] = {"seconds": 0.3,
+                                "count": outer if fast is None else fast}
+    for p in profiling.PASSES:
+        rep["bonded"][p] = {"seconds": 0.05, "count": outer * n_inner
+                            if bonded is None else bonded}
+        for s in profiling.SLOW_STAGES:
+            rep[s][p]["count"] = outer if slow is None else slow
+    rec["respa"] = counted or {"outer": outer, "inner": outer * n_inner}
+    return rec
+
+
+def test_respa_ms_reads_the_replays_per_outer_step():
+    ms = profiling.respa_ms(_respa_record(), 100)
+    assert ms == pytest.approx({"fast": 3.0, "bonded": 1.0, "slow": 10.0,
+                                **dict.fromkeys(profiling.SLOW_STAGES, 2.0)})
+
+
+@pytest.mark.parametrize("case", ["steps", "counted", "fast", "bonded",
+                                  "slow", "no_counter", "no_stage"])
+def test_respa_ms_is_none_on_a_mismatched_record(case):
+    rec = {"steps": _respa_record(),
+           "counted": _respa_record(counted={"outer": 100, "inner": 300}),
+           "fast": _respa_record(fast=99),
+           "bonded": _respa_record(bonded=399),
+           "slow": _respa_record(slow=101),
+           "no_counter": _record({5: 20}, 0.1),
+           "no_stage": _respa_record()}[case]
+    if case == "no_stage":
+        for m in profiling.MODES:
+            del rec["stages"][m]["respa_fast"]
+    steps = 95 if case == "steps" else 100
+    assert profiling.respa_ms(rec, steps) is None
+
+
+def test_stage_ms_of_an_nve_record_is_unchanged_by_the_respa_stage():
+    """An NVE call's record holds the new stage and counters at zero, and
+    stage_ms reads a record the same with and without them."""
+    e_fn, init_nb, x, m = _water(torch.float64)
+    state = init_state_nb(x, torch.zeros_like(x), e_fn, init_nb)
+    _, rec = _recorded(lambda: nve_trajectory_nb(state, e_fn, init_nb, m,
+                                                 5e-4, 8, 4))
+    assert _counts(rec)["respa_fast"] == (0, 0)
+    assert rec["respa"] == {"outer": 0, "inner": 0}
+    plain = _record({20: 5}, 0.1)
+    timed = _record({20: 5}, 0.1)
+    for mode in profiling.MODES:
+        timed["stages"][mode]["respa_fast"] = {
+            p: {"seconds": 0.0, "count": 0} for p in profiling.PASSES}
+    timed["respa"] = rec["respa"]
+    assert profiling.stage_ms(timed, 100) == profiling.stage_ms(plain, 100)
+    assert profiling.respa_ms(timed, 100) is None
+
+
+def test_a_recording_profiler_leaves_respa_trajectories_bit_identical():
+    run = _respa_run(torch.float32)
+    fin0, kes0 = run()
+    (fin1, kes1), rec = _recorded(run)
+    assert _counts(rec)["respa_fast"] == (RESPA["n_steps"], 0)
+    assert torch.equal(kes0, kes1) and torch.isfinite(kes0).all()
+    for f in ("positions", "velocities", "forces", "f_slow", "f_fast"):
+        assert torch.equal(getattr(fin0, f), getattr(fin1, f)), f
+
+
 class _Event:
     def __init__(self, name, start, end, cuda=False):
         self._v = (name, start, end, cuda)
@@ -388,4 +541,36 @@ def test_a_stamped_langevin_replay_draws_what_the_graph_s_own_draws():
     assert torch.equal(kes, kes2) and torch.isfinite(kes).all()
     assert torch.equal(plain.positions, stamped.positions)
     assert torch.equal(plain.velocities, stamped.velocities)
+    assert torch.equal(after, gen.get_state())
+
+
+@pytest.mark.cuda
+def test_a_stamped_respa_replay_keeps_the_bits_and_reads_its_tiers():
+    """An r-RESPA Langevin chunk graph replayed with its stamps (under a
+    profiler) gives its own graph's bits from the same generator state;
+    the record counts the outer steps and substeps the replays ran, and
+    respa_ms reads the tiers, the fast one wider than its bonded
+    evaluations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    run = _respa_run(torch.float32, dev, n_side=12, cutoff=0.65,
+                     cell_grid=(4, 4, 4))
+    n, k = 8, RESPA["n_inner"]
+    gen = torch.Generator(dev).manual_seed(11)
+    run(n, gen)                                # captures the chunk
+    seed = gen.get_state()
+    plain, kes = run(n, gen)
+    after = gen.get_state()
+    gen.set_state(seed)
+    (stamped, kes2), rec = _recorded(lambda: run(n, gen))
+    assert rec["replays"] == {RESPA["every"]: n // RESPA["every"]}
+    assert rec["respa"] == {"outer": n, "inner": n * k}
+    assert _counts(rec, "replay")["respa_fast"] == (n, 0)
+    assert _counts(rec, "replay")["bonded"] == (n * k, n * k)
+    ms = profiling.respa_ms(rec, n)
+    assert 0.0 < ms["bonded"] < ms["fast"] and ms["slow"] > 0.0
+    assert torch.equal(kes, kes2) and torch.isfinite(kes).all()
+    for f in ("positions", "velocities", "f_slow", "f_fast"):
+        assert torch.equal(getattr(plain, f), getattr(stamped, f)), f
     assert torch.equal(after, gen.get_state())

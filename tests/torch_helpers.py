@@ -30,7 +30,7 @@ KERNEL_LIMITS = {"cf_spread_limits": (32, 16, 36),
                  "cf_sf_limits": (64, 128, 128, 256, 8, 32, 2, 4, 16),
                  "cf_cell_bin_limits": (49152, 1024),
                  "cf_bspline_limits": (4, 8),
-                 "cf_stamp_limits": (32, 8)}
+                 "cf_stamp_limits": (36, 9)}
 
 
 def fake_kernel_limits(monkeypatch):
