@@ -24,11 +24,13 @@ structure-factor kernels' Ky / 2Kz limits, else "xla"; on the CPU or in
 f64, "xla".  Dense direct space with ``recip_method="pme"`` takes the
 dense-mesh SPME (``pme.pme_reciprocal_energy``).
 
-The walk and the spread take their kernels or their plain versions by the
-system's ``kernel_route``, fixed when it is built: a system in f64 (the
-kernels are f32 only) or on the CPU runs the plain versions, as
-``plain=True`` does; an f32 system on the card runs the kernels, whose
-wrappers raise on inputs past their limits.
+The walk, the spread and the templated exclusion rows take their kernels
+or their plain versions by the system's ``kernel_route``, fixed when it is
+built: a system in f64 (the kernels are f32 only) or on the CPU runs the
+plain versions, as ``plain=True`` does; an f32 system on the card runs the
+kernels, whose wrappers raise on inputs past their limits.  The exclusion
+kernels also need an orthorhombic box that does not require grad and no
+replica axes (:func:`_excl_kernel_route`).
 
 Three conditions poison the energy and, through ``poison * sum(x)``, every
 force component to NaN on the cell route, as in the JAX package: a binning
@@ -64,6 +66,9 @@ from .charges import apply_chain_rule, effective_charges
 from .device import constant
 from .ewald import reciprocal_energy, self_energy
 from .ops.erfc import erf_over_r_eval, erfc_fast
+from .ops.exclusion import (exclusion_fwd_plain,
+                            lj_pair_terms as _lj_pair_terms, pair_terms,
+                            template_exclusion_energy)
 from .ops.structure_factor import kernels_take_grid
 from .pairs import box_volume, displacement, pair_matrix_mask, plane_widths
 from .pme import pme_cell_column_reciprocal_energy, pme_reciprocal_energy
@@ -82,47 +87,24 @@ def dispersion_energy(box, spec, dtype=None):
     return spec.tail_coeff / box_volume(box)
 
 
-def _lj_pair_terms(half_sig_sum, eps_prod, inv_r):
-    """Prefactored LJ: e * s6 * (s6 - 1) == 4 eps [(sig/r)^12 - (sig/r)^6]."""
-    sig2 = (half_sig_sum * inv_r) ** 2
-    sig6 = sig2 * sig2 * sig2
-    return eps_prod * sig6 * (sig6 - 1.0)
-
-
-def _excl_pair_energy(r, inv_r, qq, half_sig, eps, spec, subtract_direct):
-    """Per-pair exclusion correction: always -erf(ar)/r Coulomb; with
-    ``subtract_direct`` also remove the erfc/r + LJ the direct walk
-    counted inside the cutoff."""
-    erfc_ar = erfc_fast(spec.alpha * r)
-    e = -ONE_4PI_EPS0 * qq * inv_r * (1.0 - erfc_ar)
-    if subtract_direct:
-        in_cut = r < spec.cutoff
-        direct = (ONE_4PI_EPS0 * qq * inv_r * erfc_ar
-                  + _lj_pair_terms(half_sig, eps, inv_r))
-        e = e - torch.where(in_cut, direct, 0.0)
-    return torch.sum(e, dim=-1)
-
-
-def _pair_terms(p1, p2, q1, q2, s1, s2, e1, e2, system, subtract_direct,
-                template: bool):
-    d = displacement(p1, p2, system.box, system.spec.pbc)
-    r2 = torch.sum(d * d, dim=-1)
-    if template:
-        inv_r = torch.rsqrt(r2)
-        r = r2 * inv_r
-    else:
-        r = torch.sqrt(r2)
-        inv_r = 1.0 / r
-    return _excl_pair_energy(r, inv_r, q1 * q2, 0.5 * (s1 + s2),
-                             4.0 * torch.sqrt(e1 * e2), system.spec,
-                             subtract_direct)
+def _excl_kernel_route(positions, system: ChargeFluxSystem,
+                       plain: bool) -> bool:
+    """Whether the templated exclusion rows take the kernels
+    (``ops.exclusion``): the system's kernel route (f32 on the card), an
+    orthorhombic box [3] that does not require grad, and positions with no
+    leading replica axes.  Everything else runs the plain chain."""
+    box = system.box
+    return (not plain and system.kernel_route == "cuda" and system.spec.pbc
+            and box.ndim == 1 and not box.requires_grad
+            and positions.ndim == 2)
 
 
 def _exclusion_correction(positions, q, system: ChargeFluxSystem,
-                          subtract_direct: bool):
+                          subtract_direct: bool, plain: bool = False):
     """Energy correction for excluded pairs under PBC: templated blocks by
-    static slices, remainder rows by one gather of an [N, 6] table in the
-    fixed order of ``system.excl_plan`` (deterministic backward)."""
+    the kernels where :func:`_excl_kernel_route` allows (else by static
+    slices), remainder rows by one gather of an [N, 6] table in the fixed
+    order of ``system.excl_plan`` (deterministic backward)."""
     dtype = positions.dtype
     total = torch.zeros((), dtype=dtype, device=positions.device)
     if system.n_exclusions == 0:
@@ -131,21 +113,17 @@ def _exclusion_correction(positions, q, system: ChargeFluxSystem,
     sig = system.sigma.to(dtype)
     eps = system.epsilon.to(dtype)
     e0 = 0
-    lead = positions.shape[:-2]        # replica axes (templated rows only)
     if spec.excl_template is not None:
+        kernel = _excl_kernel_route(positions, system, plain)
         for tpl in spec.excl_template.templates:
-            off, s, c = tpl.offset, tpl.stride, tpl.count
-            sl = slice(off, off + c * s)
-            pos_m = positions[..., sl, :].reshape(lead + (c, s, 3))
-            q_m = q[..., sl].reshape(lead + (c, s))
-            sig_m = sig[sl].reshape(c, s)
-            eps_m = eps[sl].reshape(c, s)
-            for (l1, l2) in tpl.local_rows("exclusions"):
-                total = total + _pair_terms(
-                    pos_m[..., l1, :], pos_m[..., l2, :], q_m[..., l1],
-                    q_m[..., l2],
-                    sig_m[:, l1], sig_m[:, l2], eps_m[:, l1], eps_m[:, l2],
-                    system, subtract_direct, template=True)
+            if kernel:
+                total = total + template_exclusion_energy(
+                    positions, q, sig, eps, system.box, tpl, spec,
+                    subtract_direct)
+            else:
+                total = exclusion_fwd_plain(positions, q, sig, eps,
+                                            system.box, tpl, spec,
+                                            subtract_direct, total=total)
         e0 = spec.excl_template.covered("exclusions",
                                         system.exclusions.shape[0])
     if e0 < system.exclusions.shape[0]:
@@ -153,9 +131,10 @@ def _exclusion_correction(positions, q, system: ChargeFluxSystem,
                            eps[:, None]], dim=1)
         ge = gather_planned(table, system.excl_plan).reshape(-1, 2, 6)
         a, b = ge[:, 0], ge[:, 1]
-        total = total + _pair_terms(
+        total = total + pair_terms(
             a[:, 0:3], b[:, 0:3], a[:, 3], b[:, 3], a[:, 4], b[:, 4],
-            a[:, 5], b[:, 5], system, subtract_direct, template=False)
+            a[:, 5], b[:, 5], system.box, spec, subtract_direct,
+            template=False)
     return total
 
 
@@ -274,14 +253,14 @@ def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
                                                     recip, plain)
         with phase_scope("cf_exclusion", positions, q) as st:
             comps["exclusion"] = st.output(_exclusion_correction(
-                *st.inputs, system, subtract_direct=True))
+                *st.inputs, system, subtract_direct=True, plain=plain))
     else:
         with phase_scope("cf_direct", positions, q) as st:
             comps["direct"] = st.output(_dense_pair_energy(*st.inputs,
                                                            system))
         with phase_scope("cf_exclusion", positions, q) as st:
             comps["exclusion"] = st.output(_exclusion_correction(
-                *st.inputs, system, subtract_direct=False))
+                *st.inputs, system, subtract_direct=False, plain=plain))
     if not include_recip:
         return comps
     columns = recip == "pme" and blocks is not None

@@ -23,7 +23,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("pme_spread.cu", "direct_walk.cu", "structure_factor.cu",
-           "cell_bin.cu", "stage_stamp.cu", "bspline_patch.cu")
+           "cell_bin.cu", "stage_stamp.cu", "bspline_patch.cu",
+           "exclusion_pairs.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,6 +111,11 @@ def library() -> ctypes.CDLL:
         lib.cf_cell_bin.argtypes = [p, i, i, i] + [p] * 4 + [p]
         lib.cf_bspline_patch_fwd.argtypes = [p] * 8 + [i] * 12 + [p] * 4 + [p]
         lib.cf_bspline_patch_bwd.argtypes = [p] * 11 + [i] * 12 + [p] * 4 + [p]
+        lib.cf_exclusion_limits.argtypes = [ctypes.POINTER(i)]
+        lib.cf_exclusion_fwd.argtypes = ([p] * 6 + [i] * 5 + [f] * 3 + [i]
+                                         + [p] * 2 + [p])
+        lib.cf_exclusion_bwd.argtypes = ([p] * 6 + [i] * 5 + [f] * 3 + [i]
+                                         + [p] * 3 + [p])
         lib.cf_stamp_limits.argtypes = [ctypes.POINTER(i)] * 2
         lib.cf_stage_stamp.argtypes = [p, i, i, p, p]
         lib.cf_stamp_set_new.argtypes = [p, p, i, p, p]
@@ -123,6 +129,8 @@ def library() -> ctypes.CDLL:
                    lib.cf_sf_bwd_zq, lib.cf_cell_bin_limits,
                    lib.cf_cell_bin, lib.cf_bspline_limits,
                    lib.cf_bspline_patch_fwd, lib.cf_bspline_patch_bwd,
+                   lib.cf_exclusion_limits, lib.cf_exclusion_fwd,
+                   lib.cf_exclusion_bwd,
                    lib.cf_stamp_limits,
                    lib.cf_stage_stamp, lib.cf_stamp_set_new,
                    lib.cf_stamp_set_launch):

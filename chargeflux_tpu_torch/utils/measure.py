@@ -108,6 +108,11 @@ KB = 0.00831446261815324  # kJ/mol/K
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 F32 = 4  # bytes of a float32 or an int32
+# flops of one excluded pair in csrc/exclusion_pairs.cu (an FMA counts 2;
+# rsqrt, exp, sqrt and a division 1): the forward's energy, and what the
+# backward adds for the derivatives and the two ends' gradients
+EXCL_FWD_FLOPS = 67
+EXCL_BWD_EXTRA_FLOPS = 62
 # the port's hand-written kernels, as a profiler trace names them
 PORT_KERNELS = re.compile(r"\(anonymous namespace\)::"
                           r"(spread_|direct_walk|sf_|cell_bin_)")
@@ -170,6 +175,14 @@ def kernel_bound(name: str, **dims) -> dict:
       value with its product (7); bytes: x, y, z, q and the id, the
       3 order in-support cotangents in, dE/dx, dE/dy, dE/dz and dE/dq out
       (the origin tables and the lengths, a few words, aside).
+    exclusion_fwd / exclusion_bwd (n_atoms, n_pairs): one template's
+      excluded pairs (``ops.exclusion``), n_atoms its atoms.  Forward:
+      EXCL_FWD_FLOPS a pair (the minimum image, rsqrt, the erfc polynomial
+      and exp, the Coulomb terms, LJ and the sum); bytes: positions, q,
+      sigma and epsilon in (6 words an atom).  Backward: the forward's
+      flops and EXCL_BWD_EXTRA_FLOPS a pair for its derivatives and the
+      two ends' gradients; bytes: the same in, dE/dx and dE/dq out (4 words
+      an atom); the box, the rows and the partial sums, a few words, aside.
     """
     d = dims
     if name in ("spread_fwd", "spread_bwd"):
@@ -218,6 +231,12 @@ def kernel_bound(name: str, **dims) -> dict:
         else:
             flops = n * (3 * recursion(o - 1) + 9 * o + 8 * o)
             nbytes = F32 * n * (5 + 3 * o + 4)
+    elif name in ("exclusion_fwd", "exclusion_bwd"):
+        flops = d["n_pairs"] * EXCL_FWD_FLOPS
+        nbytes = F32 * 6 * d["n_atoms"]
+        if name == "exclusion_bwd":
+            flops += d["n_pairs"] * EXCL_BWD_EXTRA_FLOPS
+            nbytes += F32 * 4 * d["n_atoms"]
     else:
         raise ValueError(f"no bound for kernel {name!r}")
     t_ops, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -1163,6 +1182,52 @@ def patch_weight_inputs(b, ids, system):
         (ct,) = torch.autograd.grad(pme.mesh_energy(qpad, system), qpad)
     with torch.no_grad():
         return args, ps.spread_bwd_plain(*w, offsets, ct.contiguous())
+
+
+def exclusion_inputs(system, x, seed: int = 0, drift: float = 0.01):
+    """The exclusion kernels' tensor arguments (positions, q, sigma,
+    epsilon, box) of ``system`` at ``x``: the whole box shifted by a random
+    fraction of its edges and each atom moved by up to ``drift`` nm per
+    coordinate (a generator seeded with ``seed``; the default keeps bond
+    lengths within some 20 % of the lattice's), then wrapped atom by atom
+    into the box, so that molecules straddle its faces; with the effective
+    charges there."""
+    from ..charges import effective_charges
+
+    box = system.box
+    g = torch.Generator(x.device).manual_seed(seed)
+
+    def uniform(shape):
+        return torch.rand(shape, device=x.device, generator=g, dtype=x.dtype)
+
+    with torch.no_grad():
+        x = x + box * uniform((3,)) + drift * (2.0 * uniform(x.shape) - 1.0)
+        x = (x - box * torch.floor(x / box)).contiguous()
+        q = effective_charges(x, system).contiguous()
+    return (x, q, system.sigma.to(x.dtype), system.epsilon.to(x.dtype),
+            box)
+
+
+def exclusion_scale(args, tpl, spec, subtract_direct: bool) -> float:
+    """The sum over template ``tpl``'s pairs of each pair's |correction|
+    (``ops.exclusion.pair_terms`` on one pair at a time): the scale of its
+    energy's round-off."""
+    from ..ops.exclusion import pair_terms
+
+    x, q, sig, eps, box = args
+    sl = slice(tpl.offset, tpl.offset + tpl.count * tpl.stride)
+    shape = (tpl.count, tpl.stride)
+    pos, q, sig, eps = (x[sl].reshape(shape + (3,)), q[sl].reshape(shape),
+                        sig[sl].reshape(shape), eps[sl].reshape(shape))
+    total = 0.0
+    with torch.no_grad():
+        for l1, l2 in tpl.local_rows("exclusions"):
+            e = pair_terms(pos[:, l1, None], pos[:, l2, None],
+                           *(t[:, i, None] for t in (q, sig, eps)
+                             for i in (l1, l2)), box, spec,
+                           subtract_direct, template=True)
+            total += float(e.double().abs().sum())
+    return total
 
 
 def drifted_blocks(system, state, e_fn, masses, n_steps: int):

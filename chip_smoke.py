@@ -45,6 +45,12 @@ in order:
    slabs and (2, 2) bricks, on the positions halved (most cells empty), on
    the first 2049 atoms (N not a multiple of the kernel's chunk) and on
    bench.py's 100k box (11^3 cells);
+3d. the exclusion kernels (``exclusion_fwd`` / ``exclusion_bwd``) against
+   their plain chain at the 30k start and at the benchmark's 98k box
+   (each shifted, drifted by up to 0.01 nm and wrapped atom by atom, so
+   molecules straddle the box's faces; E within 1e-6 of the sum of the
+   pair terms' magnitudes, the gradients within 1e-5 of their max), timed
+   as in phase 3 beside their bound (no library call computes them);
 4. / 4b. energy_and_forces at the start positions of each path: kernel
    path against the plain path in f32 and in f64 on the card, and the
    f64 system on its own route (it records the plain versions when it is
@@ -218,6 +224,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 SF_SRC = "chargeflux_tpu_torch/csrc/structure_factor.cu"
+EXCL_SRC = "chargeflux_tpu_torch/csrc/exclusion_pairs.cu"
+EXCL_REPL = "chargeflux_tpu/energy.py:115 (XLA fusion, not Pallas)"
 # wrapper: (source, the TPU kernel it replaces, the path that runs it)
 KERNELS = {
     "spread_fwd": ("chargeflux_tpu_torch/csrc/pme_spread.cu",
@@ -244,6 +252,13 @@ KERNELS = {
     "patch_weights_bwd": ("chargeflux_tpu_torch/csrc/bspline_patch.cu",
                           "chargeflux_tpu/pme.py:445 (XLA fusion, not "
                           "Pallas)", "30k"),
+    # the templated exclusion rows (no Pallas kernel: the JAX package's jnp
+    # slices, which XLA fuses); the _98k rows are phase 3d's at the
+    # benchmark box's shapes
+    "exclusion_fwd": (EXCL_SRC, EXCL_REPL, "30k"),
+    "exclusion_bwd": (EXCL_SRC, EXCL_REPL, "30k"),
+    "exclusion_fwd_98k": (EXCL_SRC, EXCL_REPL, "98k"),
+    "exclusion_bwd_98k": (EXCL_SRC, EXCL_REPL, "98k"),
     "sf_fwd": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:145", "216"),
     "sf_bwd_tables": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:157",
                       "216"),
@@ -273,6 +288,11 @@ WALK_TOLS = (1e-5, 1e-4, 1e-4)  # the walk's energy, dE/dx and dE/dq
 # and dE/dx, dE/dy, dE/dz, dE/dq (sums of 8 f32 terms in other orders)
 WEIGHT_TOLS = (1e-6, 1e-6, 1e-6, 0.0)
 WEIGHT_BWD_TOLS = 2e-5
+# the exclusion kernels: E within 1e-6 of the sum of the pair terms'
+# magnitudes (the limit of max |diff| / |E| is scaled from it), ct dE/dx and
+# ct dE/dq within 1e-5 of their max
+EXCL_E_TOL = 1e-6
+EXCL_GRAD_TOL = 1e-5
 
 
 def fail(msg: str):
@@ -438,6 +458,58 @@ def kernel_cases(system, x, where):
                         None),
     }
     return cases
+
+
+def check_exclusions(system, x, results):
+    """Phase 3d: the exclusion kernels against their plain chain (subtract
+    direct, the cell route's) at the 30k start and at the benchmark's 98k
+    box, each shifted, drifted by up to 0.01 nm and wrapped atom by atom
+    (``utils.measure.exclusion_inputs``), timed as in phase 3 beside their
+    bound; the plain chain's backward row times its forward and backward
+    through autograd."""
+    import torch
+
+    from chargeflux_tpu_torch.models import water_box
+    from chargeflux_tpu_torch.ops import exclusion as ex
+    from chargeflux_tpu_torch.utils.measure import (exclusion_inputs,
+                                                    exclusion_scale,
+                                                    kernel_bound)
+
+    dev = x.device
+    force, pos, _, box = water_box(n_side=32, cutoff=1.0)
+    s98 = force.create_system(box=box, dtype=torch.float32,
+                              direct_method="cell", recip_method="pme",
+                              cell_grid=(8, 8, 8), cell_capacity=256,
+                              pme_grid=(64, 64, 64), device=dev)
+    x98 = torch.tensor(pos, dtype=torch.float32, device=dev)
+    ct = torch.ones((), device=dev)
+    for label, sys_, xx, suffix in (("30k", system, x, ""),
+                                    ("98k", s98, x98, "_98k")):
+        spec = sys_.spec
+        (tpl,) = spec.excl_template.templates
+        args = exclusion_inputs(sys_, xx, seed=22)
+        n_pairs = tpl.count * len(tpl.local_rows("exclusions"))
+        dims = dict(n_atoms=tpl.count * tpl.stride, n_pairs=n_pairs)
+        with torch.no_grad():
+            e_plain = float(ex.exclusion_fwd_plain(*args, tpl, spec, True))
+        scale = exclusion_scale(args, tpl, spec, True)
+        where = (f"phase 3d at the {label} shapes ({dims['n_atoms']} atoms, "
+                 f"{n_pairs} pairs; sum of |pair terms| {scale:.6e})")
+        cases = {
+            "exclusion_fwd": (
+                lambda: (ex.exclusion_fwd(*args, tpl, spec, True),),
+                lambda: (ex.exclusion_fwd_plain(*args, tpl, spec, True),),
+                EXCL_E_TOL * scale / abs(e_plain)),
+            "exclusion_bwd": (
+                lambda: ex.exclusion_bwd(*args, tpl, spec, True, ct),
+                lambda: ex.exclusion_bwd_plain(*args, tpl, spec, True, ct),
+                EXCL_GRAD_TOL)}
+        for name, (kern, plain, tol) in cases.items():
+            results[name + suffix] = kernel_entry(name + suffix, compare(
+                name, kern, plain, tol, where, kernel_bound(name, **dims)))
+            results[name + suffix]["library_note"] = (
+                "no single call: no PyTorch call computes the excluded "
+                "pairs' correction")
 
 
 def weights_agree(walk_args, system, where):
@@ -2176,6 +2248,7 @@ def main():
     check_kernels(system, x, results)
     check_sf_kernels(results)
     check_binning(system, x, results)
+    check_exclusions(system, x, results)
     check_energy(system, x, "4")
     check_energy(sys_d, x_d, "4b")
     launches, ms_step, ms_eager, capture, ctx30k = run_md(force, system, x,

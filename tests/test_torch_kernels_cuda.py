@@ -7,6 +7,8 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -19,12 +21,15 @@ from chargeflux_tpu_torch.models import water_box
 from chargeflux_tpu_torch.neighbors import build_neighbor_state
 from chargeflux_tpu_torch.ops import cell_bin as cb
 from chargeflux_tpu_torch.ops import direct_walk as dw
+from chargeflux_tpu_torch.ops import exclusion as ex
 from chargeflux_tpu_torch.ops import native
 from chargeflux_tpu_torch.ops import pme_spread as ps
 from chargeflux_tpu_torch.ops import pme_weights as pw
 from chargeflux_tpu_torch.ops import structure_factor as sf
 from chargeflux_tpu_torch.ops.erfc import erf_over_r_coeffs
-from chargeflux_tpu_torch.utils.measure import (dense_path,
+from chargeflux_tpu_torch.utils.measure import (bench_path, dense_path,
+                                                exclusion_inputs,
+                                                exclusion_scale,
                                                 patch_weight_inputs)
 
 from torch_helpers import KERNEL_LIMITS, lattice_blocks, untemplated
@@ -202,6 +207,147 @@ def test_patch_weights_kernel_poisons_a_non_finite_row(weights_96k):
     g_x = pw.patch_weights_bwd(*bad, *cts)[0]
     assert bool(torch.isnan(g_x[3, 4, 5, 6]))
     assert int(torch.isnan(g_x).sum()) == 1
+
+
+@pytest.fixture(scope="module")
+def excl_boxes(weights_96k):
+    """The exclusion kernels' inputs on the benchmark's 98k-atom water box
+    and on bench.py's hetero30k box (a chain in water: templates and
+    remainder rows), each drifted up to 0.05 nm and wrapped atom by atom
+    into the box (molecules straddle its faces)."""
+    dev = weights_96k["args"][0].device
+    _, pos, _, _ = water_box(n_side=32, cutoff=1.0)
+    s96 = weights_96k["system"]
+    x96 = torch.tensor(pos, dtype=torch.float32, device=dev)
+    _f, x_h, _m, _b, _bd, s_h = bench_path("hetero30k", dev)
+    assert s_h.excl_plan is not None             # remainder rows as well
+    return {name: (system, exclusion_inputs(system, x, seed=22), x)
+            for name, system, x in (("98k", s96, x96),
+                                    ("hetero30k", s_h, x_h))}
+
+
+def _template_cases(excl_boxes):
+    for name, (system, args, _) in excl_boxes.items():
+        for tpl in system.spec.excl_template.templates:
+            for sub in (True, False):
+                yield f"{name} {tpl.count}x{tpl.stride} sub={sub}", \
+                    system, args, tpl, sub
+
+
+# the gradients' limit, of their max, with and without subtract_direct:
+# without it a pair's gradient is the derivative of erf(alpha r) / r, whose
+# two terms cancel to ~1/30 at the O-H distance, so either f32 version lies
+# some 3e-5 of the max from the same formula in f64 (the CPU, 10^4 waters)
+EXCL_GRAD_TOLS = {True: 1e-5, False: 1e-4}
+
+
+def test_exclusion_kernels_match_plain(excl_boxes):
+    """Each template of both boxes, with and without subtract_direct: E
+    within 1e-6 of the sum of the pair terms' magnitudes, ct dE/dx and
+    ct dE/dq (ct 1.5) within EXCL_GRAD_TOLS of their max; two launches
+    bit-equal; each wrapper counts one launch a call."""
+    n0 = dict(ops.launch_counts())
+    calls = 0
+    for name, system, args, tpl, sub in _template_cases(excl_boxes):
+        spec = system.spec
+        e1 = ex.exclusion_fwd(*args, tpl, spec, sub)
+        e2 = ex.exclusion_fwd(*args, tpl, spec, sub)
+        e_p = ex.exclusion_fwd_plain(*args, tpl, spec, sub)
+        assert torch.equal(e1, e2), name
+        scale = exclusion_scale(args, tpl, spec, sub)
+        assert abs(float(e1) - float(e_p)) <= 1e-6 * scale, name
+        ct = torch.tensor(1.5, device=e1.device)
+        g1 = ex.exclusion_bwd(*args, tpl, spec, sub, ct)
+        g2 = ex.exclusion_bwd(*args, tpl, spec, sub, ct)
+        for u, v, w in zip(g1, g2, ex.exclusion_bwd_plain(*args, tpl, spec,
+                                                            sub, ct)):
+            assert torch.equal(u, v), name
+            assert _max_rel(u, w) <= EXCL_GRAD_TOLS[sub], name
+        calls += 2
+    counts = ops.launch_counts()
+    assert counts["exclusion_fwd"] == n0["exclusion_fwd"] + calls
+    assert counts["exclusion_bwd"] == n0["exclusion_bwd"] + calls
+
+
+def test_exclusion_kernels_poison_a_nan_position_as_plain(excl_boxes):
+    """A NaN coordinate: E NaN, and NaN on the same gradients as the plain
+    chain (every atom of its molecule), the rest within 1e-5."""
+    system, args, _ = excl_boxes["98k"]
+    tpl = system.spec.excl_template.templates[0]
+    x = args[0].clone()
+    x[3 * 1000 + 1, 2] = float("nan")
+    bad = (x, *args[1:])
+    assert torch.isnan(ex.exclusion_fwd(*bad, tpl, system.spec, True))
+    ct = torch.tensor(1.0, device=x.device)
+    g_k = ex.exclusion_bwd(*bad, tpl, system.spec, True, ct)
+    g_p = ex.exclusion_bwd_plain(*bad, tpl, system.spec, True, ct)
+    for u, w in zip(g_k, g_p):
+        assert torch.equal(torch.isnan(u), torch.isnan(w))
+        assert bool(torch.isnan(u.reshape(x.shape[0], -1)[3000:3003]).all())
+        ok = ~torch.isnan(w)
+        assert _max_rel(u[ok], w[ok]) <= 1e-5
+
+
+def test_exclusion_kernels_replay_in_a_cuda_graph(excl_boxes):
+    """Both wrappers captured into one CUDA graph replay the eager calls'
+    bits; new positions copied into the captured input give their own."""
+    system, args, _ = excl_boxes["98k"]
+    tpl, spec = system.spec.excl_template.templates[0], system.spec
+    other = exclusion_inputs(system, args[0], seed=23, drift=0.01)[0]
+    static = args[0].clone()
+    ct = torch.tensor(1.0, device=static.device)
+    ex.exclusion_fwd(static, *args[1:], tpl, spec, True)         # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        e = ex.exclusion_fwd(static, *args[1:], tpl, spec, True)
+        g = ex.exclusion_bwd(static, *args[1:], tpl, spec, True, ct)
+    for x in (args[0], other, args[0]):
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(e, ex.exclusion_fwd(x, *args[1:], tpl, spec,
+                                               True))
+        for u, v in zip(g, ex.exclusion_bwd(x, *args[1:], tpl, spec, True,
+                                            ct)):
+            assert torch.equal(u, v)
+
+
+def test_an_evaluation_launches_the_exclusion_kernels_once_each_way(
+        setup, excl_boxes, monkeypatch):
+    """energy_and_forces on the kernel route: one forward and one backward
+    exclusion launch per template (the water box has one; hetero30k's
+    chain rows take the plain remainder path); plain=True none.  On
+    hetero30k, against the same route with the exclusions' plain chain:
+    |dE| <= 1e-6 of the components' magnitudes, force RMS <= 1e-5
+    relative (the other kernels against plain=True: 1e-5 and 1e-4)."""
+    s = setup
+    ops.reset_launch_counts()
+    energy_and_forces(s["x"], s["system"])
+    counts = ops.launch_counts()
+    assert (counts["exclusion_fwd"], counts["exclusion_bwd"]) == (1, 1)
+    system, _, x = excl_boxes["hetero30k"]
+    n_tpl = len(system.spec.excl_template.templates)
+    ops.reset_launch_counts()
+    e_k, f_k = energy_and_forces(x, system)
+    counts = ops.launch_counts()
+    assert (counts["exclusion_fwd"], counts["exclusion_bwd"]) == (n_tpl,
+                                                                  n_tpl)
+    ops.reset_launch_counts()
+    e_p, f_p = energy_and_forces(x, system, plain=True)
+    assert not any(ops.launch_counts().values())
+    energy_module = importlib.import_module("chargeflux_tpu_torch.energy")
+    monkeypatch.setattr(energy_module, "_excl_kernel_route",
+                        lambda *args: False)
+    e_c, f_c = energy_and_forces(x, system)
+    with torch.no_grad():
+        scale = sum(abs(float(v)) for v in energy_components(
+            x, system, plain=True).values())
+    for e, f, e_tol, f_tol in ((e_c, f_c, 1e-6, 1e-5),
+                               (e_p, f_p, 1e-5, 1e-4)):
+        assert abs(float(e_k - e)) <= e_tol * scale
+        rms = torch.sqrt(torch.mean((f_k - f) ** 2) / torch.mean(f ** 2))
+        assert float(rms) <= f_tol
 
 
 # (id, n_col, Wx, Wyp, rows, order, Gz, zorg layout, one column all q = 0)

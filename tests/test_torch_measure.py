@@ -248,8 +248,8 @@ def test_sf_tables_are_the_216_path_shapes():
 
 def test_traced_launches_counts_each_wrappers_kernel():
     """The profiler names of the port's kernels map onto the launch
-    counters: the wrapper's counted kernel only (not spread_fwd's fold),
-    device events only."""
+    counters: the wrapper's counted kernel only (not spread_fwd's fold or
+    the exclusion forward's final sum), device events only."""
     class Event:
         def __init__(self, name, device="DeviceType.CUDA"):
             self.name, self.device_type = name, device
@@ -276,14 +276,21 @@ def test_traced_launches_counts_each_wrappers_kernel():
               "float const*)"),
         Event("void (anonymous namespace)::bspline_patch_bwd_kernel<8>("
               "float const*)"),
+        Event("(anonymous namespace)::exclusion_pairs_fwd_kernel(float "
+              "const*)"),
+        Event("(anonymous namespace)::exclusion_pairs_total_kernel(double "
+              "const*)"),
+        Event("(anonymous namespace)::exclusion_pairs_bwd_kernel(float "
+              "const*)"),
         Event("cudaGraphLaunch", "DeviceType.CPU"),
     ]
     assert measure.traced_launches(events) == {
         "spread_fwd": 1, "spread_bwd": 1, "direct_walk": 1,
         "direct_walk_tri": 1, "direct_walk_halo": 1, "sf_fwd": 0,
         "sf_bwd_tables": 2, "sf_bwd_zq": 0, "cell_bin": 1,
-        "patch_weights_fwd": 1, "patch_weights_bwd": 1}
-    assert len(measure.device_events(events)) == 12
+        "patch_weights_fwd": 1, "patch_weights_bwd": 1, "exclusion_fwd": 1,
+        "exclusion_bwd": 1}
+    assert len(measure.device_events(events)) == 15
 
 
 def test_rigid_path_small_box():
@@ -419,6 +426,19 @@ def test_kernel_bound_patch_weights_at_the_96k_shapes(name, flops, words):
     b = measure.kernel_bound(name, n_slots=131_072, wx=20, wyp=24, order=8)
     assert b["flops"] == 131_072 * flops
     assert b["bytes"] == 4 * 131_072 * words
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e9)
+
+
+@pytest.mark.parametrize("name, flops, words", [
+    ("exclusion_fwd", 67, 6), ("exclusion_bwd", 67 + 62, 6 + 4)])
+def test_kernel_bound_exclusions_at_the_96k_shapes(name, flops, words):
+    """The exclusion kernels at the benchmark box (32,768 waters, three
+    pairs each): the flops a pair, the words an atom moves (positions,
+    q, sigma, epsilon in; dE/dx, dE/dq out), and bytes set the bound."""
+    b = measure.kernel_bound(name, n_atoms=98_304, n_pairs=98_304)
+    assert b["flops"] == 98_304 * flops
+    assert b["bytes"] == 4 * 98_304 * words
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e9)
 

@@ -20,6 +20,7 @@ import torch
 from chargeflux_tpu_torch.energy import resolve_recip_method
 from chargeflux_tpu_torch.models import water_box
 from chargeflux_tpu_torch.ops import direct_walk as dw
+from chargeflux_tpu_torch.ops import exclusion as ex
 from chargeflux_tpu_torch.ops import pme_spread as ps
 from chargeflux_tpu_torch.ops import structure_factor as sf
 
@@ -98,6 +99,23 @@ def test_structure_factor_gate(limits, case):
     _, dtype, dev, ky, kz2, n, want = case
     named = [(k, dtype, dev) for k in ("cxT", "cyT", "zq")]
     assert _kind(sf._refusal(named, ky, kz2, n)) is want
+
+
+# (id, dtype, device, refusal)
+EXCLUSION = [
+    ("f32-card", F32, CUDA, None),
+    ("f64-card", F64, CUDA, TypeError),
+    ("f32-cpu", F32, CPU, TypeError),
+]
+
+
+@pytest.mark.parametrize("case", EXCLUSION, ids=[c[0] for c in EXCLUSION])
+def test_exclusion_gate(case):
+    """The exclusion kernels take f32 on the card only (no size limit: a
+    template's rows are read from a table)."""
+    _, dtype, dev, want = case
+    named = [(n, dtype, dev) for n in ("positions", "q", "box")]
+    assert _kind(ex._refusal(named)) is want
 
 
 def test_predicates_on_cpu_tensors_and_the_wrappers_reason():

@@ -22,7 +22,8 @@ from chargeflux_tpu_torch.system import ARRAY_FIELDS, system_from_arrays
 # plan inputs (``ops.structure_factor.ForwardLimits``: atom chunk, most
 # threads per block, most splits, most ky rows per block, micro-tile rows
 # and columns, most threads per micro-tile; structure_factor.cu); kMaxCells,
-# kChunk (cell_bin.cu); kSlots, kStages (stage_stamp.cu).  Building
+# kChunk (cell_bin.cu); kSlots, kStages (stage_stamp.cu); kThreads
+# (exclusion_pairs.cu).  Building
 # needs nvcc, so tests that ask for them without a card use these values;
 # a test on the card holds this table to the built library.
 KERNEL_LIMITS = {"cf_spread_limits": (32, 16, 36),
@@ -30,6 +31,7 @@ KERNEL_LIMITS = {"cf_spread_limits": (32, 16, 36),
                  "cf_sf_limits": (64, 128, 128, 256, 8, 32, 2, 4, 16),
                  "cf_cell_bin_limits": (49152, 1024),
                  "cf_bspline_limits": (4, 8),
+                 "cf_exclusion_limits": (256,),
                  "cf_stamp_limits": (36, 9)}
 
 
