@@ -3,9 +3,9 @@ hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 
 A port of ``chargeflux_tpu`` (JAX/TPU), which stays the reference it is
 tested against; module names match that package's, and ``__all__`` here,
-in ``models`` and in ``utils`` names what that package's do (the
-multi-device ``parallel`` package is not ported yet, ROADMAP.md A.9).
-This package imports torch and never jax.
+in ``models``, ``utils``, ``parallel`` (on ``torch.distributed``) and
+``runtime`` names what that package's do.  This package imports torch and
+never jax.
 
 It runs the periodic cell + PME main path (the cell binning (CUDA
 kernel), flux charges, the fused direct walk (CUDA kernel), the exclusion

@@ -243,7 +243,7 @@ def measure_phases(system, state):
     def binning():
         cells.build_cell_list_full(x, system.box, spec.cell_grid,
                                    spec.cell_capacity,
-                                   plain=system.kernel_route == "plain")
+                                   plain=not system.uses_kernels)
 
     base, walk, recip, full, binned = measure.interleaved_ms([
         fwd_grad(make_e(False, False)), fwd_grad(make_e(True, False)),

@@ -171,9 +171,7 @@ def rank_into_slots(cell: torch.Tensor, n_cells: int, capacity: int,
     slot_of [N] int32 flat slot per atom, sentinel n_cells*capacity;
     overflow int32 count of atoms dropped past the capacity).
     """
-    if plain:
-        return cell_bin_plain(cell, n_cells, capacity)
-    return cell_bin(cell, n_cells, capacity)
+    return (cell_bin_plain if plain else cell_bin)(cell, n_cells, capacity)
 
 
 def cell_ids(positions: torch.Tensor, box: torch.Tensor, grid) -> torch.Tensor:
@@ -221,7 +219,7 @@ def validate_cell_list(positions, system) -> int:
         system.box.dtype)
     _, overflow = build_cell_list(x, system.box, spec.cell_grid,
                                   spec.cell_capacity,
-                                  plain=system.kernel_route == "plain")
+                                  plain=not system.uses_kernels)
     return int(overflow)
 
 
@@ -319,14 +317,15 @@ class _DirectEnergy(torch.autograd.Function):
                 None, None, None, None, None, None, None, None)
 
 
-def direct_energy_on_blocks(blocks: CellBlocks, ids: torch.Tensor, system,
-                            plain: bool = False) -> torch.Tensor:
+def direct_energy_on_blocks(blocks: CellBlocks, ids: torch.Tensor,
+                            system) -> torch.Tensor:
     """Direct-space erfc Coulomb + LJ over every in-cutoff pair of the
     blocks (excluded pairs included; energy.py subtracts them).  The fused
     walk gives dE/dx and dE/dq in the forward pass; LJ prefactors get no
-    gradient.  ``plain=True`` runs the plain walk on any device."""
+    gradient.  The plain route runs the plain walk on any device."""
     spec = system.spec
     ids = ids.to(torch.int32).contiguous()
     return _DirectEnergy.apply(blocks.x, blocks.y, blocks.z, blocks.q,
                                blocks.hs, blocks.se, ids, system.box,
-                               system.n_atoms, spec.alpha, spec.cutoff, plain)
+                               system.n_atoms, spec.alpha, spec.cutoff,
+                               not system.uses_kernels)

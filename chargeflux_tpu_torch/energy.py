@@ -24,20 +24,19 @@ structure-factor kernels' Ky / 2Kz limits, else "xla"; on the CPU or in
 f64, "xla".  Dense direct space with ``recip_method="pme"`` takes the
 dense-mesh SPME (``pme.pme_reciprocal_energy``).
 
-The walk, the spread and the templated exclusion rows take their kernels
-or their plain versions by the system's ``kernel_route``, fixed when it is
-built: a system in f64 (the kernels are f32 only) or on the CPU runs the
-plain versions, as ``plain=True`` does; an f32 system on the card runs the
-kernels, whose wrappers raise on inputs past their limits.  The exclusion
-kernels also need an orthorhombic box that does not require grad and no
-replica axes (:func:`_excl_kernel_route`).
+The binning, walk, weights, spread and templated exclusion rows take
+their kernels or their plain versions by the system's ``kernel_route``,
+fixed when it is built: f64 (the kernels are f32 only) or the CPU runs the
+plain versions, an f32 system on the card the kernels, whose wrappers
+raise on inputs past their limits; ``system.with_kernel_route("plain")``
+is the plain reference the kernel path is held to.  The exclusion kernels
+also need an orthorhombic box that does not require grad and no replica
+axes (:func:`_excl_kernel_route`).
 
 Three conditions poison the energy and, through ``poison * sum(x)``, every
 force component to NaN on the cell route, as in the JAX package: a binning
 overflow, a cell plane spacing below the cutoff, and (with a reused
 neighbor state on the PME route) drift past the PME patch slack.
-``plain=True`` runs the plain versions of the kernels on any device — the
-reference the kernel path is held to.
 
 :func:`forces_manual` is the reference plugin's force algorithm: the
 fixed-charge gradient plus the explicit dE/dq . dq/dx chain rule over the
@@ -87,20 +86,19 @@ def dispersion_energy(box, spec, dtype=None):
     return spec.tail_coeff / box_volume(box)
 
 
-def _excl_kernel_route(positions, system: ChargeFluxSystem,
-                       plain: bool) -> bool:
+def _excl_kernel_route(positions, system: ChargeFluxSystem) -> bool:
     """Whether the templated exclusion rows take the kernels
-    (``ops.exclusion``): the system's kernel route (f32 on the card), an
-    orthorhombic box [3] that does not require grad, and positions with no
-    leading replica axes.  Everything else runs the plain chain."""
+    (``ops.exclusion``): the system on the kernel route (f32 on the card),
+    an orthorhombic box [3] that does not require grad, and positions with
+    no leading replica axes.  Everything else runs the plain chain."""
     box = system.box
-    return (not plain and system.kernel_route == "cuda" and system.spec.pbc
+    return (system.uses_kernels and system.spec.pbc
             and box.ndim == 1 and not box.requires_grad
             and positions.ndim == 2)
 
 
 def _exclusion_correction(positions, q, system: ChargeFluxSystem,
-                          subtract_direct: bool, plain: bool = False):
+                          subtract_direct: bool):
     """Energy correction for excluded pairs under PBC: templated blocks by
     the kernels where :func:`_excl_kernel_route` allows (else by static
     slices), remainder rows by one gather of an [N, 6] table in the fixed
@@ -114,7 +112,7 @@ def _exclusion_correction(positions, q, system: ChargeFluxSystem,
     eps = system.epsilon.to(dtype)
     e0 = 0
     if spec.excl_template is not None:
-        kernel = _excl_kernel_route(positions, system, plain)
+        kernel = _excl_kernel_route(positions, system)
         for tpl in spec.excl_template.templates:
             if kernel:
                 total = total + template_exclusion_energy(
@@ -186,8 +184,7 @@ def resolve_recip_method(spec, dtype, device) -> str:
     return "xla"
 
 
-def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
-                 plain: bool):
+def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str):
     """(blocks, ids, E_direct) of the cell route: binning (or the reused
     neighbor state), blockify and the fused walk, with the NaN poisons:
     overflow dropped pairs, a cell plane below the cutoff (a shrunken box),
@@ -199,7 +196,7 @@ def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
         if nb is None:
             slots, inv_slot, overflow = cells.build_cell_list_full(
                 positions.detach(), system.box, spec.cell_grid,
-                spec.cell_capacity, plain=plain)
+                spec.cell_capacity, plain=not system.uses_kernels)
             wrap = None
         else:
             slots, inv_slot, overflow = nb.slots, nb.inv_slot, nb.overflow
@@ -209,7 +206,7 @@ def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
     ids = slots.reshape(blocks.x.shape)
     with phase_scope("cf_direct", blocks) as st:
         e_dir = st.output(cells.direct_energy_on_blocks(
-            *st.inputs, ids, system, plain=plain))
+            *st.inputs, ids, system))
     grid = constant(spec.cell_grid, dtype, dev)
     bad = (overflow > 0) | torch.any(plane_widths(system.box) / grid
                                      < spec.cutoff)
@@ -225,8 +222,7 @@ def _cell_direct(positions, q, system: ChargeFluxSystem, nb, recip: str,
 
 def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
                                     system: ChargeFluxSystem, nb=None,
-                                    include_recip: bool = True,
-                                    plain: bool = False
+                                    include_recip: bool = True
                                     ) -> Dict[str, torch.Tensor]:
     """Energy breakdown {self, [dispersion,] direct, exclusion, reciprocal}
     under PBC, {pair} otherwise, treating the effective charges as an
@@ -239,7 +235,6 @@ def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
         with phase_scope("cf_direct", positions, q) as st:
             return {"pair": st.output(_dense_pair_energy(*st.inputs,
                                                          system))}
-    plain = plain or system.kernel_route == "plain"
     dtype = positions.dtype
     recip = resolve_recip_method(spec, dtype, positions.device)
     comps: Dict[str, torch.Tensor] = {}
@@ -248,87 +243,81 @@ def energy_components_fixed_charges(positions: torch.Tensor, q: torch.Tensor,
         comps["dispersion"] = dispersion_energy(system.box, spec, dtype)
 
     blocks = ids = None
-    if spec.direct_method == "cell":
+    cell = spec.direct_method == "cell"
+    if cell:
         blocks, ids, comps["direct"] = _cell_direct(positions, q, system, nb,
-                                                    recip, plain)
-        with phase_scope("cf_exclusion", positions, q) as st:
-            comps["exclusion"] = st.output(_exclusion_correction(
-                *st.inputs, system, subtract_direct=True, plain=plain))
+                                                    recip)
     else:
         with phase_scope("cf_direct", positions, q) as st:
             comps["direct"] = st.output(_dense_pair_energy(*st.inputs,
                                                            system))
-        with phase_scope("cf_exclusion", positions, q) as st:
-            comps["exclusion"] = st.output(_exclusion_correction(
-                *st.inputs, system, subtract_direct=False, plain=plain))
+    with phase_scope("cf_exclusion", positions, q) as st:
+        comps["exclusion"] = st.output(_exclusion_correction(
+            *st.inputs, system, subtract_direct=cell))
     if not include_recip:
         return comps
     columns = recip == "pme" and blocks is not None
     with phase_scope("cf_reciprocal",
                      *((blocks,) if columns else (positions, q))) as st:
         if columns:
-            e = pme_cell_column_reciprocal_energy(*st.inputs, ids, system,
-                                                  plain=plain)
+            e = pme_cell_column_reciprocal_energy(*st.inputs, ids, system)
         elif recip == "pme":
             e = pme_reciprocal_energy(*st.inputs, system.box, spec.alpha,
                                       spec.pme_grid, spec.pme_order)
         else:
             e = reciprocal_energy(*st.inputs, system.box, spec.alpha,
-                                  spec.kmax, method=recip, plain=plain)
+                                  spec.kmax, method=recip,
+                                  plain=not system.uses_kernels)
         comps["reciprocal"] = st.output(e)
     return comps
 
 
-def energy_fixed_charges(positions, q, system, nb=None, plain: bool = False):
+def energy_fixed_charges(positions, q, system, nb=None):
     """Total energy (kJ/mol) at fixed charges ``q``."""
-    total = 0.0
-    for v in energy_components_fixed_charges(positions, q, system, nb=nb,
-                                             plain=plain).values():
-        total = total + v
-    return total
+    return sum(energy_components_fixed_charges(positions, q, system,
+                                               nb=nb).values())
 
 
-def energy_components(positions, system, nb=None, plain: bool = False):
+def energy_components(positions, system, nb=None):
     """Energy breakdown with the effective charges q(x)."""
     q = effective_charges(positions, system)
-    return energy_components_fixed_charges(positions, q, system, nb=nb,
-                                           plain=plain)
+    return energy_components_fixed_charges(positions, q, system, nb=nb)
 
 
-def _energy(positions: torch.Tensor, system: ChargeFluxSystem, nb=None,
-            plain: bool = False) -> torch.Tensor:
+def _energy(positions: torch.Tensor, system: ChargeFluxSystem,
+            nb=None) -> torch.Tensor:
     """Total potential energy (kJ/mol) with geometry-dependent charges;
     ``nb`` is an optional reused neighbor state (neighbors.py)."""
     with phase_scope("cf_charges", positions) as st:
         q = st.output(effective_charges(*st.inputs, system))
-    return energy_fixed_charges(positions, q, system, nb=nb, plain=plain)
+    return energy_fixed_charges(positions, q, system, nb=nb)
 
 
-def energy(positions: torch.Tensor, system: ChargeFluxSystem, nb=None,
-           plain: bool = False) -> torch.Tensor:
+def energy(positions: torch.Tensor, system: ChargeFluxSystem,
+           nb=None) -> torch.Tensor:
     """Total potential energy (kJ/mol) with geometry-dependent charges
     (differentiable in ``positions``)."""
-    return _energy(positions, system, nb=nb, plain=plain)
+    return _energy(positions, system, nb=nb)
 
 
 def energy_and_forces(positions: torch.Tensor, system: ChargeFluxSystem,
-                      nb=None, plain: bool = False):
+                      nb=None):
     """(energy, forces) with F = -dE/dx through q(x)."""
     x = positions.detach().requires_grad_(True)
     with torch.enable_grad():
-        e = _energy(x, system, nb=nb, plain=plain)
+        e = _energy(x, system, nb=nb)
         (g,) = torch.autograd.grad(e, x)
     return e.detach(), -g
 
 
-def forces(positions: torch.Tensor, system: ChargeFluxSystem, nb=None,
-           plain: bool = False) -> torch.Tensor:
+def forces(positions: torch.Tensor, system: ChargeFluxSystem,
+           nb=None) -> torch.Tensor:
     """F = -dE/dx including the charge-flux chain rule, by autograd."""
-    return energy_and_forces(positions, system, nb=nb, plain=plain)[1]
+    return energy_and_forces(positions, system, nb=nb)[1]
 
 
-def forces_manual(positions: torch.Tensor, system: ChargeFluxSystem,
-                  plain: bool = False) -> torch.Tensor:
+def forces_manual(positions: torch.Tensor,
+                  system: ChargeFluxSystem) -> torch.Tensor:
     """The reference plugin's force algorithm: the fixed-charge gradient
     -dE/dx|_q plus the explicit chain rule -dE/dq . dq/dx over the analytic
     sparse Jacobian (ReferenceCoulKernels.cpp:493-499).  Equals
@@ -340,6 +329,6 @@ def forces_manual(positions: torch.Tensor, system: ChargeFluxSystem,
     xg = x.clone().requires_grad_(True)
     qg = q.detach().requires_grad_(True)
     with torch.enable_grad():
-        e = energy_fixed_charges(xg, qg, system, plain=plain)
+        e = energy_fixed_charges(xg, qg, system)
         gx, dedq = torch.autograd.grad(e, (xg, qg))
     return -gx + apply_chain_rule(dedq, x, system)

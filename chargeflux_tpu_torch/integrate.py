@@ -178,13 +178,12 @@ def _energy_and_forces(energy_fn, x):
     return e.detach(), -g
 
 
-def make_energy_fn(system, bonded=None, plain: bool = False):
+def make_energy_fn(system, bonded=None):
     """Charge-flux electrostatics (plus the optional bonded terms) as
-    ``energy_fn(positions) -> scalar``; ``plain=True`` runs the kernels'
-    plain-PyTorch versions."""
+    ``energy_fn(positions) -> scalar``, on the system's kernel route."""
 
     def e_fn(x):
-        e = _energy(x, system, plain=plain)
+        e = _energy(x, system)
         if bonded is not None:
             e = e + bonded_energy(x, bonded)
         return e
@@ -214,22 +213,20 @@ def _verlet(energy_fn, inv_m, dt, x, v, f, nb):
     return x_new, v_half + 0.5 * dt * f_new * inv_m, f_new, e
 
 
-def make_nb_energy_fn(system, bonded=None, plain: bool = False):
+def make_nb_energy_fn(system, bonded=None):
     """Returns (e_fn, init_nb): ``e_fn(x, nb) -> (energy, forces, nb)``
     evaluates with a reused neighbor state (charge-flux electrostatics plus
     the optional bonded terms), ``init_nb(x)`` rebuilds one.  A stale state
     poisons energy and forces to NaN.  On the dense route there is nothing
-    to reuse: ``init_nb`` returns ``None`` and no guard applies.
-    ``plain=True`` runs the kernels' plain-PyTorch versions (the f64
-    control and the kernel-vs-plain step timing of ``utils.measure`` use
-    it)."""
+    to reuse: ``init_nb`` returns ``None`` and no guard applies.  Both
+    run on the system's kernel route, the binning included."""
     has_cells = system.spec.direct_method == "cell"
 
     def init_nb(x):
         return build_neighbor_state(x, system) if has_cells else None
 
     def energy(x, nb):
-        e = _energy(x, system, nb=nb, plain=plain)
+        e = _energy(x, system, nb=nb)
         if bonded is not None:
             e = e + bonded_energy(x, bonded)
         return e
@@ -492,10 +489,6 @@ def _rng_prologue(gen, graph, stream):
     step = gen.get_offset() - offset
     gen.set_offset(offset)
     return rng, step
-
-
-#: The chunk's earlier name, from when its only step was the NVE one.
-NVEChunk = Chunk
 
 
 def chunk_for(energy_fn, make, key) -> Chunk:
@@ -764,15 +757,15 @@ def langevin_trajectory_nb(state: MDStateNB, e_fn, init_nb, masses,
 # ---------------------------------------------------------------------------
 
 
-def make_respa_force_fns(system, bonded, plain: bool = False):
+def make_respa_force_fns(system, bonded):
     """Split the force field into RESPA tiers: (slow_fn, fast_fn, init_nb).
 
     ``slow_fn(x, nb) -> (energy, forces, nb)`` is the charge-flux nonbonded
     tier with neighbor-state reuse and the freshness guard of
     :func:`make_nb_energy_fn`, evaluated once per outer step; ``fast_fn(x)
     -> (energy, forces)`` is the harmonic bonded tier, evaluated every
-    inner substep.  ``plain=True`` runs the kernels' plain versions."""
-    slow_fn, init_nb = make_nb_energy_fn(system, bonded=None, plain=plain)
+    inner substep."""
+    slow_fn, init_nb = make_nb_energy_fn(system, bonded=None)
 
     def fast_fn(x):
         return _energy_and_forces(lambda xx: bonded_energy(xx, bonded), x)

@@ -50,7 +50,7 @@ def build_neighbor_state(positions: torch.Tensor, system) -> NeighborState:
     with phase_scope("cf_rebuild", positions):
         slots, inv_slot, overflow = build_cell_list_full(
             positions, system.box, spec.cell_grid, spec.cell_capacity,
-            plain=system.kernel_route == "plain")
+            plain=not system.uses_kernels)
         return NeighborState(slots=slots, inv_slot=inv_slot,
                              wrap=wrap_offsets(positions, system.box),
                              x_ref=positions.clone(), overflow=overflow)

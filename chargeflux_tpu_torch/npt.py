@@ -175,7 +175,7 @@ def _plain_cell_direct(xs, q, sysb):
     spec = sysb.spec
     slots, inv_slot, _ = build_cell_list_full(
         xs.detach(), sysb.box.detach(), spec.cell_grid, spec.cell_capacity,
-        plain=sysb.kernel_route == "plain")
+        plain=not sysb.uses_kernels)
     b = blockify(xs, q, sysb, slots, inv_slot)
     ids = slots.reshape(b.x.shape)
     e, _g, _dq = direct_walk_plain(b.x, b.y, b.z, b.q, b.hs, b.se, ids,
@@ -196,11 +196,11 @@ def _box_grad_potential(xs, sysb, system, bonded):
              + _exclusion_correction(xs, q, sysb, subtract_direct=True)
              + _plain_cell_direct(xs, q, sysb)
              + reciprocal_energy(xs, q, sysb.box, spec.alpha, spec.kmax,
-                                 method="xla", plain=True))
+                                 method="xla"))
         if spec.tail_coeff is not None:
             e = e + spec.tail_coeff / box_volume(sysb.box)
     else:
-        e = _energy(xs, sysb, plain=True)
+        e = _energy(xs, sysb.with_kernel_route("plain"))
     if bonded is not None:
         e = e + bonded_energy(xs, bonded.with_box(sysb.box))
     return e

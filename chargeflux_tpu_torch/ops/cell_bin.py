@@ -28,12 +28,15 @@ from __future__ import annotations
 import torch
 
 from . import native
+from .native import INT, INT_OUT, PTR
 
 #: Kernel launches since the last reset (one per call: the count, scan and
 #: rank passes of one binning).
 LAUNCHES = {"cell_bin": 0}
 #: The kernel each counts, as a profiler trace names it (its last pass).
 SYMBOLS = {"cell_bin": "cell_bin_rank_kernel"}
+native.declare(cf_cell_bin_limits=[INT_OUT] * 2,
+               cf_cell_bin=[PTR] + [INT] * 3 + [PTR] * 5)
 
 
 def cell_bin_plain(cell: torch.Tensor, n_cells: int, capacity: int):

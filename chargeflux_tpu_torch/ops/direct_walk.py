@@ -38,6 +38,7 @@ from functools import lru_cache
 import torch
 
 from . import native
+from .native import FLOAT, INT, INT_OUT, PTR
 from ..device import constant
 from .erfc import erf_over_r_coeffs, erf_over_r_eval
 from ..units import ONE_4PI_EPS0
@@ -50,6 +51,11 @@ LAUNCHES = {"direct_walk": 0, "direct_walk_tri": 0, "direct_walk_halo": 0}
 SYMBOLS = {"direct_walk": "direct_walk_kernel",
            "direct_walk_tri": "direct_walk_tri_kernel",
            "direct_walk_halo": "direct_walk_slab_kernel"}
+native.declare(cf_walk_limits=[INT_OUT] * 2,
+               cf_direct_walk=[PTR] * 11 + [INT, FLOAT, FLOAT] + [INT] * 4
+               + [PTR] * 4,
+               cf_direct_walk_slab=[PTR] * 11 + [INT, FLOAT, FLOAT]
+               + [INT] * 5 + [PTR] * 4)
 
 
 def _crossing(n: int, d: int, dtype, device):

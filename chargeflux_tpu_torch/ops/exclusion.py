@@ -11,10 +11,10 @@ tensor it launches the kernel in ``csrc/exclusion_pairs.cu`` or raises.
 The plain version, :func:`exclusion_fwd_plain`, is the per-row chain of
 slices (:func:`pair_terms` with ``template=True``) that
 ``energy._exclusion_correction`` runs wherever the kernels do not: the
-CPU, f64, ``plain=True``, a [3, 3] lattice, a box that requires grad (the
-pressure's ``npt._box_grad_potential``) and leading replica axes.  The
-remainder rows (no template) go through :func:`pair_terms` with
-``template=False``.
+plain route (the CPU, f64, ``with_kernel_route("plain")``), a [3, 3]
+lattice, a box that requires grad (the pressure's
+``npt._box_grad_potential``) and leading replica axes.  The remainder rows
+(no template) go through :func:`pair_terms` with ``template=False``.
 
 Replaces no Pallas kernel: the JAX package evaluates the same rows as jnp
 slices that XLA fuses into one loop; eagerly the chain is some 410 small
@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import native
+from .native import FLOAT, INT, INT_OUT, PTR
 from ..device import constant
 from ..pairs import displacement
 from ..units import ONE_4PI_EPS0
@@ -37,6 +38,10 @@ LAUNCHES = {"exclusion_fwd": 0, "exclusion_bwd": 0}
 #: Per wrapper, the kernel it counts, as a profiler trace names it.
 SYMBOLS = {"exclusion_fwd": "exclusion_pairs_fwd_kernel",
            "exclusion_bwd": "exclusion_pairs_bwd_kernel"}
+native.declare(
+    cf_exclusion_limits=[INT_OUT],
+    cf_exclusion_fwd=[PTR] * 6 + [INT] * 5 + [FLOAT] * 3 + [INT] + [PTR] * 3,
+    cf_exclusion_bwd=[PTR] * 6 + [INT] * 5 + [FLOAT] * 3 + [INT] + [PTR] * 4)
 
 
 def lj_pair_terms(half_sig_sum, eps_prod, inv_r):

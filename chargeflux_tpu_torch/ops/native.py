@@ -85,56 +85,33 @@ def build() -> Path:
     return out
 
 
+PTR, INT, FLOAT, INT64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_longlong)
+INT_OUT = ctypes.POINTER(INT)
+_declared = {}
+
+
+def declare(restype=INT, **argtypes):
+    """C signatures ``name=[argument types]`` returning ``restype`` (a CUDA
+    error code), declared by the module that launches them; applied when
+    :func:`library` loads, or at once if it is loaded."""
+    _declared.update({k: (list(v), restype) for k, v in argtypes.items()})
+    if _lib is not None:
+        _apply(_lib)
+
+
+def _apply(lib):
+    for name, (args, res) in _declared.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        ll = ctypes.c_longlong
-        lib.cf_spread_limits.argtypes = [ctypes.POINTER(i)] * 3
-        lib.cf_walk_limits.argtypes = [ctypes.POINTER(i)] * 2
-        lib.cf_sf_limits.argtypes = [ctypes.POINTER(i)] * 9
-        lib.cf_cell_bin_limits.argtypes = [ctypes.POINTER(i)] * 2
-        lib.cf_bspline_limits.argtypes = [ctypes.POINTER(i)] * 2
-        lib.cf_spread_fwd.argtypes = [p] * 7 + [i] * 8 + [p]
-        lib.cf_spread_bwd.argtypes = [p] * 9 + [i] * 7 + [p]
-        lib.cf_direct_walk.argtypes = ([p] * 11 + [i, f, f, i, i, i, i]
-                                       + [p] * 3 + [p])
-        lib.cf_direct_walk_slab.argtypes = ([p] * 11
-                                            + [i, f, f, i, i, i, i, i]
-                                            + [p] * 3 + [p])
-        # the structure-factor kernels end in (R, the replica strides)
-        lib.cf_sf_fwd.argtypes = [p] * 7 + [i] * 9 + [ll] * 4 + [p]
-        lib.cf_sf_bwd_tables.argtypes = [p] * 11 + [i] * 5 + [ll] * 4 + [p]
-        lib.cf_sf_bwd_zq.argtypes = [p] * 7 + [i] * 5 + [ll] * 4 + [p]
-        lib.cf_cell_bin.argtypes = [p, i, i, i] + [p] * 4 + [p]
-        lib.cf_bspline_patch_fwd.argtypes = [p] * 8 + [i] * 12 + [p] * 4 + [p]
-        lib.cf_bspline_patch_bwd.argtypes = [p] * 11 + [i] * 12 + [p] * 4 + [p]
-        lib.cf_exclusion_limits.argtypes = [ctypes.POINTER(i)]
-        lib.cf_exclusion_fwd.argtypes = ([p] * 6 + [i] * 5 + [f] * 3 + [i]
-                                         + [p] * 2 + [p])
-        lib.cf_exclusion_bwd.argtypes = ([p] * 6 + [i] * 5 + [f] * 3 + [i]
-                                         + [p] * 3 + [p])
-        lib.cf_stamp_limits.argtypes = [ctypes.POINTER(i)] * 2
-        lib.cf_stage_stamp.argtypes = [p, i, i, p, p]
-        lib.cf_stamp_set_new.argtypes = [p, p, i, p, p]
-        lib.cf_stamp_set_launch.argtypes = [p, p]
-        lib.cf_stamp_set_free.argtypes = [p]
-        lib.cf_stamp_set_free.restype = None
-        for fn in (lib.cf_spread_limits, lib.cf_walk_limits,
-                   lib.cf_sf_limits, lib.cf_spread_fwd, lib.cf_spread_bwd,
-                   lib.cf_direct_walk, lib.cf_direct_walk_slab,
-                   lib.cf_sf_fwd, lib.cf_sf_bwd_tables,
-                   lib.cf_sf_bwd_zq, lib.cf_cell_bin_limits,
-                   lib.cf_cell_bin, lib.cf_bspline_limits,
-                   lib.cf_bspline_patch_fwd, lib.cf_bspline_patch_bwd,
-                   lib.cf_exclusion_limits, lib.cf_exclusion_fwd,
-                   lib.cf_exclusion_bwd,
-                   lib.cf_stamp_limits,
-                   lib.cf_stage_stamp, lib.cf_stamp_set_new,
-                   lib.cf_stamp_set_launch):
-            fn.restype = i
+        _apply(lib)
         _lib = lib
     return _lib
 

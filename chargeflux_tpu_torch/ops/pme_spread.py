@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from . import native
+from .native import INT, INT_OUT, PTR
 from ..device import constant, ieee_matmul
 
 #: Kernel launches since the last reset, per wrapper.
@@ -25,6 +26,9 @@ LAUNCHES = {"spread_fwd": 0, "spread_bwd": 0}
 #: forward's second kernel, the fold, is not counted).
 SYMBOLS = {"spread_fwd": "spread_patch_kernel",
            "spread_bwd": "spread_bwd_kernel"}
+native.declare(cf_spread_limits=[INT_OUT] * 3,
+               cf_spread_fwd=[PTR] * 7 + [INT] * 8 + [PTR],
+               cf_spread_bwd=[PTR] * 9 + [INT] * 7 + [PTR])
 
 
 def _placements(zorg, order: int, gz: int):

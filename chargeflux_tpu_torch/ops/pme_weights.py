@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import native
+from .native import INT, INT_OUT, PTR
 from ..device import constant
 
 #: Kernel launches since the last reset, per wrapper.
@@ -37,6 +38,9 @@ LAUNCHES = {"patch_weights_fwd": 0, "patch_weights_bwd": 0}
 #: Per wrapper, the kernel it counts, as a profiler trace names it.
 SYMBOLS = {"patch_weights_fwd": "bspline_patch_fwd_kernel",
            "patch_weights_bwd": "bspline_patch_bwd_kernel"}
+native.declare(cf_bspline_limits=[INT_OUT] * 2,
+               cf_bspline_patch_fwd=[PTR] * 8 + [INT] * 12 + [PTR] * 5,
+               cf_bspline_patch_bwd=[PTR] * 11 + [INT] * 12 + [PTR] * 5)
 
 
 def _bspline_raw(t: torch.Tensor, order: int, depth: int = 1):

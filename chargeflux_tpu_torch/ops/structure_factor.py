@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from . import native
+from .native import INT, INT64, INT_OUT, PTR
 from ..device import ieee_matmul
 
 #: Kernel launches since the last reset, per wrapper (a launch over a
@@ -46,6 +47,11 @@ LAUNCHES = {"sf_fwd": 0, "sf_bwd_tables": 0, "sf_bwd_zq": 0}
 #: Per wrapper, the kernel it counts, as a profiler trace names it.
 SYMBOLS = {"sf_fwd": "sf_fwd_kernel", "sf_bwd_tables": "sf_bwd_tables_kernel",
            "sf_bwd_zq": "sf_bwd_zq_kernel"}
+# each launch ends in (R, the replica strides) and the stream
+native.declare(cf_sf_limits=[INT_OUT] * 9,
+               cf_sf_fwd=[PTR] * 7 + [INT] * 9 + [INT64] * 4 + [PTR],
+               cf_sf_bwd_tables=[PTR] * 11 + [INT] * 5 + [INT64] * 4 + [PTR],
+               cf_sf_bwd_zq=[PTR] * 7 + [INT] * 5 + [INT64] * 4 + [PTR])
 
 #: Blocks the forward launch aims for: it cuts the ky rows into groups and
 #: the atoms into splits until it has them, where the shapes allow.  A

@@ -105,7 +105,7 @@ def _local_bin(positions, system, dev_x: int, dev_y: int, gxl: int,
     the CPU and on the plain route)."""
     cell, n_local = slab_cell_ids(positions, system, dev_x, dev_y, gxl, gyl)
     return cells.rank_into_slots(cell, n_local, system.spec.cell_capacity,
-                                 plain=system.kernel_route == "plain")
+                                 plain=not system.uses_kernels)
 
 
 def make_halo_energy_fn(system, mesh, axis_name: str = "space",
@@ -187,7 +187,6 @@ def _halo_local_energy_builder(system, group, dev: int, ndev: int,
     row_chunk = n_pad // ndev
     e_chunk = _ceil_to(max(system.n_exclusions, 1), ndev) // ndev
     alpha, cutoff = spec.alpha, spec.cutoff
-    plain = system.kernel_route == "plain"
     rows = slice(dev * row_chunk, (dev + 1) * row_chunk)
     # (source, destination) pairs: the y rows go to the -y and +y
     # neighbors, the x planes to the -x and +x neighbors
@@ -264,7 +263,7 @@ def _halo_local_energy_builder(system, group, dev: int, ndev: int,
             halo8[..., 6] > 0.5, 0, n).to(torch.int32)]).contiguous()
         e_dir = _SlabDirectEnergy.apply(
             g8.reshape(n_own, cap, 8), halo8, ids_ext, box, n, alpha, cutoff,
-            (gx, gy, gz), (ddx, ddy), plain)
+            (gx, gy, gz), (ddx, ddy), not system.uses_kernels)
 
         # overflow on any rank, or a moved box below the cutoff: NaN
         overflow_tot = all_reduce_sum(overflow, group)

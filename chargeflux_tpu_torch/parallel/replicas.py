@@ -77,14 +77,14 @@ def batched_route(system, bonded=None) -> bool:
     return bonded is None or bonded.plan is None
 
 
-def replica_energy_fn(system, bonded=None, plain: bool = False):
+def replica_energy_fn(system, bonded=None):
     """``energy_fn(x [R, N, 3]) -> [R]``: charge-flux electrostatics plus
     the optional bonded terms of every replica, in one pass where
     :func:`batched_route` holds, else one single-system evaluation per
-    replica.  ``plain=True`` runs the kernels' plain versions."""
+    replica."""
 
     def single(x):
-        e = _energy(x, system, plain=plain)
+        e = _energy(x, system)
         return e if bonded is None else e + bonded_energy(x, bonded)
 
     if batched_route(system, bonded):

@@ -343,7 +343,7 @@ def _local_energy_builder(system, group, dev: int, ndev: int):
         if use_cells:
             slots, _overflow = build_cell_list(
                 positions.detach(), system.box, spec.cell_grid,
-                spec.cell_capacity, plain=system.kernel_route == "plain")
+                spec.cell_capacity, plain=not system.uses_kernels)
             e_dir = _cell_rows_direct_energy(positions, q, system, slots,
                                              nbr_np, off_np, dev * c_chunk,
                                              c_chunk)

@@ -243,15 +243,15 @@ def column_patch_geometry(spec):
     return geom, offsets, (int(opx.max()) + wx, int(opy.max()) + wyp, gz)
 
 
-def column_spread_inputs(blocks, ids, system, plain: bool = False):
+def column_spread_inputs(blocks, ids, system):
     """The arguments of ``spread_columns`` for the cell blocks: (qwlxt,
     wlyt, wzt, zorg, offsets, pad_xy).  The weights come from
-    ``ops.pme_weights.patch_weights`` (its plain version with
-    ``plain=True``)."""
+    ``ops.pme_weights.patch_weights`` (its plain version for a system on
+    the plain route)."""
     geom, offsets, pad_xy = column_patch_geometry(system.spec)
     coords, lengths = _block_spread_coords(blocks, system.box)
     weights = patch_weights(*coords, blocks.q, ids, lengths, system.n_atoms,
-                            geom, plain=plain)
+                            geom, plain=not system.uses_kernels)
     return (*weights, offsets, pad_xy)
 
 
@@ -270,16 +270,15 @@ def mesh_energy(qpad, system) -> torch.Tensor:
     return torch.sum(d * (qhat.real * qhat.real + qhat.imag * qhat.imag))
 
 
-def pme_cell_column_reciprocal_energy(blocks, ids, system,
-                                      plain: bool = False) -> torch.Tensor:
+def pme_cell_column_reciprocal_energy(blocks, ids, system) -> torch.Tensor:
     """SPME reciprocal energy through the cell-column spread (counterpart
     of the JAX package's ``pme_cell_pallas_reciprocal_energy``: same
-    weights, patch offsets, folds and influence function).  ``plain=True``
-    computes the weights and spreads with the plain versions on any
-    device."""
+    weights, patch offsets, folds and influence function).  A system on
+    the plain route computes the weights and spreads with the plain
+    versions on any device."""
     return mesh_energy(spread_columns(
-        *column_spread_inputs(blocks, ids, system, plain=plain),
-        plain=plain), system)
+        *column_spread_inputs(blocks, ids, system),
+        plain=not system.uses_kernels), system)
 
 
 # ---------------------------------------------------------------------------

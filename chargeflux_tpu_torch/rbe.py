@@ -183,7 +183,7 @@ def estimator_moments(positions, q, tables: RBETables):
 
 
 def make_rbe_nb_energy_fn(system, n_samples: int, bonded=None,
-                          guard: bool = True, plain: bool = False):
+                          guard: bool = True):
     """Stochastic-reciprocal energy for NVT trajectory loops: returns
     ``(e_fn, init_nb)`` with ``e_fn(x, nb, generator) -> (energy, forces,
     nb)``, the RBE analog of ``integrate.make_nb_energy_fn``: the
@@ -212,8 +212,7 @@ def make_rbe_nb_energy_fn(system, n_samples: int, bonded=None,
         with phase_scope("cf_charges", x) as st:
             q = st.output(effective_charges(*st.inputs, system))
         comps = energy_components_fixed_charges(x, q, system, nb=nb,
-                                                include_recip=False,
-                                                plain=plain)
+                                                include_recip=False)
         with phase_scope("cf_reciprocal", x, q) as st:
             e = sum(comps.values()) + st.output(rbe_reciprocal_energy(
                 *st.inputs, tables, n_samples, generator))

@@ -177,10 +177,9 @@ class ChargeFluxSystem:
                                                      compare=False)
     excl_plan: Optional[RowPlan] = dataclasses.field(init=False,
                                                      compare=False)
-    # the route of the direct walk and the PME spread, fixed when the
-    # system is built from its type and device: "cuda" (the hand-written
-    # kernels, which are f32 only) for f32 on the card, else "plain" (their
-    # plain versions: f64, or the CPU)
+    # the one input that decides kernel or plain, fixed when the system is
+    # built: "cuda" (the hand-written kernels, f32 only) for f32 on the
+    # card, else "plain" (their plain versions); see with_kernel_route
     kernel_route: str = dataclasses.field(init=False, compare=False)
 
     def __post_init__(self):
@@ -203,6 +202,23 @@ class ChargeFluxSystem:
         object.__setattr__(self, "kernel_route", "cuda" if (
             dev.type == "cuda" and self.q0.dtype == torch.float32)
             else "plain")
+
+    @property
+    def uses_kernels(self) -> bool:
+        """Whether the system takes the kernels: the route's one reader."""
+        return self.kernel_route == "cuda"
+
+    def with_kernel_route(self, route: str) -> "ChargeFluxSystem":
+        """The same system on ``route``: "plain" (the plain versions on any
+        device: the card's control) or "cuda" (the kernels: f32 on the card
+        only).  A copy like :meth:`with_box`'s: capture-safe."""
+        q0 = self.q0
+        if route not in ("cuda", "plain") or route == "cuda" and not (
+                q0.device.type == "cuda" and q0.dtype == torch.float32):
+            raise ValueError(f"kernel route {route!r}: 'plain', or 'cuda' "
+                             f"for an f32 system on the CUDA card, not "
+                             f"{q0.dtype} on {q0.device}")
+        return self._swap(kernel_route=route)
 
     @property
     def n_atoms(self) -> int:

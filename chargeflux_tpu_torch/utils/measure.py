@@ -35,7 +35,8 @@ limit first.
 
 ``profile``: ms/step from CUDA events of the kernel path replayed as CUDA
 graphs (each rebuild chunk one replay), of the same run eagerly
-(``graph=False``) and of the plain path's replays (``plain=True``),
+(``graph=False``) and of the plain path's replays (the plain route,
+``with_kernel_route("plain")``, binning included),
 samples in the order graph, eager, plain, plain, eager, graph, each ten
 rebuild chunks from the same start state (the graphs are captured before
 the first sample), then the captured chunk alone, ten replays back to
@@ -389,7 +390,7 @@ def replicas_path(device, n_replicas: int = REPLICAS, recip=None) -> dict:
                                    device=device)}
 
 
-def replica_drive(path: dict, plain: bool = False):
+def replica_drive(path: dict):
     """(drive, owner) of bench.py's replicas step: ``drive(n_steps,
     graph=True)`` runs x <- x - DESCENT grad E for every replica of the
     path's batch, ``n_steps`` times, in chunks of
@@ -401,7 +402,7 @@ def replica_drive(path: dict, plain: bool = False):
     from ..parallel.replicas import (STEPS_PER_CHUNK, _forces,
                                      replica_energy_fn)
 
-    e_fn = replica_energy_fn(path["system"], plain=plain)
+    e_fn = replica_energy_fn(path["system"])
     x0 = path["x"]
     ones = torch.ones(x0.shape[1], dtype=x0.dtype, device=x0.device)
 
@@ -834,7 +835,7 @@ def langevin_drive(path: dict):
     from ..integrate import langevin_trajectory_nb, make_nb_energy_fn
 
     fns = {False: path["e_fns"], True: make_nb_energy_fn(
-        path["system"], bonded=path["bonded"], plain=True)}
+        path["system"].with_kernel_route("plain"), bonded=path["bonded"])}
 
     def drive(n_steps, graph=True, plain=False):
         return langevin_trajectory_nb(
@@ -853,11 +854,11 @@ def rbe_drive(system, state, rebuild_every, masses, bonded, generator,
     """:func:`nve_drive` of random batch Ewald NVT on a burned-in state:
     ``rbe_langevin_trajectory_nb`` at 0.5 fs, 300 K, friction 20/ps, p =
     ``n_samples`` k-vectors a step, drawing from ``generator``; records:
-    the kinetic energies.  ``plain`` runs the kernels' plain versions."""
+    the kinetic energies; ``plain``: over the plain route."""
     from ..rbe import make_rbe_nb_energy_fn, rbe_langevin_trajectory_nb
 
-    fns = {p: make_rbe_nb_energy_fn(system, n_samples, bonded=bonded,
-                                    plain=p) for p in (False, True)}
+    fns = {p: make_rbe_nb_energy_fn(s, n_samples, bonded=bonded) for p, s
+           in ((False, system), (True, system.with_kernel_route("plain")))}
 
     def drive(n_steps, graph=True, plain=False):
         return rbe_langevin_trajectory_nb(
@@ -872,8 +873,8 @@ def spme_langevin_drive(system, state, rebuild_every, masses, bonded,
     at the same dt, temperature and friction): the step RBE replaces."""
     from ..integrate import langevin_trajectory_nb, make_nb_energy_fn
 
-    fns = {p: make_nb_energy_fn(system, bonded=bonded, plain=p)
-           for p in (False, True)}
+    fns = {p: make_nb_energy_fn(s, bonded=bonded) for p, s in
+           ((False, system), (True, system.with_kernel_route("plain")))}
 
     def drive(n_steps, graph=True, plain=False):
         return langevin_trajectory_nb(
@@ -1422,12 +1423,12 @@ def union_length(intervals) -> float:
 def nve_drive(system, state, rebuild_every, masses, bonded):
     """(drive, owner, init_nb) of an NVE path: ``drive(n_steps, graph,
     plain)`` runs ``nve_trajectory_nb`` from ``state`` on the kernel path
-    or (``plain``) the plain path's; ``owner`` keeps the kernel path's
-    chunks."""
+    or (``plain``) over the system's copy on the plain route; ``owner``
+    keeps the kernel path's chunks."""
     from ..integrate import make_nb_energy_fn, nve_trajectory_nb
 
-    fns = {p: make_nb_energy_fn(system, bonded=bonded, plain=p)
-           for p in (False, True)}
+    fns = {p: make_nb_energy_fn(s, bonded=bonded) for p, s in
+           ((False, system), (True, system.with_kernel_route("plain")))}
 
     def drive(n_steps, graph=True, plain=False):
         return nve_trajectory_nb(state, *fns[plain], masses, DT_PS, n_steps,
@@ -1442,8 +1443,8 @@ def rigid_drive(path: dict):
     from ..constraints import rattle_langevin_trajectory_nb
     from ..integrate import make_nb_energy_fn
 
-    fns = {False: path["e_fns"], True: make_nb_energy_fn(path["system"],
-                                                         plain=True)}
+    fns = {False: path["e_fns"], True: make_nb_energy_fn(
+        path["system"].with_kernel_route("plain"))}
 
     def drive(n_steps, graph=True, plain=False):
         return rattle_langevin_trajectory_nb(
@@ -1461,7 +1462,7 @@ def respa_drive(path: dict):
     from ..integrate import make_respa_force_fns, respa_langevin_trajectory_nb
 
     fns = {False: path["fns"], True: make_respa_force_fns(
-        path["system"], path["bonded"], plain=True)}
+        path["system"].with_kernel_route("plain"), path["bonded"])}
 
     def drive(n_steps, graph=True, plain=False):
         slow_fn, fast_fn, init_nb = fns[plain]
@@ -1888,11 +1889,10 @@ def f64_control(system, state, rebuild_every, masses, bonded):
     from ..integrate import (init_state_nb, kinetic_energy, make_nb_energy_fn,
                              nve_trajectory_nb)
 
-    for label, dtype, plain in (("f32 kernel path", torch.float32, False),
-                                ("f64 plain path", torch.float64, True)):
+    for label, dtype in (("f32 kernel path", torch.float32),
+                         ("f64 plain path", torch.float64)):
         sys_ = system.astype(dtype)
-        e_fn, init_nb = make_nb_energy_fn(sys_, bonded=bonded.astype(dtype),
-                                          plain=plain)
+        e_fn, init_nb = make_nb_energy_fn(sys_, bonded=bonded.astype(dtype))
         m = masses.to(dtype)
         s0 = init_state_nb(state.positions.to(dtype),
                            state.velocities.to(dtype), e_fn, init_nb)
@@ -1934,10 +1934,8 @@ def thermo_windows(system, state, rebuild_every, masses, bonded, device):
                                                        "nhc")]
     runs += [(k, torch.float64, THERMO_F64_STEPS) for k in ("baoab", "csvr")]
     for kind, dtype, steps in runs:
-        plain = dtype == torch.float64
         sys_ = system.astype(dtype)
-        e_fn, init_nb = make_nb_energy_fn(sys_, bonded=bonded.astype(dtype),
-                                          plain=plain)
+        e_fn, init_nb = make_nb_energy_fn(sys_, bonded=bonded.astype(dtype))
         m = masses.to(dtype)
         s0 = init_state_nb(state.positions.to(dtype),
                            state.velocities.to(dtype), e_fn, init_nb)
@@ -1958,6 +1956,7 @@ def thermo_windows(system, state, rebuild_every, masses, bonded, device):
             raise RuntimeError(f"thermo {kind}: non-finite temperatures")
         means = [float(w.mean()) for w in temps.split(THERMO_WINDOW)]
         half = float(temps[steps // 2:].mean())
+        plain = dtype == torch.float64
         label = f"{kind} {'f64 plain' if plain else 'f32 kernels'}"
         out[label] = means
         print(f"thermo {label}: {steps} steps; mean T per "

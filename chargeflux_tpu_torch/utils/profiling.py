@@ -53,6 +53,15 @@ import time
 
 import torch
 
+from ..ops import native
+from ..ops.native import INT, INT_OUT, PTR
+
+native.declare(cf_stamp_limits=[INT_OUT] * 2,
+               cf_stage_stamp=[PTR, INT, INT, PTR, PTR],
+               cf_stamp_set_new=[PTR, PTR, INT, PTR, PTR],
+               cf_stamp_set_launch=[PTR, PTR])
+native.declare(restype=None, cf_stamp_set_free=[PTR])
+
 #: The stages :func:`stage_ms` reads: the energy's phases, the chunk
 #: head's neighbor rebuild, and ``replay``, the first and last node of each
 #: chunk graph.
@@ -88,8 +97,6 @@ class _Buffer:
         self.on = False
         self.session = -1
         if self.cuda:
-            from ..ops import native
-
             built = native.limits("cf_stamp_limits")
             if built != (SLOTS, len(TIMED)):
                 raise RuntimeError(f"stage_stamp.cu has {built} (slots, "
@@ -113,8 +120,6 @@ class _Buffer:
 
     def stamp(self, slot: int, open_: bool):
         if self.cuda:
-            from ..ops import native
-
             capturing = torch.cuda.is_current_stream_capturing()
             node = ctypes.c_void_p() if capturing else None
             native.check(native.library().cf_stage_stamp(
@@ -217,8 +222,6 @@ class GraphStamps:
         with ``keep_graph=True``, with its stamps (for :meth:`launch`) and,
         as the graph's own, without them."""
         if self.nodes:
-            from ..ops import native
-
             lib = native.library()
             handle, bridged = ctypes.c_void_p(), ctypes.c_int()
             native.check(lib.cf_stamp_set_new(
@@ -244,8 +247,6 @@ class GraphStamps:
     def launch(self):
         """Launch the graph with its stamps on the current stream (as
         ``graph.replay()`` launches its own, generator states aside)."""
-        from ..ops import native
-
         native.check(self._launch(
             self._set, torch.cuda.current_stream(self.device).cuda_stream),
             "cf_stamp_set_launch")

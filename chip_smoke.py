@@ -52,9 +52,11 @@ in order:
    pair terms' magnitudes, the gradients within 1e-5 of their max), timed
    as in phase 3 beside their bound (no library call computes them);
 4. / 4b. energy_and_forces at the start positions of each path: kernel
-   path against the plain path in f32 and in f64 on the card, and the
-   f64 system on its own route (it records the plain versions when it is
-   built) against plain f64 within 1e-12;
+   path against the plain path (the system's copy on the plain route) in
+   f32 and in f64 on the card, and the f64 system on its own route (it
+   records the plain versions when it is built) against plain f64 within
+   1e-12; the plain copy's neighbor rebuild and one evaluation with it
+   launch no kernel;
 5. the 30k path: 240 burn-in steps on a capacity-1.35 twin (velocities
    rescaled to 300 K per rebuild chunk), capacity re-provisioned from the
    measured occupancy; the walk kernel once more against its plain
@@ -603,12 +605,20 @@ def check_energy(system, x, phase):
     """Phase 4 / 4b: kernel path vs plain path (f32) and plain f64."""
     import torch
 
+    from chargeflux_tpu_torch import ops
     from chargeflux_tpu_torch.energy import energy_and_forces, energy_components
+    from chargeflux_tpu_torch.integrate import make_nb_energy_fn
 
     e_k, f_k = energy_and_forces(x, system)
-    e_p, f_p = energy_and_forces(x, system, plain=True)
+    # the plain copy's rebuild and one evaluation: no kernel launched
+    e_fn, init_nb = make_nb_energy_fn(system.with_kernel_route("plain"))
+    ops.reset_launch_counts()
+    e_p, f_p, _ = e_fn(x, init_nb(x))
+    torch.cuda.synchronize()
+    plain_launches = {k: v for k, v in ops.launch_counts().items() if v}
     sys_64 = system.astype(torch.float64)
-    e_64, f_64 = energy_and_forces(x.double(), sys_64, plain=True)
+    e_64, f_64 = energy_and_forces(x.double(),
+                                   sys_64.with_kernel_route("plain"))
     # the f64 system on its own route: built in f64, it records the plain
     # versions (the kernels are f32 only)
     e_64g, f_64g = energy_and_forces(x.double(), sys_64)
@@ -616,8 +626,7 @@ def check_energy(system, x, phase):
                  float((f_64g - f_64).abs().max() / f_64.abs().max()))
     with torch.no_grad():
         scale = sum(abs(float(v)) for v in
-                    energy_components(x.double(), system.astype(torch.float64),
-                                      plain=True).values())
+                    energy_components(x.double(), sys_64).values())
 
     def rms_rel(f, ref):
         return float(torch.sqrt(torch.mean((f.double() - ref.double()) ** 2))
@@ -631,7 +640,10 @@ def check_energy(system, x, phase):
           f"|dE|/sum|E_c|: vs plain {d_p:.3e} vs f64 {d_64:.3e}; "
           f"force rms rel: vs plain {fr_p:.3e} vs f64 {fr_64:.3e}; f64 "
           f"system on its route ({sys_64.kernel_route}) vs plain f64 "
-          f"{d_gate:.3e}", flush=True)
+          f"{d_gate:.3e}; plain copy's rebuild + evaluation launched "
+          f"{plain_launches or 'no kernel'}", flush=True)
+    if plain_launches:
+        fail("the plain copy launched kernels")
     if not (torch.isfinite(f_k).all() and math.isfinite(float(e_k))):
         fail("non-finite energy or forces at the start positions")
     if d_p > 1e-5 or fr_p > 1e-4 or fr_64 > 1e-4 or d_64 > 1e-5:

@@ -235,9 +235,9 @@ def test_the_kernel_route_is_taken_only_where_the_kernels_apply(
         monkeypatch):
     """Template blocks go to ``ops.exclusion.template_exclusion_energy``
     only on the kernel route with a [3] box that does not require grad and
-    no replica axes, once per template; ``plain=True`` never; every case
-    equals the chain before bit for bit; no launch is counted on the
-    CPU."""
+    no replica axes, once per template; the system's copy on the plain
+    route never; every case equals the chain before bit for bit; no
+    launch is counted on the CPU."""
     calls = []
 
     def spy(*args, **kw):
@@ -246,12 +246,13 @@ def test_the_kernel_route_is_taken_only_where_the_kernels_apply(
 
     monkeypatch.setattr(energy, "template_exclusion_energy", spy)
     ops.reset_launch_counts()
-    for name, system, x, q, kernel in _route_cases():
+    for name, kern, x, q, kernel in _route_cases():
         for plain in (False, True):
+            system = kern.with_kernel_route("plain") if plain else kern
             calls.clear()
-            assert energy._excl_kernel_route(x, system, plain) == (
+            assert energy._excl_kernel_route(x, system) == (
                 kernel and not plain), name
-            e = energy._exclusion_correction(x, q, system, True, plain=plain)
+            e = energy._exclusion_correction(x, q, system, True)
             n_tpl = len(system.spec.excl_template.templates)
             assert len(calls) == (n_tpl if kernel and not plain else 0), name
             assert torch.equal(e, _chain_before(x, q, system, True)), name

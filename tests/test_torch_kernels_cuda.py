@@ -60,6 +60,11 @@ def _max_rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+def _on_route(system, plain):
+    """``system``, or with ``plain`` its copy on the plain route."""
+    return system.with_kernel_route("plain") if plain else system
+
+
 def test_spread_kernels_match_plain_and_repeat_bitwise(setup):
     s = setup
     args = pme.column_spread_inputs(s["blocks"], s["ids"], s["system"])
@@ -136,7 +141,8 @@ def test_patch_weights_kernels_on_a_sheared_lattice(tri_setup):
     """The fractional coordinates against ones: the kernels against the
     plain version on the sheared box (weights 1e-6 absolute, gradients
     2e-5 of their max), and the cell route's reciprocal energy and its
-    gradients through the fractional transform against plain=True."""
+    gradients through the fractional transform against the plain
+    route."""
     s = tri_setup
     args, cts = patch_weight_inputs(s["blocks"], s["ids"], s["system"])
     for u, w in zip(pw.patch_weights_fwd(*args),
@@ -151,7 +157,7 @@ def test_patch_weights_kernels_on_a_sheared_lattice(tri_setup):
                   for f in ("x", "y", "z", "q")]
         e = pme.pme_cell_column_reciprocal_energy(
             cells.CellBlocks(*leaves, s["blocks"].hs, s["blocks"].se),
-            s["ids"], s["system"], plain=plain)
+            s["ids"], _on_route(s["system"], plain))
         grads.append((e, torch.autograd.grad(e, leaves)))
     (e_k, g_k), (e_p, g_p) = grads
     assert abs(float(e_k - e_p)) <= 1e-5 * abs(float(e_p))
@@ -161,14 +167,14 @@ def test_patch_weights_kernels_on_a_sheared_lattice(tri_setup):
 
 def test_an_evaluation_launches_the_weights_once_each_way(setup):
     """energy_and_forces on the kernel route: one forward and one backward
-    weights launch; plain=True none."""
+    weights launch; its copy on the plain route none."""
     s = setup
     ops.reset_launch_counts()
     energy_and_forces(s["x"], s["system"])
     counts = ops.launch_counts()
     assert (counts["patch_weights_fwd"], counts["patch_weights_bwd"]) == (1, 1)
     ops.reset_launch_counts()
-    energy_and_forces(s["x"], s["system"], plain=True)
+    energy_and_forces(s["x"], s["system"].with_kernel_route("plain"))
     assert not any(ops.launch_counts().values())
 
 
@@ -317,10 +323,11 @@ def test_an_evaluation_launches_the_exclusion_kernels_once_each_way(
         setup, excl_boxes, monkeypatch):
     """energy_and_forces on the kernel route: one forward and one backward
     exclusion launch per template (the water box has one; hetero30k's
-    chain rows take the plain remainder path); plain=True none.  On
+    chain rows take the plain remainder path); its plain copy none.  On
     hetero30k, against the same route with the exclusions' plain chain:
     |dE| <= 1e-6 of the components' magnitudes, force RMS <= 1e-5
-    relative (the other kernels against plain=True: 1e-5 and 1e-4)."""
+    relative (the other kernels against the plain route: 1e-5 and
+    1e-4)."""
     s = setup
     ops.reset_launch_counts()
     energy_and_forces(s["x"], s["system"])
@@ -334,7 +341,7 @@ def test_an_evaluation_launches_the_exclusion_kernels_once_each_way(
     assert (counts["exclusion_fwd"], counts["exclusion_bwd"]) == (n_tpl,
                                                                   n_tpl)
     ops.reset_launch_counts()
-    e_p, f_p = energy_and_forces(x, system, plain=True)
+    e_p, f_p = energy_and_forces(x, system.with_kernel_route("plain"))
     assert not any(ops.launch_counts().values())
     energy_module = importlib.import_module("chargeflux_tpu_torch.energy")
     monkeypatch.setattr(energy_module, "_excl_kernel_route",
@@ -342,7 +349,7 @@ def test_an_evaluation_launches_the_exclusion_kernels_once_each_way(
     e_c, f_c = energy_and_forces(x, system)
     with torch.no_grad():
         scale = sum(abs(float(v)) for v in energy_components(
-            x, system, plain=True).values())
+            x, system.with_kernel_route("plain")).values())
     for e, f, e_tol, f_tol in ((e_c, f_c, 1e-6, 1e-5),
                                (e_p, f_p, 1e-5, 1e-4)):
         assert abs(float(e_k - e)) <= e_tol * scale
@@ -607,13 +614,51 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(setup):
 def test_energy_and_forces_kernel_path_matches_plain(setup):
     s = setup
     e_k, f_k = energy_and_forces(s["x"], s["system"])
-    e_p, f_p = energy_and_forces(s["x"], s["system"], plain=True)
+    e_p, f_p = energy_and_forces(s["x"],
+                                 s["system"].with_kernel_route("plain"))
     assert torch.isfinite(f_k).all()
     rms = torch.sqrt(torch.mean((f_k - f_p) ** 2) / torch.mean(f_p ** 2))
     assert float(rms) <= 1e-4
     with torch.no_grad():
         scale = sum(abs(float(v)) for v in energy_components(
-            s["x"], s["system"], plain=True).values())
+            s["x"], s["system"].with_kernel_route("plain")).values())
+    assert abs(float(e_k - e_p)) <= 1e-5 * scale
+
+
+def test_the_plain_copy_launches_no_kernel():
+    """bench.py's 30k system in f32 and its copy from
+    ``with_kernel_route("plain")``, each through ``make_nb_energy_fn``: the
+    system's ``init_nb`` launches the binning kernel alone and its
+    evaluation the walk, weights, spread and exclusion kernels; the
+    copy's ``init_nb`` and evaluation launch no kernel, the binning
+    included; energy and forces within phase 4's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from chargeflux_tpu_torch.integrate import make_nb_energy_fn
+
+    _f, x, _m, _b, bonded, system = bench_path("30k", torch.device("cuda", 0))
+    out = {}
+    for plain in (False, True):
+        e_fn, init_nb = make_nb_energy_fn(_on_route(system, plain),
+                                          bonded=bonded)
+        ops.reset_launch_counts()
+        nb = init_nb(x)
+        binned = ops.launch_counts()
+        e, f, _ = e_fn(x, nb)
+        torch.cuda.synchronize()
+        out[plain] = (binned, ops.launch_counts(), e, f)
+    binned, counts, e_k, f_k = out[False]
+    assert binned["cell_bin"] == 1 and sum(binned.values()) == 1
+    assert all(counts[k] >= 1 for k in (
+        "direct_walk", "patch_weights_fwd", "patch_weights_bwd",
+        "spread_fwd", "spread_bwd", "exclusion_fwd", "exclusion_bwd"))
+    binned, counts, e_p, f_p = out[True]
+    assert not any(counts.values())
+    rms = torch.sqrt(torch.mean((f_k - f_p) ** 2) / torch.mean(f_p ** 2))
+    assert float(rms) <= 1e-4
+    with torch.no_grad():
+        scale = sum(abs(float(v)) for v in energy_components(
+            x, system.with_kernel_route("plain")).values())
     assert abs(float(e_k - e_p)) <= 1e-5 * scale
 
 
@@ -890,13 +935,13 @@ def test_dense_path_kernel_route_matches_plain():
     counts = ops.launch_counts()
     assert all(counts[k] == 1 for k in ("sf_fwd", "sf_bwd_tables",
                                         "sf_bwd_zq"))
-    e_p, f_p = energy_and_forces(x, system, plain=True)
+    e_p, f_p = energy_and_forces(x, system.with_kernel_route("plain"))
     assert torch.isfinite(f_k).all()
     rms = torch.sqrt(torch.mean((f_k - f_p) ** 2) / torch.mean(f_p ** 2))
     assert float(rms) <= 1e-4
     with torch.no_grad():
         scale = sum(abs(float(v)) for v in energy_components(
-            x, system, plain=True).values())
+            x, system.with_kernel_route("plain")).values())
     assert abs(float(e_k - e_p)) <= 1e-5 * scale
 
 
@@ -904,7 +949,7 @@ def test_f64_on_the_card_takes_the_plain_versions(setup):
     """An f64 cell + SPME system on the card records the plain route when
     it is built (the f32 one the kernels'), so the walk and the spread run
     their plain versions (no kernel launches), and energy_and_forces
-    equals the plain=True path within 1e-12 relative."""
+    equals its plain copy within 1e-12 relative."""
     s = setup
     sys64 = s["system"].astype(torch.float64)
     assert s["system"].kernel_route == "cuda"
@@ -913,7 +958,7 @@ def test_f64_on_the_card_takes_the_plain_versions(setup):
     ops.reset_launch_counts()
     e, f = energy_and_forces(x, sys64)
     assert not any(ops.launch_counts().values())
-    e_p, f_p = energy_and_forces(x, sys64, plain=True)
+    e_p, f_p = energy_and_forces(x, sys64.with_kernel_route("plain"))
     assert torch.isfinite(f).all() and bool(torch.isfinite(e))
     assert abs(float(e - e_p)) <= 1e-12 * abs(float(e_p))
     assert float((f - f_p).abs().max()) <= 1e-12 * float(f_p.abs().max())
@@ -1472,7 +1517,8 @@ def test_tf32_switched_on_leaves_the_xla_route_at_ieee_f32():
                                  device=dev)
     x = torch.tensor(pos, dtype=torch.float32, device=dev)
     sys64 = system.astype(torch.float64)
-    e64, f64 = energy_and_forces(x.double(), sys64, plain=True)
+    e64, f64 = energy_and_forces(x.double(),
+                                 sys64.with_kernel_route("plain"))
     matmul = torch.backends.cuda.matmul
     try:
         torch.set_float32_matmul_precision("high")
@@ -1488,7 +1534,7 @@ def test_tf32_switched_on_leaves_the_xla_route_at_ieee_f32():
     assert float(rms) <= 1e-4
     with torch.no_grad():
         scale = sum(abs(float(v)) for v in energy_components(
-            x.double(), sys64, plain=True).values())
+            x.double(), sys64.with_kernel_route("plain")).values())
     assert abs(float(e32) - float(e64)) <= 1e-5 * scale
 
 
@@ -1561,9 +1607,9 @@ def test_triclinic_kernel_path_matches_plain_and_f64(tri_setup):
     sys64 = system.astype(torch.float64)
     with torch.no_grad():
         scale = sum(abs(float(v)) for v in energy_components(
-            x.double(), sys64, plain=True).values())
+            x.double(), sys64.with_kernel_route("plain")).values())
     for ref_sys, xx in ((system, x), (sys64, x.double())):
-        e_p, f_p = energy_and_forces(xx, ref_sys, plain=True)
+        e_p, f_p = energy_and_forces(xx, ref_sys.with_kernel_route("plain"))
         rms = torch.sqrt(torch.mean((f_k.double() - f_p.double()) ** 2)
                          / torch.mean(f_p.double() ** 2))
         assert float(rms) <= 1e-4
@@ -1783,7 +1829,7 @@ def test_kernels_agree_with_plain_after_replayed_volume_moves(
         assert abs(float(k[0] - p[0])) <= 1e-5 * abs(float(p[0]))
         assert _max_rel(k[1], p[1]) <= 1e-4 and _max_rel(k[2], p[2]) <= 1e-4
     e_k, f_k = energy_and_forces(x, moved)
-    e_p, f_p = energy_and_forces(x, moved, plain=True)
+    e_p, f_p = energy_and_forces(x, moved.with_kernel_route("plain"))
     assert abs(float(e_k - e_p)) <= 1e-5 * abs(float(e_p))
     assert _max_rel(f_k, f_p) <= 1e-3
 
@@ -1818,13 +1864,14 @@ def test_onramp_first_evaluation_kernel_route_matches_plain(tmp_path):
     assert bonded.torsion_idx.shape == (45, 4)
     ops.reset_launch_counts()
     e_k, e_p = _kernel_vs_plain(
-        lambda xx, plain: energy_and_forces(xx, system, plain=plain), x)
+        lambda xx, plain: energy_and_forces(xx, _on_route(system, plain)),
+        x)
     counts = ops.launch_counts()
     assert all(counts[k] >= 1 for k in ("direct_walk", "spread_fwd",
                                         "spread_bwd"))
     with torch.no_grad():
         scale = sum(abs(float(v)) for v in energy_components(
-            x, system, plain=True).values())
+            x, system.with_kernel_route("plain")).values())
     assert abs(float(e_k - e_p)) <= 1e-5 * scale
     assert bool(torch.isfinite(bonded_energy(x, bonded)))
 
@@ -1838,7 +1885,7 @@ def test_rbe_energy_function_kernel_route_matches_plain(setup):
 
     s = setup
     dev = s["x"].device
-    fns = {p: make_rbe_nb_energy_fn(s["system"], 64, plain=p)[0]
+    fns = {p: make_rbe_nb_energy_fn(_on_route(s["system"], p), 64)[0]
            for p in (False, True)}
     nb = build_neighbor_state(s["x"], s["system"])
     gen = torch.Generator(dev)

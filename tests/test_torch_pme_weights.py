@@ -116,7 +116,7 @@ def test_plain_weights_are_the_chain_they_replaced(lattice, dtype):
     """The plain version's four outputs bit for bit the chain's, and the
     offsets and padded mesh of ``column_spread_inputs`` as before."""
     system, b, ids = _blocks(lattice, DTYPES[dtype])
-    ins = pme.column_spread_inputs(b, ids, system, plain=True)
+    ins = pme.column_spread_inputs(b, ids, system)
     for got, want in zip(ins[:4], _chain(b, ids, system)):
         assert got.dtype == want.dtype and got.shape == want.shape
         assert got.is_contiguous()
@@ -144,7 +144,7 @@ def test_hand_backward_matches_autograd_through_the_chain(lattice, dtype):
     system, b, ids = _blocks(lattice, DTYPES[dtype])
     tol = 1e-10 if dtype == "f64" else 1e-5
     leaves, lb = _leaves(b)
-    ins = pme.column_spread_inputs(lb, ids, system, plain=True)
+    ins = pme.column_spread_inputs(lb, ids, system)
     cts = _cotangents(ins, 1)
     hand = torch.autograd.grad(ins[:3], leaves, cts)
     leaves, lb = _leaves(b)
@@ -159,7 +159,7 @@ def test_other_orders_match_the_chain(order):
     1e-10 of its max."""
     system, b, ids = _blocks("ortho", torch.float64, order)
     leaves, lb = _leaves(b)
-    ins = pme.column_spread_inputs(lb, ids, system, plain=True)
+    ins = pme.column_spread_inputs(lb, ids, system)
     assert ins[2].shape[1] == order
     leaves_c, lc = _leaves(b)
     chain = _chain(lc, ids, system)
@@ -180,14 +180,14 @@ def test_sentinel_slots_weigh_nothing_and_take_no_gradient(lattice):
     system, b, ids = _blocks(lattice, torch.float64)
     sentinel = ids >= system.n_atoms
     leaves, lb = _leaves(b)
-    ins = pme.column_spread_inputs(lb, ids, system, plain=True)
+    ins = pme.column_spread_inputs(lb, ids, system)
     n_col, wx, rows = ins[0].shape
     qw = ins[0].detach().reshape(*b.x.shape[:2], wx, *b.x.shape[2:])
     assert bool((qw.permute(0, 1, 3, 4, 2)[sentinel] == 0).all())
     g = torch.autograd.grad(ins[:3], leaves, _cotangents(ins, 3))
     assert bool((g[0][sentinel] == 0).all() and (g[3][sentinel] == 0).all())
     leaves, lb = _leaves(b)
-    e = pme.pme_cell_column_reciprocal_energy(lb, ids, system, plain=True)
+    e = pme.pme_cell_column_reciprocal_energy(lb, ids, system)
     for f, g in zip("xyzq", torch.autograd.grad(e, leaves)):
         assert bool((g[sentinel] == 0).all()), f
         assert bool((g[~sentinel] != 0).any()), f
@@ -202,7 +202,7 @@ def test_a_non_finite_coordinate_poisons_its_taps():
     x = b.x.clone()
     x[s] = float("nan")
     bad = cells.CellBlocks(x, *b[1:])
-    qwlxt = pme.column_spread_inputs(bad, ids, system, plain=True)[0]
+    qwlxt = pme.column_spread_inputs(bad, ids, system)[0]
     ngz, cap = b.x.shape[2:]
     col, row = s[0] * b.x.shape[1] + s[1], s[2] * cap + s[3]
     assert bool(torch.isnan(qwlxt[col, :, row]).all())
@@ -210,7 +210,7 @@ def test_a_non_finite_coordinate_poisons_its_taps():
     others[col, :, row] = False
     assert bool(torch.isfinite(qwlxt[others]).all())
     assert torch.isnan(pme.pme_cell_column_reciprocal_energy(
-        bad, ids, system, plain=True))
+        bad, ids, system))
 
 
 def test_the_kernels_refuse_what_they_do_not_take(monkeypatch):

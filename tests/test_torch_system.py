@@ -2,6 +2,7 @@
 held to the JAX package (chargeflux_tpu is the reference)."""
 
 import dataclasses
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -238,3 +239,82 @@ def test_cpu_wrappers_take_the_plain_path():
                                    "patch_weights_bwd": 0,
                                    "exclusion_fwd": 0, "exclusion_bwd": 0}
     assert jax.devices()[0].platform == "cpu"
+
+
+def test_the_system_route_decides_every_kernel_entry(monkeypatch):
+    """``make_nb_energy_fn``'s ``init_nb`` and one evaluation over a system
+    on the kernel route (forced to "cuda" through ``_swap``; recorders in
+    place of the kernel entries run the plain versions) send the binning,
+    walk, weights, spread and exclusions to the kernel entries; over its
+    ``with_kernel_route("plain")`` copy every one goes to the plain
+    versions, the binning included.  No launch is counted, and the copy
+    shares the system's tensors.  ``with_kernel_route("cuda")`` refuses a
+    system on the CPU, in f32 and in f64."""
+    from chargeflux_tpu_torch import pme
+    from chargeflux_tpu_torch.integrate import make_nb_energy_fn
+    from chargeflux_tpu_torch.ops import cell_bin as cb
+    from chargeflux_tpu_torch.ops import direct_walk as dw
+    from chargeflux_tpu_torch.ops import exclusion as ex
+
+    # the module (the package exports a function of the same name)
+    energy = importlib.import_module("chargeflux_tpu_torch.energy")
+    calls = []
+
+    def recorder(stage, route, plain_fn):
+        def entry(*args, **kw):
+            calls.append((stage, route))
+            return plain_fn(*args, **kw)
+        return entry
+
+    def flag_recorder(stage, wrapper):
+        def entry(*args, plain):
+            calls.append((stage, "plain" if plain else "kernel"))
+            return wrapper(*args, plain=True)
+        return entry
+
+    for module, name, stage, route, plain_fn in (
+            (cells, "cell_bin", "binning", "kernel", cb.cell_bin_plain),
+            (cells, "cell_bin_plain", "binning", "plain", cb.cell_bin_plain),
+            (cells, "direct_walk", "walk", "kernel", dw.direct_walk_plain),
+            (cells, "direct_walk_plain", "walk", "plain",
+             dw.direct_walk_plain),
+            (energy, "template_exclusion_energy", "exclusions", "kernel",
+             ex.exclusion_fwd_plain),
+            (energy, "exclusion_fwd_plain", "exclusions", "plain",
+             ex.exclusion_fwd_plain)):
+        monkeypatch.setattr(module, name, recorder(stage, route, plain_fn))
+    monkeypatch.setattr(pme, "patch_weights",
+                        flag_recorder("weights", pme.patch_weights))
+    monkeypatch.setattr(pme, "spread_columns",
+                        flag_recorder("spread", pme.spread_columns))
+
+    force, pos, _, box = water_box(n_side=7, cutoff=0.65)
+    system = force.create_system(box=box, dtype=torch.float32, device="cpu",
+                                 direct_method="cell", recip_method="pme")
+    assert system.kernel_route == "plain" and not system.uses_kernels
+    kern = system._swap(kernel_route="cuda")
+    x = torch.as_tensor(pos, dtype=torch.float32)
+    ops.reset_launch_counts()
+    out = {}
+    for route, sys_ in (("kernel", kern),
+                        ("plain", kern.with_kernel_route("plain"))):
+        calls.clear()
+        e_fn, init_nb = make_nb_energy_fn(sys_)
+        nb = init_nb(x)
+        assert calls == [("binning", route)]
+        out[route] = e_fn(x, nb)[:2]
+        assert sorted(calls) == sorted(
+            (stage, route) for stage in ("binning", "walk", "weights",
+                                         "spread", "exclusions")), calls
+    assert not any(ops.launch_counts().values())
+    for u, v in zip(out["kernel"], out["plain"]):
+        assert torch.allclose(u, v, rtol=1e-6, atol=1e-6 * float(
+            v.abs().max()))
+    copy = kern.with_kernel_route("plain")
+    assert copy.box is kern.box and copy.q0 is kern.q0
+    assert copy.with_box(box).kernel_route == "plain"
+    for sys_ in (system, system.astype(torch.float64)):
+        with pytest.raises(ValueError, match="for an f32 system on the CUDA card"):
+            sys_.with_kernel_route("cuda")
+    with pytest.raises(ValueError, match="kernel route 'triton'"):
+        system.with_kernel_route("triton")
