@@ -3,10 +3,16 @@ bonds and angles, E = 0.5 k (r - r0)^2 + 0.5 k (theta - theta0)^2,
 periodic torsions, E = k (1 + cos(n phi - phi0)) (OpenMM's
 PeriodicTorsionForce), and harmonic and flat-bottom position restraints.
 
-Templated molecule blocks evaluate on [count, stride, 3] reshapes with
-static slices; remainder bond and angle rows and every torsion row take
-one gather, whose backward sums in the fixed order of ``BondedParams.plan``
-(deterministic on the card).
+Templated molecule blocks take one CUDA kernel each way per template
+(``ops.bonded_terms``) where :func:`_kernel_route` allows, else their
+plain chain on [count, stride, 3] reshapes with static slices; remainder
+bond and angle rows and every torsion row take one gather, whose backward
+sums in the fixed order of ``BondedParams.plan`` (deterministic on the
+card).  ``BondedParams`` records its ``kernel_route`` as a system does:
+"cuda" for f32 on the card, else "plain"; the energy-function builders
+that hold a system put it on the system's route (:func:`follow_route`), so
+``system.with_kernel_route("plain")`` is the plain control of the whole
+energy.
 """
 
 from __future__ import annotations
@@ -18,26 +24,12 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .ops.bonded_terms import (_angle_e, _bond_e, bonded_fwd_plain,
+                               template_bonded_energy)
 from .pairs import displacement
 from .rows import RowPlan, gather_planned, row_plan
 from .topology import TemplateSet, detect_templates
 from .utils.profiling import phase_scope
-
-
-def _bond_e(p1, p2, k, r0, box, pbc):
-    d = displacement(p1, p2, box, pbc)
-    r = torch.sqrt(torch.sum(d * d, dim=-1))
-    return 0.5 * torch.sum(k * (r - r0) ** 2, dim=-1)
-
-
-def _angle_e(p1, p2, p3, k, theta0, box, pbc):
-    d21 = displacement(p2, p1, box, pbc)
-    d23 = displacement(p2, p3, box, pbc)
-    r21 = torch.sqrt(torch.sum(d21 * d21, dim=-1))
-    r23 = torch.sqrt(torch.sum(d23 * d23, dim=-1))
-    cost = torch.sum(d21 * d23, dim=-1) / (r21 * r23)
-    theta = torch.arccos(torch.clamp(cost, -1.0, 1.0))
-    return 0.5 * torch.sum(k * (theta - theta0) ** 2, dim=-1)
 
 
 def _torsion_e(p0, p1, p2, p3, k, n, phi0, box, pbc):
@@ -104,6 +96,10 @@ class BondedParams:
     # remainder angles, then torsions), made once at construction; None
     # when there are none
     plan: Optional[RowPlan] = dataclasses.field(init=False, compare=False)
+    # "cuda" (the templated rows' kernels, f32 only) for f32 on the card,
+    # else "plain", as ChargeFluxSystem records its own; see
+    # with_kernel_route
+    kernel_route: str = dataclasses.field(init=False, compare=False)
 
     def __post_init__(self):
         rows = []
@@ -117,6 +113,38 @@ class BondedParams:
         flat = np.concatenate(rows)
         object.__setattr__(self, "plan", row_plan(
             flat, self.bond_idx.device) if flat.size else None)
+        object.__setattr__(self, "kernel_route", "cuda" if (
+            self.bond_k.device.type == "cuda"
+            and self.bond_k.dtype == torch.float32) else "plain")
+
+    @property
+    def uses_kernels(self) -> bool:
+        """Whether the templated rows may take the kernels: the route's
+        one reader."""
+        return self.kernel_route == "cuda"
+
+    def with_kernel_route(self, route: str) -> "BondedParams":
+        """The same terms on ``route``: "plain" (the plain chain on any
+        device) or "cuda" (the kernels: f32 on the card only).  A copy like
+        :meth:`with_box`'s: capture-safe; ``self`` where the route is
+        already ``route``."""
+        k = self.bond_k
+        if route not in ("cuda", "plain") or route == "cuda" and not (
+                k.device.type == "cuda" and k.dtype == torch.float32):
+            raise ValueError(f"kernel route {route!r}: 'plain', or 'cuda' "
+                             f"for f32 bonded terms on the CUDA card, not "
+                             f"{k.dtype} on {k.device}")
+        return self if route == self.kernel_route else self._swap(
+            kernel_route=route)
+
+    def _swap(self, **fields) -> "BondedParams":
+        """A shallow copy with ``fields`` replaced: the row plan and the
+        kernel route are carried over as they are."""
+        new = object.__new__(type(self))
+        for f in dataclasses.fields(self):
+            object.__setattr__(new, f.name, fields.get(f.name,
+                                                       getattr(self, f.name)))
+        return new
 
     @classmethod
     def create(cls, bond_idx, bond_k, bond_r0, angle_idx, angle_k,
@@ -166,21 +194,39 @@ class BondedParams:
     def with_box(self, box: torch.Tensor) -> "BondedParams":
         """The same terms with the box tensor ``box`` (the JAX package's
         ``dataclasses.replace(bonded, box=...)``): a shallow copy that
-        keeps the row plan, so it makes no host traffic and may be made
-        inside a CUDA graph capture."""
-        new = object.__new__(type(self))
-        for f in dataclasses.fields(self):
-            object.__setattr__(new, f.name, getattr(self, f.name))
-        object.__setattr__(new, "box", box.to(self.box.dtype))
-        return new
+        keeps the row plan and the kernel route, so it makes no host traffic
+        and may be made inside a CUDA graph capture."""
+        return self._swap(box=box.to(self.box.dtype))
 
     def astype(self, dtype) -> "BondedParams":
-        """Cast the float tensors to ``dtype`` (index tensors untouched)."""
+        """Cast the float tensors to ``dtype`` (index tensors untouched);
+        the cast terms record their own ``kernel_route``."""
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(dtype)
             for f in dataclasses.fields(self)
             if f.init and torch.is_tensor(getattr(self, f.name))
             and getattr(self, f.name).is_floating_point()})
+
+
+def follow_route(bonded, system):
+    """``bonded`` (or None) on ``system``'s kernel route, as the
+    energy-function builders hold it: its copy on the plain route where the
+    system is on that route, else ``bonded`` as it is."""
+    if bonded is None or system.uses_kernels:
+        return bonded
+    return bonded.with_kernel_route("plain")
+
+
+def _kernel_route(positions, bonded: BondedParams) -> bool:
+    """Whether the templated rows take the kernels
+    (``ops.bonded_terms``): the terms on the kernel route (f32 on the
+    card), an orthorhombic box [3] that does not require grad (or no
+    periodicity, where the box is not read), and positions with no leading
+    replica axes.  Everything else runs the plain chain."""
+    box = bonded.box
+    return (bonded.uses_kernels and positions.ndim == 2
+            and (not bonded.pbc
+                 or (box.ndim == 1 and not box.requires_grad)))
 
 
 def bonded_energy(positions: torch.Tensor,
@@ -196,32 +242,25 @@ def bonded_energy(positions: torch.Tensor,
 def _bonded_terms(positions: torch.Tensor,
                   bonded: BondedParams) -> torch.Tensor:
     box, pbc = bonded.box, bonded.pbc
-    e = torch.zeros((), dtype=positions.dtype, device=positions.device)
-    lead = positions.shape[:-2]
+    kernel = _kernel_route(positions, bonded)
+    # the kernel route adds the templates' energies as they come (no zeros
+    # node); the plain chain keeps its order from zero, bit for bit
+    e = None if kernel else torch.zeros((), dtype=positions.dtype,
+                                        device=positions.device)
     b0 = a0 = 0
     if bonded.template is not None:
         for tpl in bonded.template.templates:
-            off, s, c = tpl.offset, tpl.stride, tpl.count
-            pos_m = positions[..., off:off + c * s, :].reshape(
-                lead + (c, s, 3))
-            p = [pos_m[..., l, :] for l in range(s)]
-            rows = tpl.local_rows("bonds")
-            if rows:
-                m = len(rows)
-                k = bonded.bond_k[b0:b0 + c * m].reshape(c, m)
-                r0 = bonded.bond_r0[b0:b0 + c * m].reshape(c, m)
-                b0 += c * m
-                for t, (l1, l2) in enumerate(rows):
-                    e = e + _bond_e(p[l1], p[l2], k[:, t], r0[:, t], box, pbc)
-            rows = tpl.local_rows("angles")
-            if rows:
-                m = len(rows)
-                k = bonded.angle_k[a0:a0 + c * m].reshape(c, m)
-                t0 = bonded.angle_theta0[a0:a0 + c * m].reshape(c, m)
-                a0 += c * m
-                for t, (l1, l2, l3) in enumerate(rows):
-                    e = e + _angle_e(p[l1], p[l2], p[l3], k[:, t], t0[:, t],
-                                     box, pbc)
+            args = (bonded.bond_k, bonded.bond_r0, bonded.angle_k,
+                    bonded.angle_theta0, box, tpl, b0, a0, pbc)
+            if not kernel:
+                e = bonded_fwd_plain(positions, *args, total=e)
+            else:
+                t = template_bonded_energy(positions, *args)
+                e = t if e is None else e + t
+            b0 += tpl.count * len(tpl.local_rows("bonds"))
+            a0 += tpl.count * len(tpl.local_rows("angles"))
+    if e is None:
+        e = torch.zeros((), dtype=positions.dtype, device=positions.device)
     n_b = bonded.bond_idx.shape[0] - b0
     n_a = bonded.angle_idx.shape[0] - a0
     n_t = 0 if bonded.torsion_idx is None else bonded.torsion_idx.shape[0]

@@ -77,7 +77,7 @@ import time
 import torch
 
 from . import ops
-from .bonded import bonded_energy
+from .bonded import bonded_energy, follow_route
 from .device import device_key, resolve_device
 from .energy import _energy
 from .neighbors import NeighborState, build_neighbor_state, neighbor_state_fresh
@@ -180,7 +180,9 @@ def _energy_and_forces(energy_fn, x):
 
 def make_energy_fn(system, bonded=None):
     """Charge-flux electrostatics (plus the optional bonded terms) as
-    ``energy_fn(positions) -> scalar``, on the system's kernel route."""
+    ``energy_fn(positions) -> scalar``, on the system's kernel route (the
+    bonded terms' too: ``bonded.follow_route``)."""
+    bonded = follow_route(bonded, system)
 
     def e_fn(x):
         e = _energy(x, system)
@@ -219,8 +221,10 @@ def make_nb_energy_fn(system, bonded=None):
     the optional bonded terms), ``init_nb(x)`` rebuilds one.  A stale state
     poisons energy and forces to NaN.  On the dense route there is nothing
     to reuse: ``init_nb`` returns ``None`` and no guard applies.  Both
-    run on the system's kernel route, the binning included."""
+    run on the system's kernel route, the binning and the bonded terms
+    included."""
     has_cells = system.spec.direct_method == "cell"
+    bonded = follow_route(bonded, system)
 
     def init_nb(x):
         return build_neighbor_state(x, system) if has_cells else None
@@ -764,8 +768,9 @@ def make_respa_force_fns(system, bonded):
     tier with neighbor-state reuse and the freshness guard of
     :func:`make_nb_energy_fn`, evaluated once per outer step; ``fast_fn(x)
     -> (energy, forces)`` is the harmonic bonded tier, evaluated every
-    inner substep."""
+    inner substep; both on the system's kernel route."""
     slow_fn, init_nb = make_nb_energy_fn(system, bonded=None)
+    bonded = follow_route(bonded, system)
 
     def fast_fn(x):
         return _energy_and_forces(lambda xx: bonded_energy(xx, bonded), x)

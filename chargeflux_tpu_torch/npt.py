@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from . import integrate
-from .bonded import bonded_energy
+from .bonded import bonded_energy, follow_route
 from .cells import blockify, build_cell_list_full
 from .charges import effective_charges
 from .constraints import project_velocities
@@ -283,9 +283,11 @@ def _molecules_for(system, extra, dtype) -> Molecules:
 
 
 def _views(system, bonded, box):
-    """The system and the bonded terms at ``box`` (shallow copies)."""
+    """The system and the bonded terms at ``box`` (shallow copies), the
+    bonded terms on the system's kernel route."""
     return (system.with_box(box),
-            None if bonded is None else bonded.with_box(box))
+            None if bonded is None else follow_route(bonded,
+                                                     system).with_box(box))
 
 
 def _potential(x, sb, bb, energy_fn=None, nb=None):

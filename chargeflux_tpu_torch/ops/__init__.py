@@ -4,15 +4,16 @@ version: ``pme_spread`` (counterpart of ``chargeflux_tpu.ops.pallas_pme``),
 ``direct_walk`` (of the JAX package's fused cell walk), ``cell_bin`` (of
 its cell binning), ``pme_weights`` (of the B-spline patch weights that XLA
 fuses), ``exclusion`` (of the templated exclusion rows that XLA fuses),
-and ``native``, which builds and loads them."""
+``bonded_terms`` (of the templated bonds and angles that XLA fuses), and
+``native``, which builds and loads them."""
 
 import contextlib
 
-from . import (cell_bin, direct_walk, exclusion, pme_spread, pme_weights,
-               structure_factor)
+from . import (bonded_terms, cell_bin, direct_walk, exclusion, pme_spread,
+               pme_weights, structure_factor)
 
 _MODULES = (pme_spread, direct_walk, structure_factor, cell_bin, pme_weights,
-            exclusion)
+            exclusion, bonded_terms)
 _TABLES = tuple(m.LAUNCHES for m in _MODULES)
 
 #: Per launch counter, the kernel its wrapper launches once per call, as a

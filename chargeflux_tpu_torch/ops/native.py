@@ -24,7 +24,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("pme_spread.cu", "direct_walk.cu", "structure_factor.cu",
            "cell_bin.cu", "stage_stamp.cu", "bspline_patch.cu",
-           "exclusion_pairs.cu")
+           "exclusion_pairs.cu", "bonded_terms.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -31,7 +31,7 @@ import dataclasses
 
 import torch
 
-from ..bonded import bonded_energy
+from ..bonded import bonded_energy, follow_route
 from ..energy import _energy, resolve_recip_method
 from ..integrate import (MDState, Chunk, _check_generator, _chunk_getter,
                          _require_steps, _run_chunks, baoab_coeffs,
@@ -81,7 +81,8 @@ def replica_energy_fn(system, bonded=None):
     """``energy_fn(x [R, N, 3]) -> [R]``: charge-flux electrostatics plus
     the optional bonded terms of every replica, in one pass where
     :func:`batched_route` holds, else one single-system evaluation per
-    replica."""
+    replica; the bonded terms on the system's kernel route."""
+    bonded = follow_route(bonded, system)
 
     def single(x):
         e = _energy(x, system)

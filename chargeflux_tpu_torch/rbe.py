@@ -190,8 +190,9 @@ def make_rbe_nb_energy_fn(system, n_samples: int, bonded=None,
     reciprocal term is the random-batch estimator drawn from
     ``generator``; self, direct, exclusion, flux charges, the poisons and
     the freshness guard are unchanged.  Requires a periodic orthorhombic
-    system; its box is read on the host here, once."""
-    from .bonded import bonded_energy
+    system; its box is read on the host here, once.  The bonded terms run
+    on the system's kernel route."""
+    from .bonded import bonded_energy, follow_route
     from .charges import effective_charges
     from .energy import energy_components_fixed_charges
     from .integrate import _energy_and_forces
@@ -204,6 +205,7 @@ def make_rbe_nb_energy_fn(system, n_samples: int, bonded=None,
                          "system must be periodic")
     tables = rbe_tables(system.box, spec.alpha)
     has_cells = spec.direct_method == "cell"
+    bonded = follow_route(bonded, system)
 
     def init_nb(x):
         return build_neighbor_state(x, system) if has_cells else None

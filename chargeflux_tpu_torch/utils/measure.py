@@ -114,6 +114,14 @@ F32 = 4  # bytes of a float32 or an int32
 # backward adds for the derivatives and the two ends' gradients
 EXCL_FWD_FLOPS = 67
 EXCL_BWD_EXTRA_FLOPS = 62
+# flops of one bond and one angle row in csrc/bonded_terms.cu, counted the
+# same way (a periodic minimum image is 6 a component; acos 1): the
+# forward's energy, and what the backward adds for the derivatives and
+# the row's atoms' gradients; and per atom of the backward, the cotangent
+BOND_FWD_FLOPS = 29
+ANGLE_FWD_FLOPS = 63
+BOND_BWD_EXTRA_FLOPS = 11
+ANGLE_BWD_EXTRA_FLOPS = 45
 # the port's hand-written kernels, as a profiler trace names them
 PORT_KERNELS = re.compile(r"\(anonymous namespace\)::"
                           r"(spread_|direct_walk|sf_|cell_bin_)")
@@ -184,6 +192,16 @@ def kernel_bound(name: str, **dims) -> dict:
       flops and EXCL_BWD_EXTRA_FLOPS a pair for its derivatives and the
       two ends' gradients; bytes: the same in, dE/dx and dE/dq out (4 words
       an atom); the box, the rows and the partial sums, a few words, aside.
+    bonded_fwd / bonded_bwd (n_molecules, stride, n_bonds, n_angles): one
+      template's bonds and angles (``ops.bonded_terms``), n_bonds and
+      n_angles rows a molecule.  Forward: BOND_FWD_FLOPS a bond and
+      ANGLE_FWD_FLOPS an angle (minimum images, lengths, the cosine, acos,
+      the harmonic terms and the sum); bytes: the molecule's positions and
+      two parameters a row in.  Backward: the forward's flops, the
+      *_BWD_EXTRA_FLOPS a row and 3 an atom (the cotangent); bytes: the
+      same in, dE/dx out (3 words an atom).  Each row counts once (the
+      kernel recomputes a row for each of its atoms); the box, the rows'
+      table and the partial sums, a few words, aside.
     """
     d = dims
     if name in ("spread_fwd", "spread_bwd"):
@@ -238,6 +256,15 @@ def kernel_bound(name: str, **dims) -> dict:
         if name == "exclusion_bwd":
             flops += d["n_pairs"] * EXCL_BWD_EXTRA_FLOPS
             nbytes += F32 * 4 * d["n_atoms"]
+    elif name in ("bonded_fwd", "bonded_bwd"):
+        n_m, nb, na, s = (d["n_molecules"], d["n_bonds"], d["n_angles"],
+                          d["stride"])
+        flops = n_m * (nb * BOND_FWD_FLOPS + na * ANGLE_FWD_FLOPS)
+        nbytes = F32 * n_m * (3 * s + 2 * nb + 2 * na)
+        if name == "bonded_bwd":
+            flops += n_m * (nb * BOND_BWD_EXTRA_FLOPS
+                            + na * ANGLE_BWD_EXTRA_FLOPS + 3 * s)
+            nbytes += F32 * n_m * 3 * s
     else:
         raise ValueError(f"no bound for kernel {name!r}")
     t_ops, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -1196,17 +1223,69 @@ def exclusion_inputs(system, x, seed: int = 0, drift: float = 0.01):
     from ..charges import effective_charges
 
     box = system.box
+    x = wrapped_positions(x, box, seed, drift)
+    with torch.no_grad():
+        q = effective_charges(x, system).contiguous()
+    return (x, q, system.sigma.to(x.dtype), system.epsilon.to(x.dtype),
+            box)
+
+
+def wrapped_positions(x, box, seed: int = 0, drift: float = 0.01):
+    """``x`` shifted by a random fraction of the box [3]'s edges, each atom
+    moved by up to ``drift`` nm per coordinate (a generator seeded with
+    ``seed``), then wrapped atom by atom into the box (contiguous); with
+    ``box`` None (no periodicity), only moved."""
     g = torch.Generator(x.device).manual_seed(seed)
 
     def uniform(shape):
         return torch.rand(shape, device=x.device, generator=g, dtype=x.dtype)
 
     with torch.no_grad():
+        if box is None:
+            return (x + drift * (2.0 * uniform(x.shape) - 1.0)).contiguous()
         x = x + box * uniform((3,)) + drift * (2.0 * uniform(x.shape) - 1.0)
-        x = (x - box * torch.floor(x / box)).contiguous()
-        q = effective_charges(x, system).contiguous()
-    return (x, q, system.sigma.to(x.dtype), system.epsilon.to(x.dtype),
-            box)
+        return (x - box * torch.floor(x / box)).contiguous()
+
+
+def bonded_inputs(bonded, x, seed: int = 0, drift: float = 0.01):
+    """Per template of ``bonded``, the bonded kernels' arguments at ``x``
+    (:func:`wrapped_positions` in its box, so that molecules straddle the
+    box's faces): (positions, bond_k, bond_r0, angle_k, angle_theta0, box,
+    template, b0, a0, pbc), b0 and a0 the template's first parameter
+    rows.  Without periodicity the atoms are only moved."""
+    x = wrapped_positions(x, bonded.box if bonded.pbc else None, seed, drift)
+    out, b0, a0 = [], 0, 0
+    for tpl in bonded.template.templates:
+        out.append((x, bonded.bond_k, bonded.bond_r0, bonded.angle_k,
+                    bonded.angle_theta0, bonded.box, tpl, b0, a0,
+                    bonded.pbc))
+        b0 += tpl.count * len(tpl.local_rows("bonds"))
+        a0 += tpl.count * len(tpl.local_rows("angles"))
+    return out
+
+
+def bonded_scale(args) -> float:
+    """The sum over a template's rows of each row's |energy| (the bonded
+    kernels' arguments ``args``, :func:`bonded_inputs`): the scale of its
+    energy's round-off."""
+    from ..ops.bonded_terms import _angle_e, _bond_e
+
+    x, bk, br0, ak, at0, box, tpl, b0, a0, pbc = args
+    c, s = tpl.count, tpl.stride
+    p = x[tpl.offset:tpl.offset + c * s].reshape(c, s, 3)
+    total = 0.0
+    with torch.no_grad():
+        for rows, k, v, start, fn in (
+                (tpl.local_rows("bonds"), bk, br0, b0, _bond_e),
+                (tpl.local_rows("angles"), ak, at0, a0, _angle_e)):
+            m = len(rows)
+            k = k[start:start + c * m].reshape(c, m, 1)
+            v = v[start:start + c * m].reshape(c, m, 1)
+            for t, row in enumerate(rows):
+                e = fn(*(p[:, i, None] for i in row), k[:, t], v[:, t], box,
+                       pbc)
+                total += float(e.double().abs().sum())
+    return total
 
 
 def exclusion_scale(args, tpl, spec, subtract_direct: bool) -> float:

@@ -51,6 +51,13 @@ in order:
    molecules straddle the box's faces; E within 1e-6 of the sum of the
    pair terms' magnitudes, the gradients within 1e-5 of their max), timed
    as in phase 3 beside their bound (no library call computes them);
+3e. the bonded kernels (``bonded_fwd`` / ``bonded_bwd``) against their
+   plain chain at the 30k start and at the benchmark's 98k box (each
+   shifted, drifted by up to 0.01 nm and wrapped atom by atom; E within
+   1e-6 of the sum of the rows' |energy|, the gradient within 1e-5 of its
+   max), timed as in phase 3 beside their bound (no library call computes
+   them); one bonded evaluation with its gradient at the 30k start
+   launches each once, its plain copy neither;
 4. / 4b. energy_and_forces at the start positions of each path: kernel
    path against the plain path (the system's copy on the plain route) in
    f32 and in f64 on the card, and the f64 system on its own route (it
@@ -74,7 +81,8 @@ in order:
    energies, final positions and velocities must be bit-equal, and both
    ms/step are printed.  The launch counts are reset just before the 200
    steps (whose graphs that check captured) and each kernel of that path
-   must have launched: a replay counts the launches its capture counted;
+   must have launched (on every path with bonded terms, the bonded
+   kernels too): a replay counts the launches its capture counted;
 5c. rigid NVT at the 30k box (the JAX package's ``bench.py rigid``,
    ``utils.measure.rigid_path``): rigid water, fixed charges,
    RATTLE-BAOAB at 2 fs after its 20/ps burn-in, then 200 steps at
@@ -228,6 +236,8 @@ ROOT = Path(__file__).resolve().parent
 SF_SRC = "chargeflux_tpu_torch/csrc/structure_factor.cu"
 EXCL_SRC = "chargeflux_tpu_torch/csrc/exclusion_pairs.cu"
 EXCL_REPL = "chargeflux_tpu/energy.py:115 (XLA fusion, not Pallas)"
+BONDED_SRC = "chargeflux_tpu_torch/csrc/bonded_terms.cu"
+BONDED_REPL = "chargeflux_tpu/bonded.py:73 (XLA fusion, not Pallas)"
 # wrapper: (source, the TPU kernel it replaces, the path that runs it)
 KERNELS = {
     "spread_fwd": ("chargeflux_tpu_torch/csrc/pme_spread.cu",
@@ -261,6 +271,13 @@ KERNELS = {
     "exclusion_bwd": (EXCL_SRC, EXCL_REPL, "30k"),
     "exclusion_fwd_98k": (EXCL_SRC, EXCL_REPL, "98k"),
     "exclusion_bwd_98k": (EXCL_SRC, EXCL_REPL, "98k"),
+    # the templated bonds and angles (no Pallas kernel: the JAX package's
+    # jnp slices, which XLA fuses), on every path with bonded terms; the
+    # _98k rows are phase 3e's at the benchmark box's shapes
+    "bonded_fwd": (BONDED_SRC, BONDED_REPL, "bonded"),
+    "bonded_bwd": (BONDED_SRC, BONDED_REPL, "bonded"),
+    "bonded_fwd_98k": (BONDED_SRC, BONDED_REPL, "98k"),
+    "bonded_bwd_98k": (BONDED_SRC, BONDED_REPL, "98k"),
     "sf_fwd": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:145", "216"),
     "sf_bwd_tables": (SF_SRC, "chargeflux_tpu/ops/pallas_recip.py:157",
                       "216"),
@@ -295,6 +312,10 @@ WEIGHT_BWD_TOLS = 2e-5
 # ct dE/dq within 1e-5 of their max
 EXCL_E_TOL = 1e-6
 EXCL_GRAD_TOL = 1e-5
+# the bonded kernels: E within 1e-6 of the sum of the rows' |energy|, ct
+# dE/dx within 1e-5 of its max
+BONDED_E_TOL = 1e-6
+BONDED_GRAD_TOL = 1e-5
 
 
 def fail(msg: str):
@@ -514,6 +535,72 @@ def check_exclusions(system, x, results):
                 "pairs' correction")
 
 
+def check_bonded(bonded, x, results):
+    """Phase 3e: the bonded kernels against their plain chain at the 30k
+    start and at the benchmark's 98k box, each shifted, drifted by up to
+    0.01 nm and wrapped atom by atom (``utils.measure.bonded_inputs``),
+    timed as in phase 3 beside their bound (the plain chain's backward row
+    times its forward and backward through autograd); then one bonded
+    evaluation and its gradient at the 30k start on the kernel route and
+    on the plain copy, counting launches."""
+    import torch
+
+    from chargeflux_tpu_torch import ops
+    from chargeflux_tpu_torch.bonded import bonded_energy
+    from chargeflux_tpu_torch.models import water_bonded_params, water_box
+    from chargeflux_tpu_torch.ops import bonded_terms as bt
+    from chargeflux_tpu_torch.utils.measure import (bonded_inputs,
+                                                    bonded_scale,
+                                                    kernel_bound)
+
+    dev = x.device
+    _f, pos, masses, box = water_box(n_side=32, cutoff=1.0)
+    b98 = water_bonded_params(len(masses) // 3, box=box, device=dev)
+    x98 = torch.tensor(pos, dtype=torch.float32, device=dev)
+    ct = torch.ones((), device=dev)
+    for label, bd, xx, suffix in (("30k", bonded, x, ""),
+                                  ("98k", b98, x98, "_98k")):
+        (args,) = bonded_inputs(bd, xx, seed=22)
+        tpl = args[6]
+        dims = dict(n_molecules=tpl.count, stride=tpl.stride,
+                    n_bonds=len(tpl.local_rows("bonds")),
+                    n_angles=len(tpl.local_rows("angles")))
+        with torch.no_grad():
+            e_plain = float(bt.bonded_fwd_plain(*args))
+        scale = bonded_scale(args)
+        where = (f"phase 3e at the {label} shapes ({dims['n_molecules']} "
+                 f"molecules of {dims['stride']} atoms, {dims['n_bonds']} "
+                 f"bonds and {dims['n_angles']} angles each; sum of |row "
+                 f"energies| {scale:.6e})")
+        cases = {
+            "bonded_fwd": (lambda: (bt.bonded_fwd(*args),),
+                           lambda: (bt.bonded_fwd_plain(*args),),
+                           BONDED_E_TOL * scale / abs(e_plain)),
+            "bonded_bwd": (lambda: (bt.bonded_bwd(*args, ct),),
+                           lambda: (bt.bonded_bwd_plain(*args, ct),),
+                           BONDED_GRAD_TOL)}
+        for name, (kern, plain, tol) in cases.items():
+            results[name + suffix] = kernel_entry(name + suffix, compare(
+                name, kern, plain, tol, where, kernel_bound(name, **dims)))
+            results[name + suffix]["library_note"] = (
+                "no single call: no PyTorch call computes the bonds' and "
+                "angles' energy")
+    seen = {}
+    for route in ("cuda", "plain"):
+        xg = x.clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        e = bonded_energy(xg, bonded.with_kernel_route(route))
+        torch.autograd.grad(e, xg)
+        torch.cuda.synchronize()
+        seen[route] = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"phase 3e one bonded evaluation and its gradient at the 30k "
+          f"start: kernel route launched {seen['cuda']}, the plain copy "
+          f"{seen['plain'] or 'no kernel'}", flush=True)
+    if seen["cuda"] != {"bonded_fwd": 1, "bonded_bwd": 1} or seen["plain"]:
+        fail("phase 3e: a bonded evaluation must launch each bonded kernel "
+             "once on the kernel route and none on the plain copy")
+
+
 def weights_agree(walk_args, system, where):
     """The patch weights' kernels against their plain versions on the
     blocks of the walk's arguments ``walk_args`` (phase 3's tolerances,
@@ -710,7 +797,7 @@ def run_md(force, system0, x, masses, box):
           flush=True)
     if int(final.nb.overflow) != 0:
         fail("binning overflow in the NVE run")
-    return (check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager,
+    return (check_30k_launches(launches), ms, ms_eager,
             capture, (system, s1, rebuild_every, bonded, masses))
 
 
@@ -942,8 +1029,7 @@ def run_npt(dev):
              "pressure_bar": p, "pressure_s": p_s,
              "pressure_peak_gib": peak,
              "ns_per_day": ns_per_day(DT_PS, ms)}
-    return check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager, \
-        extra
+    return check_30k_launches(launches), ms, ms_eager, extra
 
 
 def run_thermostats(dev, ctx):
@@ -975,7 +1061,7 @@ def run_thermostats(dev, ctx):
     if not abs(t_mean / 300.0 - 1.0) <= T_TOL:
         fail(f"phase 7b: CSVR mean temperature {t_mean:.2f} K is not "
              f"within {T_TOL:.0%} of 300 K")
-    check_launches(launches, "30k", lambda c: c > 0)
+    check_30k_launches(launches)
     s_eq = settle("7b nhc", thermostat_drive("nhc", system, s1, every, m,
                                              bonded)[0], DT_PS)
     drive, e_fn, init_nb = thermostat_drive("nhc", system, s_eq, every, m,
@@ -1145,8 +1231,8 @@ def run_nvt(phase, label, path, drive, dt_ps, params=None):
     if res is not None and not res <= RESIDUAL_TOL:
         fail(f"phase {phase}: constraint residual {res:.3e} nm^2 exceeds "
              f"{RESIDUAL_TOL:g}")
-    return check_launches(launches, "30k", lambda c: c > 0), ms, ms_eager, \
-        final
+    return (check_30k_launches(launches, path.get("bonded") is not None), ms,
+            ms_eager, final)
 
 
 PDB_TOL_NM = 5e-5 + 1e-9   # PDB columns: 1e-3 Angstrom, rounded
@@ -1386,7 +1472,10 @@ def run_rbe(dev, ctx):
     print(f"phase 9b took {seconds:.1f} s (host clock)", flush=True)
     if launches["cell_bin"] == 0:
         fail("phase 9b: RBE's neighbor rebuilds must run the binning kernel")
-    return {k: launches[k] for k in ("direct_walk", "cell_bin")}, {
+    if not (launches["bonded_fwd"] > 0 and launches["bonded_bwd"] > 0):
+        fail("phase 9b: the RBE path must run the bonded kernels")
+    return {k: launches[k] for k in ("direct_walk", "cell_bin", "bonded_fwd",
+                                     "bonded_bwd")}, {
         "ms_per_step": ms, "ms_per_step_eager": ms_eager,
         "ms_per_step_p512": ms4, "t_mean_k": t_mean, "t_mean_k_p512": t_mean4,
         "ms_per_step_spme_same_call": ms_spme, "estimator_z": z,
@@ -1546,6 +1635,15 @@ def check_launches(launches, path, ok):
     for name, count in counts.items():
         if not ok(count):
             fail(f"kernel {name}: {count} launches on the {path} path")
+    return counts
+
+
+def check_30k_launches(launches, bonded: bool = True):
+    """:func:`check_launches` of the 30k path's kernels and, on a path with
+    bonded terms, of the bonded kernels: each launched."""
+    counts = check_launches(launches, "30k", lambda c: c > 0)
+    if bonded:
+        counts.update(check_launches(launches, "bonded", lambda c: c > 0))
     return counts
 
 
@@ -2243,7 +2341,7 @@ def main():
     from chargeflux_tpu_torch.utils.measure import bench_path, dense_path
 
     dev = torch.device("cuda", 0)
-    force, x, m, box, _, system = bench_path("30k", dev)
+    force, x, m, box, bonded, system = bench_path("30k", dev)
     spec = system.spec
     print(f"phase 3 system: {system.n_atoms} atoms, cells {spec.cell_grid} "
           f"cap {spec.cell_capacity}, PME {spec.pme_grid} order "
@@ -2261,6 +2359,7 @@ def main():
     check_sf_kernels(results)
     check_binning(system, x, results)
     check_exclusions(system, x, results)
+    check_bonded(bonded, x, results)
     check_energy(system, x, "4")
     check_energy(sys_d, x_d, "4b")
     launches, ms_step, ms_eager, capture, ctx30k = run_md(force, system, x,

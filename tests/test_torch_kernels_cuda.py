@@ -19,6 +19,8 @@ from chargeflux_tpu_torch.device import constant
 from chargeflux_tpu_torch.energy import energy_and_forces, energy_components
 from chargeflux_tpu_torch.models import water_box
 from chargeflux_tpu_torch.neighbors import build_neighbor_state
+from chargeflux_tpu_torch.bonded import bonded_energy
+from chargeflux_tpu_torch.ops import bonded_terms as bt
 from chargeflux_tpu_torch.ops import cell_bin as cb
 from chargeflux_tpu_torch.ops import direct_walk as dw
 from chargeflux_tpu_torch.ops import exclusion as ex
@@ -27,7 +29,8 @@ from chargeflux_tpu_torch.ops import pme_spread as ps
 from chargeflux_tpu_torch.ops import pme_weights as pw
 from chargeflux_tpu_torch.ops import structure_factor as sf
 from chargeflux_tpu_torch.ops.erfc import erf_over_r_coeffs
-from chargeflux_tpu_torch.utils.measure import (bench_path, dense_path,
+from chargeflux_tpu_torch.utils.measure import (bench_path, bonded_inputs,
+                                                bonded_scale, dense_path,
                                                 exclusion_inputs,
                                                 exclusion_scale,
                                                 patch_weight_inputs)
@@ -357,6 +360,129 @@ def test_an_evaluation_launches_the_exclusion_kernels_once_each_way(
         assert float(rms) <= f_tol
 
 
+@pytest.fixture(scope="module")
+def bonded_boxes(weights_96k):
+    """The bonded kernels' arguments, per template, on the benchmark's
+    98k-atom water box and on bench.py's hetero30k box (a chain in water:
+    a template and remainder rows), each shifted, drifted up to 0.01 nm and
+    wrapped atom by atom into the box (molecules straddle its faces); with
+    each box's bonded terms and lattice positions."""
+    from chargeflux_tpu_torch.models import water_bonded_params
+
+    dev = weights_96k["args"][0].device
+    _f, pos, masses, box = water_box(n_side=32, cutoff=1.0)
+    b96 = water_bonded_params(len(masses) // 3, box=box, device=dev)
+    x96 = torch.tensor(pos, dtype=torch.float32, device=dev)
+    _f, x_h, _m, _b, b_h, _s = bench_path("hetero30k", dev)
+    assert b_h.plan is not None                  # remainder rows as well
+    return {name: (bonded, bonded_inputs(bonded, x, seed=22), x)
+            for name, bonded, x in (("98k", b96, x96),
+                                    ("hetero30k", b_h, x_h))}
+
+
+def test_bonded_kernels_match_plain(bonded_boxes):
+    """Each template of both boxes: E within 1e-6 of the sum of the rows'
+    |energy|, ct dE/dx (ct 1.5) within 1e-5 of its max, zero outside the
+    template's atoms; two launches bit-equal; each wrapper counts one
+    launch a call."""
+    n0 = dict(ops.launch_counts())
+    calls = 0
+    for name, (bonded, cases, _) in bonded_boxes.items():
+        assert bonded.uses_kernels
+        for args in cases:
+            tpl = args[6]
+            label = f"{name} {tpl.count}x{tpl.stride}"
+            e1, e2 = bt.bonded_fwd(*args), bt.bonded_fwd(*args)
+            e_p = bt.bonded_fwd_plain(*args)
+            assert torch.equal(e1, e2), label
+            assert abs(float(e1) - float(e_p)) <= 1e-6 * bonded_scale(args), \
+                label
+            ct = torch.tensor(1.5, device=e1.device)
+            g1, g2 = bt.bonded_bwd(*args, ct), bt.bonded_bwd(*args, ct)
+            g_p = bt.bonded_bwd_plain(*args, ct)
+            assert torch.equal(g1, g2), label
+            assert _max_rel(g1, g_p) <= 1e-5, label
+            outside = torch.ones(g1.shape[0], dtype=torch.bool,
+                                 device=g1.device)
+            outside[tpl.offset:tpl.offset + tpl.count * tpl.stride] = False
+            assert not g1[outside].any(), label
+            calls += 2
+    counts = ops.launch_counts()
+    assert counts["bonded_fwd"] == n0["bonded_fwd"] + calls
+    assert counts["bonded_bwd"] == n0["bonded_bwd"] + calls
+
+
+def test_bonded_kernels_poison_a_nan_position_as_plain(bonded_boxes):
+    """A NaN coordinate: E NaN, and NaN on the same gradients as the plain
+    chain (every atom of its molecule), the rest within 1e-5."""
+    _, (args,), _ = bonded_boxes["98k"]
+    x = args[0].clone()
+    x[3 * 1000 + 1, 2] = float("nan")
+    bad = (x, *args[1:])
+    assert torch.isnan(bt.bonded_fwd(*bad))
+    ct = torch.tensor(1.0, device=x.device)
+    g_k, g_p = bt.bonded_bwd(*bad, ct), bt.bonded_bwd_plain(*bad, ct)
+    assert torch.equal(torch.isnan(g_k), torch.isnan(g_p))
+    assert bool(torch.isnan(g_k[3000:3003]).all())
+    assert int(torch.isnan(g_k).any(dim=1).sum()) == 3
+    ok = ~torch.isnan(g_p)
+    assert _max_rel(g_k[ok], g_p[ok]) <= 1e-5
+
+
+def test_bonded_kernels_replay_in_a_cuda_graph(bonded_boxes):
+    """Both wrappers captured into one CUDA graph replay the eager calls'
+    bits; new positions copied into the captured input give their own."""
+    bonded, (args,), x0 = bonded_boxes["98k"]
+    other = bonded_inputs(bonded, x0, seed=23)[0][0]
+    static = args[0].clone()
+    ct = torch.tensor(1.0, device=static.device)
+    bt.bonded_fwd(static, *args[1:])                          # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        e = bt.bonded_fwd(static, *args[1:])
+        g = bt.bonded_bwd(static, *args[1:], ct)
+    for x in (args[0], other, args[0]):
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(e, bt.bonded_fwd(x, *args[1:]))
+        assert torch.equal(g, bt.bonded_bwd(x, *args[1:], ct))
+
+
+def test_an_evaluation_launches_the_bonded_kernels_once_each_way(
+        bonded_boxes):
+    """bonded_energy and its gradient on the kernel route: one forward and
+    one backward bonded launch per template, and no other counted kernel
+    (the water box has one template; hetero30k's chain rows take the
+    gather); the f32 terms on the card record "cuda", their f64 cast and
+    their plain copy "plain" and launch none.  Against the plain copy:
+    |dE| <= 1e-6 of the rows' summed |energy|, dE/dx <= 1e-5 of its
+    max."""
+    for name, (bonded, cases, _) in bonded_boxes.items():
+        x = cases[0][0]
+        out = {}
+        for route in ("cuda", "plain"):
+            b = bonded.with_kernel_route(route)
+            assert b.kernel_route == route
+            xg = x.clone().requires_grad_(True)
+            ops.reset_launch_counts()
+            e = bonded_energy(xg, b)
+            (g,) = torch.autograd.grad(e, xg)
+            torch.cuda.synchronize()
+            out[route] = (ops.launch_counts(), e.detach(), g)
+        counts, e_k, g_k = out["cuda"]
+        n_tpl = len(bonded.template.templates)
+        assert {k: v for k, v in counts.items() if v} == {
+            "bonded_fwd": n_tpl, "bonded_bwd": n_tpl}, name
+        counts, e_p, g_p = out["plain"]
+        assert not any(counts.values()), name
+        scale = sum(bonded_scale(a) for a in cases)
+        assert abs(float(e_k - e_p)) <= 1e-6 * scale, name
+        assert _max_rel(g_k, g_p) <= 1e-5, name
+        assert bonded.astype(torch.float64).kernel_route == "plain"
+
+
 # (id, n_col, Wx, Wyp, rows, order, Gz, zorg layout, one column all q = 0)
 SPREAD_EDGES = [
     ("random-zorg-gz16", 9, 6, 8, 128, 8, 16, "random", False),
@@ -629,7 +755,7 @@ def test_the_plain_copy_launches_no_kernel():
     """bench.py's 30k system in f32 and its copy from
     ``with_kernel_route("plain")``, each through ``make_nb_energy_fn``: the
     system's ``init_nb`` launches the binning kernel alone and its
-    evaluation the walk, weights, spread and exclusion kernels; the
+    evaluation the walk, weights, spread, exclusion and bonded kernels; the
     copy's ``init_nb`` and evaluation launch no kernel, the binning
     included; energy and forces within phase 4's limits."""
     if not torch.cuda.is_available():
@@ -651,7 +777,8 @@ def test_the_plain_copy_launches_no_kernel():
     assert binned["cell_bin"] == 1 and sum(binned.values()) == 1
     assert all(counts[k] >= 1 for k in (
         "direct_walk", "patch_weights_fwd", "patch_weights_bwd",
-        "spread_fwd", "spread_bwd", "exclusion_fwd", "exclusion_bwd"))
+        "spread_fwd", "spread_bwd", "exclusion_fwd", "exclusion_bwd",
+        "bonded_fwd", "bonded_bwd"))
     binned, counts, e_p, f_p = out[True]
     assert not any(counts.values())
     rms = torch.sqrt(torch.mean((f_k - f_p) ** 2) / torch.mean(f_p ** 2))

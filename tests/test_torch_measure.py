@@ -249,7 +249,7 @@ def test_sf_tables_are_the_216_path_shapes():
 def test_traced_launches_counts_each_wrappers_kernel():
     """The profiler names of the port's kernels map onto the launch
     counters: the wrapper's counted kernel only (not spread_fwd's fold or
-    the exclusion forward's final sum), device events only."""
+    the exclusion and bonded forwards' final sums), device events only."""
     class Event:
         def __init__(self, name, device="DeviceType.CUDA"):
             self.name, self.device_type = name, device
@@ -282,6 +282,12 @@ def test_traced_launches_counts_each_wrappers_kernel():
               "const*)"),
         Event("(anonymous namespace)::exclusion_pairs_bwd_kernel(float "
               "const*)"),
+        Event("(anonymous namespace)::bonded_terms_fwd_kernel(float "
+              "const*)"),
+        Event("(anonymous namespace)::bonded_terms_total_kernel(double "
+              "const*)"),
+        Event("(anonymous namespace)::bonded_terms_bwd_kernel(float "
+              "const*)"),
         Event("cudaGraphLaunch", "DeviceType.CPU"),
     ]
     assert measure.traced_launches(events) == {
@@ -289,8 +295,8 @@ def test_traced_launches_counts_each_wrappers_kernel():
         "direct_walk_tri": 1, "direct_walk_halo": 1, "sf_fwd": 0,
         "sf_bwd_tables": 2, "sf_bwd_zq": 0, "cell_bin": 1,
         "patch_weights_fwd": 1, "patch_weights_bwd": 1, "exclusion_fwd": 1,
-        "exclusion_bwd": 1}
-    assert len(measure.device_events(events)) == 15
+        "exclusion_bwd": 1, "bonded_fwd": 1, "bonded_bwd": 1}
+    assert len(measure.device_events(events)) == 18
 
 
 def test_rigid_path_small_box():
@@ -439,6 +445,22 @@ def test_kernel_bound_exclusions_at_the_96k_shapes(name, flops, words):
     b = measure.kernel_bound(name, n_atoms=98_304, n_pairs=98_304)
     assert b["flops"] == 98_304 * flops
     assert b["bytes"] == 4 * 98_304 * words
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e9)
+
+
+@pytest.mark.parametrize("name, flops, words", [
+    ("bonded_fwd", 2 * 29 + 63, 9 + 2 * 2 + 2),
+    ("bonded_bwd", 2 * (29 + 11) + 63 + 45 + 9, 9 + 2 * 2 + 2 + 9)])
+def test_kernel_bound_bonded_at_the_96k_shapes(name, flops, words):
+    """The bonded kernels at the benchmark box (32,768 waters, two bonds
+    and an angle each): the flops a molecule, the words it moves
+    (positions and two parameters a row in; dE/dx out), and bytes set the
+    bound."""
+    b = measure.kernel_bound(name, n_molecules=32_768, stride=3, n_bonds=2,
+                             n_angles=1)
+    assert b["flops"] == 32_768 * flops
+    assert b["bytes"] == 4 * 32_768 * words
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e9)
 

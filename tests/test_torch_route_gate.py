@@ -19,6 +19,7 @@ import torch
 
 from chargeflux_tpu_torch.energy import resolve_recip_method
 from chargeflux_tpu_torch.models import water_box
+from chargeflux_tpu_torch.ops import bonded_terms as bt
 from chargeflux_tpu_torch.ops import direct_walk as dw
 from chargeflux_tpu_torch.ops import exclusion as ex
 from chargeflux_tpu_torch.ops import pme_spread as ps
@@ -116,6 +117,15 @@ def test_exclusion_gate(case):
     _, dtype, dev, want = case
     named = [(n, dtype, dev) for n in ("positions", "q", "box")]
     assert _kind(ex._refusal(named)) is want
+
+
+@pytest.mark.parametrize("case", EXCLUSION, ids=[c[0] for c in EXCLUSION])
+def test_bonded_gate(case):
+    """The bonded kernels take f32 on the card only (no size limit: a
+    template's rows are read from a table)."""
+    _, dtype, dev, want = case
+    named = [(n, dtype, dev) for n in ("positions", "bond_k", "box")]
+    assert _kind(bt._refusal(named)) is want
 
 
 def test_predicates_on_cpu_tensors_and_the_wrappers_reason():

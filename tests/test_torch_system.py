@@ -237,7 +237,8 @@ def test_cpu_wrappers_take_the_plain_path():
                                    "sf_bwd_tables": 0, "sf_bwd_zq": 0,
                                    "cell_bin": 0, "patch_weights_fwd": 0,
                                    "patch_weights_bwd": 0,
-                                   "exclusion_fwd": 0, "exclusion_bwd": 0}
+                                   "exclusion_fwd": 0, "exclusion_bwd": 0,
+                                   "bonded_fwd": 0, "bonded_bwd": 0}
     assert jax.devices()[0].platform == "cpu"
 
 
